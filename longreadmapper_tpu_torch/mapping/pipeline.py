@@ -20,9 +20,19 @@ All phases are one batched tensor step.
 32 + head) int8 = 8 little-endian int32 meta words per read followed by
 the eager head of the pad-sorted CIGAR run entries, and `ops_tail`.
 
-Slice: read-length buckets L <= 2048, host-encoded input, the full index
-layout with int32 positions, the column traceback.  Everything else raises
-NotImplementedError naming its ROADMAP.md item.
+Align has two branches, chosen per length bucket by MapperConfig.use_gact:
+  * resident dirs (L <= gact_threshold, or a direction volume within
+    mid_dirs_budget): one banded DP pass emitting every direction word,
+    then the column walk (int32 run entries once counts reach 8192);
+  * tiled gact (longer buckets whose volume does not fit): a checkpointed
+    forward pass, then the walk rematerializes each tile's directions from
+    its checkpoint row (ops/gact.py).
+Long buckets run a narrow first pass (short_W_override / half_band) and
+flag reads whose ed reaches it (overflow bit 2) for the full-band retry.
+
+Slice: host-encoded input, the full index layout with int32 positions, the
+column traceback.  Everything else raises NotImplementedError naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ from longreadmapper_tpu.utils.config import Params
 from ..device import roadmap_gap
 from ..index.device import DeviceIndex, IndexMeta
 from ..ops.band_dp import banded_nw_dirs
+from ..ops.band_scores import band_checkpoints
+from ..ops.gact import gact_traceback_c
 from ..ops.rank import backward_step
 from ..ops.traceback import device_traceback_c
 from ..ops.vote import top2_small_histo, top2_votes
@@ -48,7 +60,8 @@ I32 = torch.int32
 @dataclass(frozen=True)
 class MapperConfig:
     """Static shape parameters of one step (the JAX MapperConfig's fields
-    that the short-read path reads; it reads no environment knobs)."""
+    that the ported paths read, with JAX's defaults; it reads no
+    environment knobs)."""
     B: int               # reads per device chunk
     L: int               # padded max read length (a bucket)
     seed_len: int
@@ -62,7 +75,14 @@ class MapperConfig:
     vote_budget: int = 256
     wide_budget: int = 0
     exact_slots: bool = False   # full headroom budget (the retry tier)
-    GACT_THRESHOLD: ClassVar[int] = 2048   # longer buckets: long-read path
+    gact_tile: int = 512        # row tile of the checkpointed long-read path
+    gact_threshold: int = 2048  # longer buckets may take the gact path
+    gact_runs_scale: int = 1    # gact run-buffer multiplier (saturation tier)
+    # direction-volume ceiling of the resident path for long buckets: above
+    # it a long bucket takes the tiled gact path
+    mid_dirs_budget: int = 1 << 30
+    half_band: bool = False     # gact first pass at W/2 (overflow bit 2)
+    short_W_override: int = 0   # resident first pass at this W (bit 2)
     OPS_HEAD_COLS: ClassVar[int] = 16      # eager CIGAR run bytes per read
     META_WORDS: ClassVar[int] = 8          # int32 words per read in `blob`
 
@@ -129,15 +149,47 @@ class MapperConfig:
         return max(8, int(self.error_rate * self.L * 2))
 
     @property
-    def band(self) -> int:
-        return -(-(2 * self.W + 1) // 128) * 128
+    def use_gact(self) -> bool:
+        """Long buckets whose resident direction volume passes the budget
+        take the tiled gact path."""
+        if self.L <= self.gact_threshold:
+            return False
+        vol = self.B * (self.L // 16) * self.short_band * 4
+        return vol > self.mid_dirs_budget
+
+    @property
+    def gact_W(self) -> int:
+        # half-band first pass: a lane with ed < W' has the same H values
+        # (and walk) in the W' band as in the full one; ed' >= W' lanes
+        # flag bit 2 for the full-band retry
+        if self.half_band:
+            return min(self.W, max(64, self.W // 2))
+        return self.W
+
+    @property
+    def gact_band(self) -> int:
+        return -(-(2 * self.gact_W + 1) // 128) * 128
+
+    @property
+    def short_W(self) -> int:
+        if 0 < self.short_W_override < self.W:
+            return self.short_W_override
+        return self.W
+
+    @property
+    def short_band(self) -> int:
+        return -(-(2 * self.short_W + 1) // 128) * 128
 
     @property
     def tb_entry_bytes(self) -> int:
-        """Width of the column walk's run entries: int16 while counts
-        (< max(L, band - W)) fit its 14-bit count field."""
-        assert max(self.L, self.band - self.W) < 8192
-        return 2
+        """Width of the column walk's run entries: the count field is
+        entry_bits - 2 wide.  Resident counts reach max(L, band - W), so
+        int16 until 8192, then int32; the gact walk's counts are bounded
+        by max(T, band - W) < 8192 (checked in ops/gact), so int16."""
+        if self.use_gact:
+            return 2
+        cmax = max(self.L, self.short_band - self.short_W)
+        return 2 if cmax < 8192 else 4
 
     @staticmethod
     def from_params(p: Params, meta: IndexMeta, B: int, L: int
@@ -146,15 +198,11 @@ class MapperConfig:
             raise roadmap_gap("the pos64 index layout", "A10")
         if meta.slim:
             raise roadmap_gap("the slim index layout", "A10")
-        cfg = MapperConfig(
+        return MapperConfig(
             B=B, L=L, seed_len=p.seed_len, gap_len=p.gap_len,
             thres=p.thres, hlen=meta.hlen, n=meta.n,
             dollar_pos=meta.dollar_pos, accept_score=p.accept_score,
             error_rate=p.error_rate, vote_budget=p.vote_budget)
-        if L > cfg.GACT_THRESHOLD:
-            raise roadmap_gap(f"reads longer than {cfg.GACT_THRESHOLD} "
-                              f"(bucket L={L})", "A9")
-        return cfg
 
 
 def _position_tables(cfg: MapperConfig, codes):
@@ -238,6 +286,36 @@ def _narrow_wide_seeds(cfg: MapperConfig, idx: DeviceIndex, wide,
     return k_seed, cnt, row_overflow
 
 
+def _slots_by_owner(C: int, cnt, k_seed, qw, j_ps, wide):
+    """Slot -> seed assignment, seed-major / interval-rank-minor, for C
+    slots per (read, phase) row: (p_rank, qw_slot, wide_slot, j_slot,
+    total), with j_slot = -1 on empty slots.
+
+    The seeds' slot ranges [cum - cnt, cum) are disjoint, so each occupied
+    slot has exactly one owner, found by a binary search over `cum`; the
+    JAX package reaches the same per-slot values through the (BP, S, C)
+    owns-matrix reduce or, for long reads, a merge sort (_slots_by_sort).
+    The search makes only (BP, C) temporaries, so it serves every size."""
+    S = cnt.shape[1]
+    dev = cnt.device
+    cum = torch.cumsum(cnt, dim=1, dtype=I32)
+    starts = cum - cnt
+    slots = torch.arange(C, dtype=I32, device=dev)[None, :].expand(
+        cum.shape[0], C).contiguous()
+    owner = torch.searchsorted(cum, slots, right=True)    # (BP, C) int64
+    occupied = owner < S
+    own = owner.clamp(max=S - 1)
+
+    def from_owner(x):
+        return torch.where(occupied, x.gather(1, own), 0)
+
+    p_rank = from_owner(k_seed - starts) + slots
+    qw_slot = from_owner(qw)
+    wide_slot = from_owner(wide.to(I32)) > 0
+    j_slot = from_owner(j_ps + 1) - 1
+    return p_rank, qw_slot, wide_slot, j_slot, cum[:, -1]
+
+
 def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens):
     """All seeding phases in one batched pass; returns (best, overflow)."""
     B, P, S = cfg.B, cfg.phases, cfg.max_seeds
@@ -267,30 +345,9 @@ def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens):
     k_seed, cnt, wide_overflow = _narrow_wide_seeds(
         cfg, idx, wide, k12, l12, cnt12, qw)
 
-    # slot compaction, seed-major / interval-rank-minor.  The JAX owns
-    # matrix (BP, S, C) has exactly one owner per occupied slot (the seeds'
-    # slot ranges [start, cum) are disjoint), so its masked sums equal a
-    # gather from that owner, found by a binary search over `cum`.
     CS = cfg.vote_slots
-    if B * P * S * CS > (1 << 28):
-        raise roadmap_gap("the sort-based slot assignment (_slots_by_sort, "
-                          f"B*P*S*slots = {B * P * S * CS} > 2^28)", "A7")
-    cum = torch.cumsum(cnt, dim=1, dtype=I32)
-    total = cum[:, -1]
-    starts = cum - cnt
-    slots = torch.arange(CS, dtype=I32, device=dev)[None, :].expand(
-        cum.shape[0], CS).contiguous()
-    owner = torch.searchsorted(cum, slots, right=True)    # (BP, CS) int64
-    occupied = owner < S
-    own = owner.clamp(max=S - 1)
-
-    def from_owner(x):
-        return torch.where(occupied, x.gather(1, own), 0)
-
-    p_rank = from_owner(k_seed - starts) + slots
-    qw_slot = from_owner(qw)
-    wide_slot = from_owner(wide.to(I32)) > 0
-    j_slot = from_owner(j_ps + 1) - 1                   # empty slots: -1
+    p_rank, qw_slot, wide_slot, j_slot, total = _slots_by_owner(
+        CS, cnt, k_seed, qw, j_ps, wide)
     valid = j_slot >= 0
 
     # one fused gather per vote: (SA value, packed 16-base left context)
@@ -385,9 +442,11 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
     device.  Returns dict(blob (B, 32 + head) int8, ops_tail (B, K - head)
     int8), byte-identical to the JAX make_map_step.  `mark(stage)`, when
     given, is called as each stage has been issued (runtime/stages.py
-    times them)."""
+    times them): seed_vote, locate_window, then band_dp + walk on the
+    resident path or gact_forward + gact_walk on the gact path, then
+    pack."""
     mark = mark or (lambda stage: None)
-    B, L, W, band = cfg.B, cfg.L, cfg.W, cfg.band
+    B, L, W = cfg.B, cfg.L, cfg.W
     dev = codes.device
     lens = lens.to(I32)
     limit = limits.to(I32)
@@ -401,27 +460,63 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
     t = _target_windows(cfg, idx, safe_loc)
     mark("locate_window")
 
-    vdirs, wcol, nm = banded_nw_dirs(q, t, W, band)
-    mark("band_dp")
-    ed_raw = wcol[lens.long(), torch.arange(B, device=dev)].to(I32)
+    bidx = torch.arange(B, device=dev)
+    overflow = overflow.to(I32)
+    if cfg.use_gact:
+        # long reads: checkpointed forward pass + rematerialized walk keep
+        # memory O(L/T * band) instead of O(L * band) (ops/gact.py)
+        T, Wp = cfg.gact_tile, cfg.gact_W
+        ckpt, wcol = band_checkpoints(q, t, T, Wp, cfg.gact_band)
+        mark("gact_forward")
+        narrow = cfg.half_band
+    else:
+        Wp = cfg.short_W
+        vdirs, wcol, nm = banded_nw_dirs(q, t, Wp, cfg.short_band)
+        mark("band_dp")
+        narrow = Wp < W
+    ed_raw = wcol[lens.long(), bidx].to(I32)
+    if narrow:
+        # narrow first pass: values below Wp are exact; lanes whose ed'
+        # reaches it (and whose limit the narrow band cannot certify) flag
+        # bit 2 for the full-band retry and skip their walk here
+        band_short = found & (ed_raw >= Wp) & (limit >= Wp)
+        overflow = overflow | torch.where(band_short, 4, 0).to(I32)
+    else:
+        band_short = torch.zeros_like(found)
     # dead lanes (unmapped / over-limit: CIGAR '*') skip their walk
-    alive = found & (ed_raw <= limit)
+    alive = found & (ed_raw <= limit) & ~band_short
     lens_tb = torch.where(alive, lens, 0)
-    run_units = device_traceback_c(vdirs, lens_tb, L, W, nm,
-                                   entry_dtype=torch.int16)
-    mark("walk")
+    if cfg.use_gact:
+        run_units, saturated = gact_traceback_c(
+            q, t, ckpt, lens_tb, T, Wp, cfg.gact_band,
+            scale=cfg.gact_runs_scale)
+        mark("gact_walk")
+        # a saturated shared run buffer can corrupt any lane's CIGAR: bit 1
+        # sends the chunk to the mapper's saturation tier
+        if saturated:
+            overflow = overflow | 2
+    else:
+        run_units = device_traceback_c(
+            vdirs, lens_tb, L, Wp, nm,
+            entry_dtype=torch.int16 if cfg.tb_entry_bytes == 2
+            else torch.int32)
+        mark("walk")
     K = cfg.tb_entry_bytes * run_units.shape[1]
-    ed = torch.where(ed_raw <= limit, ed_raw, -1)
+    # a bit-2 lane's ed' is only an upper bound: never report it
+    ed = torch.where((ed_raw <= limit) & ~band_short, ed_raw, -1)
 
     meta = torch.stack([best.to(I32), found.to(I32), gi, strand.to(I32),
-                        off.to(I32), ed, limit, overflow.to(I32)], dim=1)
+                        off.to(I32), ed, limit, overflow], dim=1)
     # pad entries (op 3) to the back, path order kept (stable), then the
-    # int16 entries as little-endian bytes
+    # int16/int32 entries as little-endian bytes
     is_pad = ((run_units & 3) == 3).to(torch.int8)
     _, order = torch.sort(is_pad, dim=1, stable=True)
     compact = run_units.gather(1, order).contiguous().view(torch.int8)
-    head = min(cfg.OPS_HEAD_COLS, K)
-    head -= head % cfg.tb_entry_bytes
+    if cfg.use_gact:
+        head = K          # long reads need ~2 entries per indel: all eager
+    else:
+        head = min(cfg.OPS_HEAD_COLS, K)
+        head -= head % cfg.tb_entry_bytes
     meta_bytes = meta.contiguous().view(torch.int8).reshape(
         B, 4 * cfg.META_WORDS)
     blob = torch.cat([meta_bytes, compact[:, :head]], dim=1)

@@ -89,6 +89,19 @@ def _rle_runs_batch(runs: np.ndarray,
     return out
 
 
+def _widen_entries(ops: np.ndarray, src: int, dst: int) -> np.ndarray:
+    """Run bytes of src-byte entries as bytes of dst-byte entries with the
+    same values.  Only int16 -> int32 occurs: a retry tier's entries are
+    never wider than its first pass's (the full band moves the 10 kb
+    bucket from resident int32 to gact int16, never the other way)."""
+    if src == dst:
+        return ops
+    assert (src, dst) == (2, 4), (src, dst)
+    w = ops.shape[1] - ops.shape[1] % 2
+    return np.ascontiguousarray(ops[:, :w]).view(np.int16).astype(
+        np.int32).view(np.int8)
+
+
 def _tail_needed(ops: np.ndarray, entry_bytes: int) -> bool:
     """True when some read's runs reach the last eager head slot (the
     lazily fetched tail may hold more): the last entry's op bits are not
@@ -133,8 +146,10 @@ class TorchMapper:
         self.B = chunk_b or params.chunk_size
         self._cfgs = {}
         self._retry_cfgs = {}
+        self._sat_cfgs = {}
         self.overflow_reads = 0   # reads whose final meta carries a flag
         self.retried_reads = 0    # reads re-run through the exact tier
+        self.retried_sat_chunks = 0   # gact chunks re-walked, 4x run buffer
         # wall-clock seconds per host phase: prepare = read packing,
         # dispatch = H2D + step (the step syncs the host on the walk),
         # fetch = waiting for the D2H copies, assemble = SAM building
@@ -151,18 +166,49 @@ class TorchMapper:
 
     def _step_for(self, L: int) -> MapperConfig:
         if L not in self._cfgs:
-            self._cfgs[L] = MapperConfig.from_params(
-                self.params, self.meta, self._b_for(L), L)
+            cfg = MapperConfig.from_params(self.params, self.meta,
+                                           self._b_for(L), L)
+            if L > cfg.gact_threshold:
+                # long buckets' first pass at half band on both long paths
+                # (half_band: gact, short_W_override: resident); lanes
+                # with ed >= W/2 flag bit 2 for the full-band retry
+                cfg = replace(cfg, half_band=True,
+                              short_W_override=max(64, cfg.W // 2))
+            self._cfgs[L] = cfg
         return self._cfgs[L]
 
     def _retry_step_for(self, L: int) -> MapperConfig:
-        """Exact-slots (full vote budget) config for overflow-flagged
-        reads, at a batch of at most 256."""
+        """Exact-everything config (full vote budget, full band) for
+        reads flagged with vote overflow (bit 0) or a narrow-band ed
+        (bit 2), at a batch of at most 256."""
         if L not in self._retry_cfgs:
             cfg = self._step_for(L)
             self._retry_cfgs[L] = replace(cfg, B=min(cfg.B, 256),
-                                          exact_slots=True)
+                                          exact_slots=True, half_band=False,
+                                          short_W_override=0)
         return self._retry_cfgs[L]
+
+    def _sat_step_for(self, L: int) -> MapperConfig:
+        """4x-run-buffer gact config for chunks whose shared run buffer
+        saturated (bit 1)."""
+        if L not in self._sat_cfgs:
+            cfg = self._step_for(L)
+            assert cfg.use_gact
+            self._sat_cfgs[L] = replace(cfg, gact_runs_scale=4)
+        return self._sat_cfgs[L]
+
+    def bucket_configs(self) -> List[dict]:
+        """The first-pass shape of every bucket mapped so far: B, the path
+        (resident directions or tiled gact), its W and band, the run-entry
+        width."""
+        out = []
+        for L, cfg in sorted(self._cfgs.items()):
+            W, band = ((cfg.gact_W, cfg.gact_band) if cfg.use_gact
+                       else (cfg.short_W, cfg.short_band))
+            out.append(dict(L=L, B=cfg.B,
+                            path="gact" if cfg.use_gact else "resident",
+                            W=W, band=band, entry_bytes=cfg.tb_entry_bytes))
+        return out
 
     # ------------------------------------------------------------ packing
 
@@ -273,13 +319,40 @@ class TorchMapper:
             if _tail_needed(ops, cfg.tb_entry_bytes):
                 ops = np.concatenate(
                     [ops, out["ops_tail"].cpu().numpy()], axis=1)
-            res = self._retry_overflow(cfg, reads, dict(meta=meta, ops=ops))
+            res = self._retry_saturation(cfg, reads, dict(meta=meta, ops=ops))
+            res = self._retry_overflow(cfg, reads, res)
             fetched.append((cfg, reads, lens, res))
         return fetched
 
+    def _fetch_step(self, cfg: MapperConfig, part):
+        """Run `cfg`'s step on the reads of `part` and fetch its (meta,
+        ops) in full."""
+        o = self._run_step(cfg, *self._pack_reads(part, cfg.L, cfg.B))
+        meta, ops = self._split_blob(cfg, o["blob"].cpu().numpy())
+        if ops.shape[1] and _tail_needed(ops, cfg.tb_entry_bytes):
+            ops = np.concatenate([ops, o["ops_tail"].cpu().numpy()], axis=1)
+        return meta, ops
+
+    def _retry_saturation(self, cfg: MapperConfig, reads, out):
+        """Re-walk a gact chunk whose shared run buffer saturated (bit 1,
+        ops/gact.gact_traceback_c) through the 4x-buffer tier.  The flag is
+        chunk-wide (the clamped last buffer row may hold any lane's runs),
+        so the whole chunk re-runs and its meta/ops are replaced; a flag
+        that survives even 4x shows in overflow_reads."""
+        if not cfg.use_gact or not (
+                out["meta"][:len(reads), cfg.META_WORDS - 1] & 2).any():
+            return out
+        meta, ops = self._fetch_step(self._sat_step_for(cfg.L), reads)
+        self.retried_sat_chunks += 1
+        return dict(out, meta=meta, ops=ops)
+
     def _retry_overflow(self, cfg: MapperConfig, reads, out):
-        """Re-map vote-overflow-flagged reads through the exact-slots tier
-        and splice their rows (meta with the real flag, run bytes) in."""
+        """Re-map reads flagged with vote overflow (bit 0) or a narrow-band
+        ed (bit 2) through the exact-everything tier and splice their rows
+        (meta with the real flag, run bytes) in, their run entries widened
+        to the chunk's width, which the assembly decodes with.  Bit 1
+        (gact saturation) is not retried here: more vote slots cannot fix
+        it."""
         if cfg.exact_slots:
             return out
         meta = out["meta"]
@@ -291,12 +364,9 @@ class TorchMapper:
         ops = np.asarray(out["ops"]).copy()
         for s in range(0, flagged.size, cfg_r.B):
             sel = flagged[s:s + cfg_r.B]
-            o = self._run_step(cfg_r, *self._pack_reads(
-                [reads[i] for i in sel], cfg.L, cfg_r.B))
-            meta_r, ops_r = self._split_blob(cfg_r, o["blob"].cpu().numpy())
-            if ops_r.shape[1] and _tail_needed(ops_r, cfg_r.tb_entry_bytes):
-                ops_r = np.concatenate(
-                    [ops_r, o["ops_tail"].cpu().numpy()], axis=1)
+            meta_r, ops_r = self._fetch_step(cfg_r, [reads[i] for i in sel])
+            ops_r = _widen_entries(ops_r, cfg_r.tb_entry_bytes,
+                                   cfg.tb_entry_bytes)
             if ops_r.shape[1] > ops.shape[1]:
                 pad = np.full((ops.shape[0], ops_r.shape[1] - ops.shape[1]),
                               3, np.int8)

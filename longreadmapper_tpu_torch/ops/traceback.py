@@ -41,6 +41,19 @@ def msb32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, r, -1)
 
 
+def group_below(nmf, bmidx, g_cur):
+    """Highest group strictly below g_cur whose `nm` bit is set at each
+    lane's (b, d), -1 if none.  nmf: the nm words, each flattened (B *
+    band,); bmidx = b * band + d."""
+    g2 = torch.full_like(g_cur, -1)
+    for w in range(len(nmf) - 1, -1, -1):
+        bw = nmf[w][bmidx].to(torch.int64) & _MASK32
+        lim = (g_cur - (w << 5)).clamp(0, 32)
+        bwk = bw & ((1 << lim) - 1)
+        g2 = torch.where((g2 < 0) & (bwk != 0), (w << 5) + msb32(bwk), g2)
+    return g2
+
+
 def device_traceback_c(vdirs, lens, L: int, W: int, nm,
                        entry_dtype=torch.int16):
     """vdirs (G, B, band) int32 direction words, lens (B,) (0 = skip the
@@ -78,13 +91,8 @@ def device_traceback_c(vdirs, lens, L: int, W: int, nm,
         wm_cur = ((w_cur << sh) & _MASK32) >> sh
         in_cur = wm_cur != 0
         # highest group strictly below g_cur with a non-M pair
-        bmidx = (bidx * band + d).clamp(0, B * band - 1)
-        g2 = torch.full((B,), -1, dtype=i64, device=dev)
-        for w in range(len(nmf) - 1, -1, -1):
-            bw = nmf[w][bmidx].to(i64) & _MASK32
-            lim = (g_cur - (w << 5)).clamp(0, 32)
-            bwk = bw & ((1 << lim) - 1)
-            g2 = torch.where((g2 < 0) & (bwk != 0), (w << 5) + msb32(bwk), g2)
+        g2 = group_below(nmf, (bidx * band + d).clamp(0, B * band - 1),
+                         g_cur)
         has_below = g2 >= 0
         any_nm = active & (i > 0) & (in_cur | has_below)
         gstar = torch.where(in_cur, g_cur, g2.clamp(min=0))

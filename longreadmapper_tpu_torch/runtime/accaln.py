@@ -56,9 +56,12 @@ def run_mapping(genome_path: str, reads_path: str,
         log.vlog("batch done in %.2fs (total %d)", log.elapse(t0), total)
 
     log.vlog("Done aligning")
+    for cfg in mapper.bucket_configs():
+        log.vlog("bucket %s", json.dumps(cfg))
     log.vlog("phase_s %s", json.dumps(mapper.phase_s))
-    log.vlog("retried reads %d, overflow reads %d", mapper.retried_reads,
-             mapper.overflow_reads)
+    log.vlog("retried reads %d, overflow reads %d, retried_sat_chunks %d",
+             mapper.retried_reads, mapper.overflow_reads,
+             mapper.retried_sat_chunks)
     if total:
         log.vlog("Sensitivity: %d/%d=%f", valid, total, valid / total)
     return valid, total

@@ -1,5 +1,7 @@
 """Where the mapping step's time goes: per-stage times of `map_step` and,
-on CUDA, a `torch.profiler` trace of the device kernels.
+on CUDA, a `torch.profiler` trace of the device kernels.  The stages are
+those of the branch the bucket takes (resident: band_dp, walk; gact:
+gact_forward, gact_walk).
 
 Each read chunk runs through `map_step` twice: once with a device sync
 after every stage (host clock, so a stage's time includes its launches)
@@ -31,10 +33,11 @@ TRACED_STEPS = 3
 
 
 def stage_times(genome_path: str, reads, chunk_b: int = 2048,
-                device="cuda") -> dict:
+                device="cuda", traced_steps: int = TRACED_STEPS) -> dict:
     """Mean ms per chunk of each stage and of the whole step over
     `reads` (at least two chunks) at the default parameters (seed length
-    20, threshold 300), plus the device trace on CUDA."""
+    20, threshold 300), plus the device trace of `traced_steps` steps on
+    CUDA."""
     idx, meta, mta = load_device_index(genome_path, device, verbose=False)
     mapper = TorchMapper(idx, meta, mta, Params(), chunk_b=chunk_b,
                          device=device)
@@ -70,22 +73,26 @@ def stage_times(genome_path: str, reads, chunk_b: int = 2048,
             step_s += time.perf_counter() - t0
     n = len(steps) - 1
     cfg = steps[1][0]
-    out = dict(timed_chunks=n, B=cfg.B, L=cfg.L, W=cfg.W, band=cfg.band,
+    # the first pass's band: half band on long buckets, gact or resident
+    W, band = ((cfg.gact_W, cfg.gact_band) if cfg.use_gact
+               else (cfg.short_W, cfg.short_band))
+    out = dict(timed_chunks=n, B=cfg.B, L=cfg.L,
+               path="gact" if cfg.use_gact else "resident", W=W, band=band,
                vote_slots=cfg.vote_slots, max_seeds=cfg.max_seeds,
                stage_ms={k: v / n * 1e3 for k, v in stage_s.items()},
                step_ms=step_s / n * 1e3, trace=None)
     if dev.type == "cuda":
-        out["trace"] = _trace(cfg, idx, steps[1][1])
+        out["trace"] = _trace(cfg, idx, steps[1][1], traced_steps)
     return out
 
 
-def _trace(cfg, idx, args) -> dict | None:
-    """Device kernels of TRACED_STEPS steps; None when the profiler sees
-    no device activity."""
+def _trace(cfg, idx, args, n_steps: int) -> dict | None:
+    """Device kernels of n_steps steps; None when the profiler sees no
+    device activity."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACED_STEPS):
+        for _ in range(n_steps):
             map_step(cfg, idx, *args)
         torch.cuda.synchronize()
     ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
@@ -97,6 +104,6 @@ def _trace(cfg, idx, args) -> dict | None:
     per_name = Counter()
     for e in ev:
         per_name[e.name] += e.time_range.elapsed_us()
-    return dict(steps=TRACED_STEPS, kernels=len(ev), busy_ms=busy / 1e3,
+    return dict(steps=n_steps, kernels=len(ev), busy_ms=busy / 1e3,
                 span_ms=span / 1e3, busy_share=busy / span,
                 top_ms={k[:80]: v / 1e3 for k, v in per_name.most_common(6)})

@@ -251,8 +251,9 @@ def test_outside_slice_raises(pipe):
     from dataclasses import replace
     from longreadmapper_tpu_torch.mapping.pipeline import MapperConfig
     from longreadmapper_tpu_torch import cli as tcli
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-        MapperConfig.from_params(pipe["params"], pipe["tmeta"], 16, 3072)
+    # long buckets are in the slice now: the 3072 bucket builds a config
+    assert MapperConfig.from_params(pipe["params"], pipe["tmeta"], 16,
+                                    3072).L == 3072
     with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
         MapperConfig.from_params(pipe["params"],
                                  replace(pipe["tmeta"], slim=True), 16, 256)

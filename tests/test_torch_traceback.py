@@ -2,7 +2,8 @@
 JAX ops/traceback.device_traceback_c: the same direction words and group
 bitmap go in, the run entries must be equal (patterns of
 tests/test_tb_cols.py: ragged lengths, heavy indel mixes, a dead lane,
-over-limit lanes masked, pure-match reads)."""
+over-limit lanes masked, pure-match reads), and the int32 entries of the
+resident long-read buckets (counts of 8192 and more)."""
 
 import numpy as np
 import pytest
@@ -32,16 +33,18 @@ def _mutate(rng, q, n_sub, n_ind):
     return t
 
 
-def _walk_both(q, t, lens, L, W, band):
+def _walk_both(q, t, lens, L, W, band, wide_entries=False):
     vdirs, wcol, nm = banded_nw_dirs_v(jnp.asarray(q), jnp.asarray(t), W,
                                        band, with_nm=True)
     ed = np.asarray(wcol)[lens, np.arange(q.shape[0])]
     lens_tb = np.where(ed <= W, lens, 0).astype(np.int32)
-    want = np.asarray(device_traceback_c(vdirs, jnp.asarray(lens_tb), L, W,
-                                         nm=nm))
+    want = np.asarray(device_traceback_c(
+        vdirs, jnp.asarray(lens_tb), L, W, nm=nm,
+        entry_dtype=jnp.int32 if wide_entries else jnp.int16))
     got = ttb.device_traceback_c(
         torch.from_numpy(np.array(vdirs)), torch.from_numpy(lens_tb), L, W,
-        torch.from_numpy(np.array(nm).view(np.int32))).numpy()
+        torch.from_numpy(np.array(nm).view(np.int32)),
+        entry_dtype=torch.int32 if wide_entries else torch.int16).numpy()
     return want, got
 
 
@@ -89,6 +92,26 @@ def test_cwalk_pure_match():
     want, got = _walk_both(q, q.copy(), np.full(B, L, np.int32), L, W, band)
     np.testing.assert_array_equal(got, want)
     assert (got[:, 0] == (L << 2)).all()          # one L-long M entry
+
+
+def test_cwalk_int32_entries_at_8192():
+    """L = 8192 (the resident 10 kb path ships int32 entries): a pure-match
+    read's single M-run of 8192 overflows int16's 14-bit count field, and
+    indel reads walk across 16 bitmap words."""
+    rng = np.random.default_rng(8192)
+    B, L, W, band = 3, 8192, 40, 128
+    q = rng.integers(0, 4, (B, L)).astype(np.int8)
+    t = q.copy()
+    for b in (1, 2):
+        tb = _mutate(rng, list(q[b]), 12, 4 * b)[:L]
+        t[b] = 5
+        t[b, :len(tb)] = tb
+    want, got = _walk_both(q, t, np.full(B, L, np.int32), L, W, band,
+                           wide_entries=True)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0] == L << 2
+    assert ((got[1:] & 3 == 1) | (got[1:] & 3 == 2)).sum(axis=1).min() > 0
 
 
 def test_msb32_is_exact():
