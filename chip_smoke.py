@@ -10,14 +10,21 @@ mapping step's time down by stage.
 Phases (each raises on failure; nothing is caught):
   1. device  — requires CUDA; prints the card's name and power limit
   2. build   — nvcc builds csrc/band_dp.cu and csrc/band_scores.cu for
-               sm_90a from this checkout, one nvcc each, in parallel, and
+               sm_90a and g++ the host suffix-array build csrc/sais.cpp,
+               from this checkout, one compiler each, in parallel, and
                prints each kernel's registers, stack and spills
   3. kernel  — each kernel against its plain version on the card,
                bit-equal at every listed shape; median times at the main
                shapes: band_dp (warp per read; band_dp_wide timed beside
-               it at its four bands), band_dp_wide (resident and tile
-               entry), band_scores (checkpoints, the long path's entry,
-               and the full matrix)
+               it at its four bands), band_dp_wide (resident, one tile,
+               and every tile of each gact pass of the main path: 50 kb
+               at band 5120 and 10112, the 10 kb retry at band 2176,
+               entered from the plain forward pass's checkpoints),
+               band_scores (the checkpoints of those passes and of an
+               8192-row pass, held to the plain forward pass, and the
+               full matrix); then, in turns in one loop, each gact pass's
+               tiles in the walk's groups against single-tile launches,
+               its checkpoints, and the 10 kb resident pass
   4. map     — a 4 Mb single-contig genome and 16384 1 kb reads (3%
                substitutions, both strands, planted positions), all made
                from --seed; `cli index` then `cli map` in-process; checks
@@ -37,11 +44,17 @@ Phases (each raises on failure; nothing is caught):
                2% of the reads at 7% + 1%, past the half band), each set
                through `cli map --device cuda --chunk-b 2048`; checks as
                phase 4 plus the bucket configs, the bit-2 retries and the
-               long-read kernels' launches; then per-stage times
+               long-read kernels' launches (at 50 kb, fewer multi-tile
+               launches a gact pass than its 98 tiles); then per-stage
+               times
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that the kernels'
-JSON record.  Exits non-zero, printing no result, when CUDA is unavailable
+JSON record: per kernel its main-path launches, its largest |diff| against
+the plain version, its time, the plain version's, and the bound (the
+larger of its bytes at 3.35 TB/s and its int32 operations, INT_OPS_CELL a
+cell, at INT32_OPS_S; library_ms null: no PyTorch call computes a banded
+NW DP).  Exits non-zero, printing no result, when CUDA is unavailable
 or the port's package is not beside this file.
 """
 
@@ -66,6 +79,18 @@ WIDE_MAIN = (200, 10240, 512, 1152)            # the 10 kb resident pass
 WIDE_SHAPES = (WIDE_MAIN, (37, 4096, 409, 896), (16, 2048, 1024, 2176))
 TILE_B, TILE_L, TILE_T, TILE_K = 40, 8192, 512, 8   # entry row ckpt[8]
 TILE_BANDS = ((2508, 5120), (5017, 10112))     # 50 kb first pass, retry
+PASS_SHAPES = ((40, 50176, 2508, 5120),        # a 50 kb gact pass: 98 tiles
+               (40, 50176, 5017, 10112),       # its full-band retry
+               (200, 10240, 1024, 2176))       # the 10 kb retry: 20 tiles
+DIRS_BUDGET = 1 << 30                          # MapperConfig.mid_dirs_budget
+TURNS = 5                                      # rounds of the timing turns
+# the bound: HBM at 3.35 TB/s; int32 at 132 SMs x 64 lanes x 1.98 GHz =
+# 16.7 Tops/s (half the lanes of the 67 TFLOP/s float32 rate of the
+# on-chip guide's table, which counts an FMA as 2); a dozen int32 ops a
+# DP cell (sub, a, up1, two mins, slope, prefix, +d, mask, clamp, dir)
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 132 * 64 * 1.98e9
+INT_OPS_CELL = 12
 SCORES_1KB = (128, 1024, 102, 256)             # wavefront_pallas.py:6-8
 SCORES_SHAPES = (SCORES_1KB, (40, 4096, 2508, 5120))
 N_READS = 16384                                # phase 4: 8 chunks of 2048
@@ -105,12 +130,13 @@ def phase_device():
 
 
 def phase_build():
-    from longreadmapper_tpu_torch.ops import cuda_build
-    cuda_build.build(force=True)
-    for name, info in cuda_build.build_info.items():
-        log(f"[2 build] nvcc sm_90a csrc/{name}.cu in {info['seconds']} s")
+    from longreadmapper_tpu_torch import native_build
+    native_build.build(force=True)
+    for name, info in native_build.build_info.items():
+        log(f"[2 build] {info['tool']} csrc/{native_build.SOURCES[name][0]} "
+            f"in {info['seconds']} s")
         kernel = None
-        for line in info["ptxas"].splitlines():
+        for line in info["report"].splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 kernel = m.group(1)
@@ -160,6 +186,54 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def turns(fns: dict, rounds: int) -> dict:
+    """Median ms of each of `fns` ({name: fn}), timed in turns: one warm-up
+    call each, then `rounds` rounds that call each once, in order on even
+    rounds and in reverse on odd ones, each timed by CUDA events."""
+    import torch
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for r in range(rounds):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fns[k]()
+            b.record()
+            b.synchronize()
+            times[k].append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def bound(cells: int, nbytes: int):
+    """(bound_ms, bound_by): the least time of a DP over `cells` cells that
+    reads and writes `nbytes`, the larger of its operations (INT_OPS_CELL
+    int32 ops a cell at INT32_OPS_S) and its bytes (at HBM_BYTES_S)."""
+    ops_ms = cells * INT_OPS_CELL / INT32_OPS_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def dirs_bound(B: int, L: int, band: int, n: int, tiles: int = 1):
+    """bound() of `tiles` direction tiles of n rows of reads of length L
+    (a whole pass: n = L): q and t once, the entry rows, the words, the nm
+    bitmap and the centre column."""
+    G = n // 16
+    nbytes = (2 * B * L + 4 * B * band * tiles
+              + 4 * B * band * (G + -(-G // 32)) * tiles
+              + 2 * B * (n + 1) * tiles)
+    return bound(B * n * band * tiles, nbytes)
+
+
+def ckpt_bound(B: int, L: int, band: int, T: int):
+    """bound() of the gact forward pass: q and t once, the checkpoint rows
+    and the centre column."""
+    return bound(B * L * band, 2 * B * L + 4 * B * band * (L // T + 1)
+                 + 2 * B * (L + 1))
+
+
 def timed_once(fn):
     """(fn(), its ms by CUDA events): one call of a plain version that
     takes seconds, used both as the reference and as its time."""
@@ -194,26 +268,39 @@ def check_equal(kernel: str, where: str, got, want) -> int:
 
 def phase_kernel(seed: int) -> dict:
     import numpy as np
-    from longreadmapper_tpu_torch.ops.band_dp import (band_dp_wide,
-                                                      banded_nw_dirs)
+    from longreadmapper_tpu_torch.ops.band_dp import (
+        band_dp_tiles, banded_nw_dirs, banded_nw_dirs_tiles_v)
     from longreadmapper_tpu_torch.ops.band_scores import (band_checkpoints,
                                                           band_scores)
-    from longreadmapper_tpu_torch.ops.gact import gact_forward
+    from longreadmapper_tpu_torch.ops.gact import (gact_forward,
+                                                   gact_group_tiles)
     from longreadmapper_tpu_torch.ops.wavefront import (banded_nw_dirs_v,
-                                                        banded_nw_scores)
+                                                        banded_nw_scores,
+                                                        row0)
 
     rng = np.random.default_rng(seed)
-    res = {k: dict(err=0, ms=None, plain_ms=None)
+    res = {k: dict(err=0, ms=None, plain_ms=None, bound_ms=None,
+                   bound_by=None)
            for k in ("band_dp", "band_dp_wide", "band_scores")}
 
-    def note(kernel, where, ms, plain_ms, main=False):
+    def note(kernel, where, ms, plain_ms, bnd=None):
+        """Log a kernel's time; with its bound, it is the kernels line's."""
         log(f"[3 kernel] {kernel} {where} median: kernel {ms} ms, plain "
             f"PyTorch {plain_ms} ms ({plain_ms / ms}x)")
-        if main:
-            res[kernel].update(ms=ms, plain_ms=plain_ms)
+        if bnd is not None:
+            log(f"[3 kernel] {kernel} {where} bound {bnd[0]} ms by "
+                f"{bnd[1]} ({bnd[0] / ms:.4f} of it reached)")
+            res[kernel].update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                               bound_by=bnd[1])
 
     def err(kernel, e):
         res[kernel]["err"] = max(res[kernel]["err"], e)
+
+    def wide_pass(q, t, W, band):
+        """band_dp_wide over a whole pass: one tile of L rows from row 0."""
+        B, L = q.shape
+        h0 = row0(B, L, W, band, q.device)[None]
+        return [x[0] for x in band_dp_tiles(q, t, W, band, h0, L, 0, 1)]
 
     # band_dp, the warp-per-read kernel, at its four bands; band_dp_wide,
     # which takes these bands too, on the same inputs and timed beside it
@@ -225,36 +312,38 @@ def phase_kernel(seed: int) -> dict:
         assert banded_nw_dirs.launches == n0 + 1
         want = banded_nw_dirs_v(q, t, W, band)
         err("band_dp", check_equal("band_dp", where, got, want))
-        err("band_dp_wide", check_equal(
-            "band_dp_wide", where, band_dp_wide(q, t, W, band, None, 0, L),
-            want))
+        err("band_dp_wide", check_equal("band_dp_wide", where,
+                                        wide_pass(q, t, W, band), want))
         del got, want
         ms = cuda_ms(lambda: banded_nw_dirs(q, t, W, band), 20)
-        wide_ms = cuda_ms(lambda: band_dp_wide(q, t, W, band, None, 0, L),
-                          20)
+        wide_ms = cuda_ms(lambda: wide_pass(q, t, W, band), 20)
         log(f"[3 kernel] {where} median: band_dp {ms} ms, band_dp_wide "
             f"{wide_ms} ms ({wide_ms / ms}x)")
         if (B, L, W, band) == MAIN_SHAPE:
             note("band_dp", where, ms,
-                 cuda_ms(lambda: banded_nw_dirs_v(q, t, W, band), 3), True)
+                 cuda_ms(lambda: banded_nw_dirs_v(q, t, W, band), 3),
+                 dirs_bound(B, L, band, L))
 
-    # band_dp_wide, resident mode: the whole pass from row 0
+    # band_dp_wide, resident: the whole pass from row 0 (band_dp_tiles,
+    # one tile)
+    timed = {}
     for B, L, W, band in WIDE_SHAPES:
         q, t = dp_inputs(rng, B, L)
         where = f"resident B={B} L={L} W={W} band={band}"
-        n0 = band_dp_wide.launches
+        n0 = band_dp_tiles.launches
         got = banded_nw_dirs(q, t, W, band)
-        assert band_dp_wide.launches == n0 + 1
+        assert band_dp_tiles.launches == n0 + 1
         want, plain_ms = timed_once(lambda: banded_nw_dirs_v(q, t, W, band))
         err("band_dp_wide", check_equal("band_dp_wide", where, got, want))
         del got, want
         if (B, L, W, band) == WIDE_MAIN:
-            note("band_dp_wide", where,
-                 cuda_ms(lambda: banded_nw_dirs(q, t, W, band), 5),
-                 plain_ms, True)
+            timed["resident 10 kb"] = (
+                lambda q=q, t=t, W=W, band=band: banded_nw_dirs(q, t, W,
+                                                                band),
+                plain_ms, dirs_bound(B, L, band, L))
 
-    # band_scores checkpoints and band_dp_wide tile mode, entered from the
-    # plain forward pass's checkpoint row TILE_K
+    # band_scores checkpoints at PR 2's timing shape, and one band_dp_wide
+    # tile entered from the plain forward pass's checkpoint row TILE_K
     B, L, T = TILE_B, TILE_L, TILE_T
     for W, band in TILE_BANDS:
         q, t = dp_inputs(rng, B, L)
@@ -262,23 +351,86 @@ def phase_kernel(seed: int) -> dict:
         want, plain_ms = timed_once(lambda: gact_forward(q, t, T, W, band))
         err("band_scores", check_equal(
             "band_scores", where, band_checkpoints(q, t, T, W, band), want))
-        if (W, band) == TILE_BANDS[0]:      # the 50 kb forward pass
-            note("band_scores", where,
-                 cuda_ms(lambda: band_checkpoints(q, t, T, W, band), 5),
-                 plain_ms, True)
-        h0 = want[0][TILE_K].contiguous()
-        i0 = TILE_K * T
+        if (W, band) == TILE_BANDS[0]:      # the 8192-row checkpoint shape
+            timed["checkpoints 8192"] = (
+                lambda q=q, t=t, W=W, band=band: band_checkpoints(
+                    q, t, T, W, band),
+                plain_ms, ckpt_bound(B, L, band, T))
+        ckpt, i0 = want[0], TILE_K * T
         where = f"tile B={B} L={L} W={W} band={band} rows {i0}+{T}"
-        n0 = band_dp_wide.launches
-        got = banded_nw_dirs(q, t, W, band, h0=h0, i0=i0, n=T)
-        assert band_dp_wide.launches == n0 + 1
+        n0 = band_dp_tiles.launches
+        got = [x[0] for x in band_dp_tiles(q, t, W, band, ckpt, T, TILE_K,
+                                           1)]
+        assert band_dp_tiles.launches == n0 + 1
         want_t, plain_ms = timed_once(
-            lambda: banded_nw_dirs_v(q, t, W, band, h0=h0, i0=i0, n=T))
+            lambda: banded_nw_dirs_v(q, t, W, band, h0=ckpt[TILE_K], i0=i0,
+                                     n=T))
         err("band_dp_wide", check_equal("band_dp_wide", where, got, want_t))
         note("band_dp_wide", where, cuda_ms(
-            lambda: banded_nw_dirs(q, t, W, band, h0=h0, i0=i0, n=T), 10),
+            lambda: band_dp_tiles(q, t, W, band, ckpt, T, TILE_K, 1), 10),
             plain_ms)
-        del want, got, want_t
+        del want, got, want_t, ckpt
+
+    # every gact pass of the main path at its shape: band_scores's
+    # checkpoints held to the plain forward pass, then the multi-tile entry
+    # over all the pass's tiles entered from the plain checkpoints; then
+    # the pass as the walk runs it (groups of gact_group_tiles, newest
+    # first) and as single-tile launches
+    for B, L, W, band in PASS_SHAPES:
+        K = L // T
+        q, t = dp_inputs(rng, B, L)
+        where = f"checkpoints B={B} L={L} W={W} band={band} T={T}"
+        want, ck_plain_ms = timed_once(lambda: gact_forward(q, t, T, W,
+                                                            band))
+        err("band_scores", check_equal(
+            "band_scores", where, band_checkpoints(q, t, T, W, band), want))
+        ckpt = want[0]
+        del want
+        where = f"tiles B={B} L={L} W={W} band={band} T={T} x{K}"
+        n0 = band_dp_tiles.launches
+        got = band_dp_tiles(q, t, W, band, ckpt, T, 0, K)
+        assert band_dp_tiles.launches == n0 + 1
+        want, plain_ms = timed_once(
+            lambda: banded_nw_dirs_tiles_v(q, t, W, band, ckpt, T, 0, K))
+        err("band_dp_wide", check_equal("band_dp_wide", where, got, want))
+        del got, want
+        group = gact_group_tiles(B, L, T, band, DIRS_BUDGET)
+
+        def grouped(q=q, t=t, ckpt=ckpt, W=W, band=band, group=group, K=K):
+            k_hi = K - 1
+            while k_hi >= 0:
+                k_lo = max(0, k_hi - group + 1)
+                band_dp_tiles(q, t, W, band, ckpt, T, k_lo, k_hi - k_lo + 1)
+                k_hi = k_lo - 1
+
+        def singles(q=q, t=t, ckpt=ckpt, W=W, band=band, K=K):
+            for k in range(K - 1, -1, -1):
+                band_dp_tiles(q, t, W, band, ckpt, T, k, 1)
+
+        name = f"{L // 1000} kb band {band}"
+        timed[f"tiles {name} grouped by {group}"] = (
+            grouped, plain_ms, dirs_bound(B, L, band, T, K))
+        timed[f"tiles {name} single x{K}"] = (
+            singles, plain_ms, dirs_bound(B, L, band, T, K))
+        timed[f"checkpoints {name}"] = (
+            lambda q=q, t=t, W=W, band=band: band_checkpoints(
+                q, t, T, W, band), ck_plain_ms, ckpt_bound(B, L, band, T))
+
+    ms = turns({k: v[0] for k, v in timed.items()}, TURNS)
+    log(f"[3 kernel] in turns ({TURNS} rounds): " + json.dumps(ms))
+    for name, (_, plain_ms, bnd) in timed.items():
+        log(f"[3 kernel] {name}: {ms[name]} ms, bound {bnd[0]} ms by "
+            f"{bnd[1]} ({bnd[0] / ms[name]:.4f} of it reached), plain "
+            f"{plain_ms} ms")
+    # the kernels line: the 50 kb first pass as the step launches it, its
+    # tiles in the walk's groups and its checkpoints
+    main = f"{PASS_SHAPES[0][1] // 1000} kb band {PASS_SHAPES[0][3]}"
+    tiles = next(k for k in timed if k.startswith(f"tiles {main} grouped"))
+    note("band_dp_wide", "pass " + tiles, ms[tiles], timed[tiles][1],
+         timed[tiles][2])
+    note("band_scores", f"pass checkpoints {main}", ms[f"checkpoints {main}"],
+         timed[f"checkpoints {main}"][1], timed[f"checkpoints {main}"][2])
+    del timed
 
     # band_scores, the full score matrix
     for B, L, W, band in SCORES_SHAPES:
@@ -447,7 +599,7 @@ def reset_counts():
     """Every kernel's launch count, every plain version's CUDA call count
     and the walks' host syncs to 0; the peak memory statistic too."""
     import torch
-    from longreadmapper_tpu_torch.ops.band_dp import (band_dp_wide,
+    from longreadmapper_tpu_torch.ops.band_dp import (band_dp_tiles,
                                                       banded_nw_dirs)
     from longreadmapper_tpu_torch.ops.band_scores import band_scores
     from longreadmapper_tpu_torch.ops.gact import (gact_forward,
@@ -455,7 +607,7 @@ def reset_counts():
     from longreadmapper_tpu_torch.ops.traceback import device_traceback_c
     from longreadmapper_tpu_torch.ops.wavefront import (banded_nw_dirs_v,
                                                         banded_nw_scores)
-    for fn in (banded_nw_dirs, band_dp_wide, band_scores):
+    for fn in (banded_nw_dirs, band_dp_tiles, band_scores):
         fn.launches = 0
     for fn in (banded_nw_dirs_v, banded_nw_scores, gact_forward):
         fn.cuda_calls = 0
@@ -568,7 +720,7 @@ def phase_stages(tag: str, fa: str, reads, traced_steps: int = 3):
 
 def phase_long(d: str, fa: str, g, name: str, reads, pos, hi) -> dict:
     import torch
-    from longreadmapper_tpu_torch.ops.band_dp import band_dp_wide
+    from longreadmapper_tpu_torch.ops.band_dp import band_dp_tiles
     from longreadmapper_tpu_torch.ops.band_scores import band_scores
 
     n, read_len, want_cfg = LONG_SETS[name]
@@ -580,8 +732,11 @@ def phase_long(d: str, fa: str, g, name: str, reads, pos, hi) -> dict:
     map_cli(fa, fq, n, "cuda", sam, sam + ".log", 2048)
     torch.cuda.synchronize()
     t_map = time.perf_counter() - t0
-    counts = dict(band_dp_wide=band_dp_wide.launches,
+    # band_dp_wide's launches (band_dp_tiles: one a resident pass, one a
+    # group of gact tiles) and band_scores's (one a gact pass)
+    counts = dict(band_dp_wide=band_dp_tiles.launches,
                   band_scores=band_scores.launches)
+    tiles_a_pass = want_cfg["L"] // 512          # MapperConfig.gact_tile
     plain = plain_counts()
     n_hi = int(hi.sum())
     log(f"[{tag}] cli map of {n} reads of {read_len} bp in {t_map} s = "
@@ -591,15 +746,23 @@ def phase_long(d: str, fa: str, g, name: str, reads, pos, hi) -> dict:
         f"{walk_syncs()}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30} GiB")
     # both sets launch both kernels: at 10 kb the first pass is resident
-    # (band_dp_wide) and the full-band retry takes gact (band_scores, then
-    # band_dp_wide tiles); at 50 kb every pass is gact
+    # (band_dp_wide, one launch a chunk) and the full-band retry takes gact
+    # (band_scores, then band_dp_wide in groups of tiles); at 50 kb every
+    # pass is gact, one band_scores launch a pass
     check_map(tag, sam, sam + ".log", n, pos, g, max(16, read_len // 100), [
         lambda b, r: (b == [want_cfg], f"bucket configs {b} == "
                                        f"[{want_cfg}]"),
         lambda b, r: (r is not None and r >= n_hi,
                       f"retried reads {r} >= high-error reads {n_hi}"),
-        lambda b, r: (min(counts.values()) > 0,
-                      f"band_dp_wide and band_scores launches {counts} > 0"),
+        lambda b, r: (counts["band_dp_wide"] > 0
+                      and counts["band_scores"] > 0,
+                      f"launches {counts}: band_dp_wide and band_scores "
+                      "> 0"),
+        lambda b, r: (counts["band_dp_wide"]
+                      < tiles_a_pass * counts["band_scores"],
+                      f"band_dp_wide launches {counts['band_dp_wide']} < "
+                      f"{tiles_a_pass} tiles x {counts['band_scores']} gact "
+                      "passes"),
         lambda b, r: (plain == 0, f"plain DP / scores / gact_forward calls "
                                   f"on CUDA {plain} == 0")])
     phase_stages(tag, fa, [(nm, s, None) for nm, s in reads], 1)
@@ -661,7 +824,7 @@ def main(argv=None) -> int:
                                    hi).items():
                 counts[k] += v
             done(f"7 long {name}")
-    launches = dict(counts, band_dp=launches)
+    launches = dict(band_dp=launches, **counts)
     src = {"band_dp": "band_dp.cu", "band_dp_wide": "band_dp.cu",
            "band_scores": "band_scores.cu"}
     replaces = {"band_dp": "longreadmapper_tpu/ops/band_pallas.py:102",
@@ -673,7 +836,9 @@ def main(argv=None) -> int:
         "source": f"longreadmapper_tpu_torch/csrc/{src[k]}",
         "replaces": replaces[k], "launches": launches[k],
         "max_abs_err": kres[k]["err"], "ms": kres[k]["ms"],
-        "plain_ms": kres[k]["plain_ms"]} for k in src]}))
+        "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
+        "bound_by": kres[k]["bound_by"], "library_ms": None}
+        for k in src]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

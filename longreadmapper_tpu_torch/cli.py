@@ -19,9 +19,8 @@ import os
 import sys
 import time
 
-from longreadmapper_tpu.utils.config import Params, auto_hlen, read_params
-
 from .device import roadmap_gap
+from .utils.config import Params, auto_hlen, read_params
 
 
 def main(argv=None) -> int:

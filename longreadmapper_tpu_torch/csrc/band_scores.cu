@@ -25,8 +25,8 @@
 
 namespace {
 
-template <int K>
-__global__ void __launch_bounds__(lrm::kMaxThreads)
+template <int K, int MAXT>
+__global__ void __launch_bounds__(MAXT)
 band_scores_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
                    int B, int L, int W, int band, int T,
                    int16_t* __restrict__ H, int32_t* __restrict__ ckpt,
@@ -35,7 +35,7 @@ band_scores_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
   lrm::RowSmem& s = *reinterpret_cast<lrm::RowSmem*>(smem_raw);
   const lrm::Geom g = lrm::make_geom(q, t, L, W, band, K);
   int8_t* s_tp = reinterpret_cast<int8_t*>(&s + 1);
-  int8_t* s_q = s_tp + lrm::kWindowRows + g.cols;
+  int8_t* s_q = s_tp + lrm::target_bytes(g.cols);
   const int b = blockIdx.x;
   const bool real = g.d0 < band;  // band % K == 0: all K columns or none
   const bool has_w = W >= g.d0 && W < g.d0 + K;
@@ -55,7 +55,7 @@ band_scores_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
       if (g.d0 + k == W) wcol[b] = static_cast<int16_t>(h[k]);
     }
   }
-  lrm::publish_entry<K>(h, g, s);
+  lrm::init_row_smem(g, s);
 
   for (int r0 = 0; r0 < L; r0 += lrm::kWindowRows) {
     const int rows = min(lrm::kWindowRows, L - r0);
@@ -64,15 +64,14 @@ band_scores_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
       const int i = r0 + 1 + x;
       int16_t* hrow =
           T == 0 ? H + (static_cast<size_t>(i) * B + b) * band : nullptr;
-      int wc = 0;
       lrm::row_step<K>(h, i, g, s, s_tp, s_q, r0,
-                       [&](int k, int d, int, int, int, int row) {
+                       [&](int, int d, int, int, int, int row) {
         if (T == 0 && real) hrow[d] = static_cast<int16_t>(row);
-        if (d == W) wc = row;
       });
       if (T == 0) continue;
       if (has_w)
-        wcol[static_cast<size_t>(i) * B + b] = static_cast<int16_t>(wc);
+        wcol[static_cast<size_t>(i) * B + b] =
+            static_cast<int16_t>(lrm::column_w<K>(h, g));
       if (i % T == 0 && real) {
         int32_t* out =
             ckpt + (static_cast<size_t>(i / T) * B + b) * band + g.d0;
@@ -85,7 +84,7 @@ band_scores_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
   }
 }
 
-template <int K>
+template <int K, int MAXT>
 cudaError_t launch(const int8_t* q, const int8_t* t, int B, int L, int W,
                    int band, int T, int16_t* H, int32_t* ckpt, int16_t* wcol,
                    cudaStream_t stream) {
@@ -94,12 +93,12 @@ cudaError_t launch(const int8_t* q, const int8_t* t, int B, int L, int W,
       sizeof(lrm::RowSmem) + lrm::window_bytes(threads * K);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        band_scores_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        band_scores_kernel<K, MAXT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  band_scores_kernel<K><<<B, threads, smem, stream>>>(q, t, B, L, W, band, T,
-                                                      H, ckpt, wcol);
+  band_scores_kernel<K, MAXT><<<B, threads, smem, stream>>>(
+      q, t, B, L, W, band, T, H, ckpt, wcol);
   return cudaGetLastError();
 }
 
@@ -112,8 +111,9 @@ cudaError_t launch(const int8_t* q, const int8_t* t, int B, int L, int W,
 extern "C" int lrm_band_scores(const void* q, const void* t, int B, int L,
                                int W, int band, int T, void* H, void* ckpt,
                                void* wcol, void* stream) {
-  const int K = lrm::cols_per_thread(band);
-  if (B <= 0 || L <= 0 || W < 0 || W >= band || K == 0 || T < 0) return -1;
+  const lrm::RowShape rs = lrm::row_shape(band);
+  if (B <= 0 || L <= 0 || W < 0 || W >= band || rs.K == 0 || T < 0)
+    return -1;
   if (T == 0 ? H == nullptr
              : (T % 16 != 0 || L % T != 0 || ckpt == nullptr ||
                 wcol == nullptr))
@@ -124,11 +124,15 @@ extern "C" int lrm_band_scores(const void* q, const void* t, int B, int L,
   auto cp = static_cast<int32_t*>(ckpt);
   auto wp = static_cast<int16_t*>(wcol);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 4: return launch<4>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
-    case 8: return launch<8>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
-    case 16: return launch<16>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
-    case 32: return launch<32>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
+  switch (rs.K * 10000 + rs.max_threads) {
+    case 40512: return launch<4, 512>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
+    case 80512: return launch<8, 512>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
+    case 160512:
+      return launch<16, 512>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
+    case 160640:
+      return launch<16, 640>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
+    case 161024:
+      return launch<16, 1024>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
     default: return -1;
   }
 }

@@ -28,10 +28,11 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from longreadmapper_tpu.formats.catmeta import MtaEntry, load_cat, load_mta
-
 from ..device import pick_device, roadmap_gap
+from ..formats.catmeta import MtaEntry, load_cat, load_mta
+from ..formats.lch import read_lch
 from ..ops.rank import occ_samples, pack_codes
+from ..utils.log import new_logger
 from .fmi import FMIndex, encode_bytes
 
 _ARRAY_NAMES = ("packed", "occ_samp", "c4", "sa_ctx", "sa_hi", "lch",
@@ -245,9 +246,6 @@ def load_device_index(genome_path: str, device, cache: bool = True,
     """Load the artifact set (.mta/.cat/.sa5/.mfi/.lch) to `device`, via
     the `<genome>.cat.devidx/` cache when its fingerprint matches (and
     writing it after a from-artifacts build otherwise)."""
-    from longreadmapper_tpu.formats.lch import read_lch
-    from longreadmapper_tpu.utils.log import new_logger
-
     log = new_logger(verbose=verbose)
     mta = load_mta(genome_path + ".mta")
     if cache:

@@ -20,8 +20,8 @@ from typing import Optional
 
 import numpy as np
 
-from longreadmapper_tpu.formats.mfi import MfiData, read_mfi, write_mfi
-from longreadmapper_tpu.formats.ui40 import read_sa5
+from ..formats.mfi import MfiData, read_mfi, write_mfi
+from ..formats.ui40 import read_sa5
 
 # raw byte -> 2-bit code (A0 C1 G2 T3), '$' and others -> 4
 _CODE_LUT = np.full(256, 4, dtype=np.uint8)

@@ -25,8 +25,9 @@ Align has two branches, chosen per length bucket by MapperConfig.use_gact:
     mid_dirs_budget): one banded DP pass emitting every direction word,
     then the column walk (int32 run entries once counts reach 8192);
   * tiled gact (longer buckets whose volume does not fit): a checkpointed
-    forward pass, then the walk rematerializes each tile's directions from
-    its checkpoint row (ops/gact.py).
+    forward pass, then the walk rematerializes the tiles' directions from
+    their checkpoint rows, newest first, in groups of as many tiles as fit
+    in mid_dirs_budget, one kernel launch a group (ops/gact.py).
 Long buckets run a narrow first pass (short_W_override / half_band) and
 flag reads whose ed reaches it (overflow bit 2) for the full-band retry.
 
@@ -43,16 +44,15 @@ from typing import ClassVar
 
 import torch
 
-from longreadmapper_tpu.utils.config import Params
-
 from ..device import roadmap_gap
 from ..index.device import DeviceIndex, IndexMeta
 from ..ops.band_dp import banded_nw_dirs
 from ..ops.band_scores import band_checkpoints
-from ..ops.gact import gact_traceback_c
+from ..ops.gact import gact_group_tiles, gact_traceback_c
 from ..ops.rank import backward_step
 from ..ops.traceback import device_traceback_c
 from ..ops.vote import top2_small_histo, top2_votes
+from ..utils.config import Params
 
 I32 = torch.int32
 
@@ -487,9 +487,12 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
     alive = found & (ed_raw <= limit) & ~band_short
     lens_tb = torch.where(alive, lens, 0)
     if cfg.use_gact:
+        # tiles are rematerialized in groups that fit the direction budget
         run_units, saturated = gact_traceback_c(
             q, t, ckpt, lens_tb, T, Wp, cfg.gact_band,
-            scale=cfg.gact_runs_scale)
+            scale=cfg.gact_runs_scale,
+            group=gact_group_tiles(B, L, T, cfg.gact_band,
+                                   cfg.mid_dirs_budget))
         mark("gact_walk")
         # a saturated shared run buffer can corrupt any lane's CIGAR: bit 1
         # sends the chunk to the mapper's saturation tier

@@ -21,13 +21,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from longreadmapper_tpu.formats.fastx import _encode_lut
-from longreadmapper_tpu.formats.sam import cigar_string, sam_record
-from longreadmapper_tpu.utils.config import Params
-
 from ..device import pick_device
+from ..formats.fastx import _encode_lut
+from ..formats.sam import cigar_string, sam_record
 from ..index.device import DeviceIndex, IndexMeta
 from ..mapping.pipeline import MapperConfig, map_step
+from ..utils.config import Params
 
 
 @dataclass

@@ -3,16 +3,21 @@
 longreadmapper_tpu/ops/band_pallas.py::banded_nw_dirs_vt and, unlike it,
 also emit the `nm` group bitmap the column walk needs.
 
-`banded_nw_dirs(q, t, W, band[, h0, i0, n])` has the contract of the plain
-version ops/wavefront.banded_nw_dirs_v: (vdirs (n/16, B, band) int32,
-wcol (n+1, B) int16, nm (ceil(n/16/32), B, band) int32), by default the
-whole pass from row 0, or one tile of n rows entered from the row h0 at
-global row i0 (the gact rematerialization).  On a CPU tensor it runs the
-plain version; on a CUDA tensor it launches a kernel or raises:
+`banded_nw_dirs(q, t, W, band)` has the contract of the plain version
+ops/wavefront.banded_nw_dirs_v: (vdirs (L/16, B, band) int32, wcol (L+1, B)
+int16, nm (ceil(L/16/32), B, band) int32), the whole pass from row 0.
+`banded_nw_dirs_tiles(q, t, W, band, ckpt, T, k0, tiles)` rematerializes
+the gact tiles k0 .. k0+tiles-1 at once, tile k entered from its
+checkpoint row ckpt[k] at row k*T: the same three outputs with a leading
+tile axis; its plain version `banded_nw_dirs_tiles_v` is the loop of
+single-tile plain calls.  On a CPU tensor each runs its plain version; on
+a CUDA tensor it launches a kernel or raises:
   * the warp-per-read kernel `band_dp` for a whole pass at band 128-512
     (counted in `banded_nw_dirs.launches`);
-  * the CTA-per-read kernel `band_dp_wide` for every other band up to 16384
-    and for tile entries (counted in `band_dp_wide.launches`).
+  * the CTA-per-read kernel `band_dp_wide`, through its one entry
+    `band_dp_tiles` (grid (B, tiles), counted in `band_dp_tiles.launches`),
+    for a group of tiles and for a whole pass at every other band up to
+    16384 (one tile of L rows entered from row 0).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import cuda_build
+from .. import native_build
 from .wavefront import banded_nw_dirs_v, row0
 
 BANDS = (128, 256, 384, 512)       # the warp-per-read kernel
@@ -30,7 +35,8 @@ WIDE_MAX_BAND = 16384              # the CTA-per-read kernel: band % 128 == 0
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FUNCS = {
     "lrm_band_dp": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "lrm_band_dp_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "lrm_band_dp_tiles": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                          _P],
 }
 
 
@@ -44,18 +50,17 @@ def _check_qt(q, t):
         raise ValueError("q, t must be contiguous and of one (B, L) shape")
 
 
-def banded_nw_dirs(q: torch.Tensor, t: torch.Tensor, W: int, band: int,
-                   h0: torch.Tensor | None = None, i0: int = 0,
-                   n: int | None = None):
+def banded_nw_dirs(q: torch.Tensor, t: torch.Tensor, W: int, band: int):
     """Banded NW direction sweep: a CUDA kernel on a CUDA tensor, the plain
     version (ops/wavefront.banded_nw_dirs_v) on a CPU tensor."""
     if q.device.type == "cpu" and t.device.type == "cpu":
-        return banded_nw_dirs_v(q, t, W, band, h0=h0, i0=i0, n=n)
+        return banded_nw_dirs_v(q, t, W, band)
     _check_qt(q, t)
     B, L = q.shape
-    if h0 is None and i0 == 0 and n in (None, L) and band in BANDS:
+    if band in BANDS:
         return _band_dp(q, t, W, band)
-    return band_dp_wide(q, t, W, band, h0, i0, L - i0 if n is None else n)
+    h0 = row0(B, L, W, band, q.device)[None]
+    return tuple(x[0] for x in band_dp_tiles(q, t, W, band, h0, L, 0, 1))
 
 
 def _band_dp(q, t, W: int, band: int):
@@ -68,7 +73,7 @@ def _band_dp(q, t, W: int, band: int):
     vdirs = torch.empty((G, B, band), dtype=torch.int32, device=dev)
     wcol = torch.empty((L + 1, B), dtype=torch.int16, device=dev)
     nm = torch.empty((-(-G // 32), B, band), dtype=torch.int32, device=dev)
-    lib = cuda_build.load("band_dp", _FUNCS)
+    lib = native_build.load("band_dp", _FUNCS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lrm_band_dp(q.data_ptr(), t.data_ptr(), B, L, W, band,
@@ -83,45 +88,80 @@ def _band_dp(q, t, W: int, band: int):
 banded_nw_dirs.launches = 0
 
 
-def band_dp_wide(q: torch.Tensor, t: torch.Tensor, W: int, band: int,
-                 h0: torch.Tensor | None, i0: int, n: int):
-    """The CTA-per-read kernel on CUDA tensors: rows i0+1 .. i0+n entered
-    from h0 (B, band) int32 = H row i0 (JAX's row 0 when h0 is None and
-    i0 == 0).  Raises for a shape it does not take."""
-    _check_qt(q, t)
+def banded_nw_dirs_tiles(q: torch.Tensor, t: torch.Tensor, W: int, band: int,
+                         ckpt: torch.Tensor, T: int, k0: int, tiles: int):
+    """The gact tiles k0 .. k0+tiles-1 of T rows, tile k entered from
+    ckpt[k] = H row k*T: (vdirs (tiles, T/16, B, band) int32, wcol (tiles,
+    T+1, B) int16, nm (tiles, ceil(T/16/32), B, band) int32), element k-k0
+    of each equal to ops/wavefront.banded_nw_dirs_v(..., h0=ckpt[k],
+    i0=k*T, n=T).  One kernel launch on a CUDA tensor, the plain loop on a
+    CPU tensor."""
+    if q.device.type == "cpu" and t.device.type == "cpu":
+        return banded_nw_dirs_tiles_v(q, t, W, band, ckpt, T, k0, tiles)
+    return band_dp_tiles(q, t, W, band, ckpt, T, k0, tiles)
+
+
+def banded_nw_dirs_tiles_v(q, t, W: int, band: int, ckpt, T: int, k0: int,
+                           tiles: int):
+    """Plain version of banded_nw_dirs_tiles: the loop of single-tile plain
+    calls (ops/wavefront.banded_nw_dirs_v), one tile at a time."""
     B, L = q.shape
-    if (L % 16 or band % 128 or not 128 <= band <= WIDE_MAX_BAND
-            or not 0 <= W < band or i0 % 16 or n % 16 or n <= 0
-            or i0 < 0 or i0 + n > L):
-        raise ValueError(
-            f"band_dp_wide takes L % 16 == 0, band % 128 == 0 in [128, "
-            f"{WIDE_MAX_BAND}], 0 <= W < band, i0 and n multiples of 16 "
-            f"with 0 < n, i0 + n <= L; got L={L} W={W} band={band} i0={i0} "
-            f"n={n}")
+    G = T // 16
     dev = q.device
-    if h0 is None:
-        if i0 != 0:
-            raise ValueError("band_dp_wide needs an entry row h0 at i0 > 0")
-        h0 = row0(B, L, W, band, dev)
-    if (h0.device != dev or h0.dtype != torch.int32
-            or h0.shape != (B, band) or not h0.is_contiguous()):
-        raise ValueError(f"h0 must be a contiguous ({B}, {band}) int32 "
-                         f"tensor on {dev}, got {tuple(h0.shape)} "
-                         f"{h0.dtype} on {h0.device}")
-    G = n // 16
-    vdirs = torch.empty((G, B, band), dtype=torch.int32, device=dev)
-    wcol = torch.empty((n + 1, B), dtype=torch.int16, device=dev)
-    nm = torch.empty((-(-G // 32), B, band), dtype=torch.int32, device=dev)
-    lib = cuda_build.load("band_dp", _FUNCS)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lrm_band_dp_wide(q.data_ptr(), t.data_ptr(), h0.data_ptr(),
-                                   B, L, W, band, i0, n, vdirs.data_ptr(),
-                                   wcol.data_ptr(), nm.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"band_dp_wide kernel launch failed: error {err}")
-    band_dp_wide.launches += 1
+    vdirs = torch.empty((tiles, G, B, band), dtype=torch.int32, device=dev)
+    wcol = torch.empty((tiles, T + 1, B), dtype=torch.int16, device=dev)
+    nm = torch.empty((tiles, -(-G // 32), B, band), dtype=torch.int32,
+                     device=dev)
+    for y in range(tiles):
+        k = k0 + y
+        vdirs[y], wcol[y], nm[y] = banded_nw_dirs_v(q, t, W, band,
+                                                    h0=ckpt[k], i0=k * T,
+                                                    n=T)
     return vdirs, wcol, nm
 
 
-band_dp_wide.launches = 0
+def band_dp_tiles(q: torch.Tensor, t: torch.Tensor, W: int, band: int,
+                  ckpt: torch.Tensor, T: int, k0: int, tiles: int):
+    """The CTA-per-read kernel on CUDA tensors: one launch of grid (B,
+    tiles), tile k0+y entered from ckpt[k0+y] = H row (k0+y)*T, the entry
+    rows read in place from ckpt (>= k0+tiles, B, band) int32.  A whole pass
+    is the tile k0 = 0 of T = L rows entered from row 0.  Raises for a shape
+    it does not take."""
+    _check_qt(q, t)
+    B, L = q.shape
+    i0 = k0 * T
+    if (L % 16 or band % 128 or not 128 <= band <= WIDE_MAX_BAND
+            or not 0 <= W < band or T % 16 or T <= 0 or k0 < 0
+            or tiles <= 0 or i0 + T * tiles > L):
+        raise ValueError(
+            f"band_dp_wide takes L % 16 == 0, band % 128 == 0 in [128, "
+            f"{WIDE_MAX_BAND}], 0 <= W < band, T a positive multiple of 16 "
+            f"and (k0 + tiles) * T <= L; got L={L} W={W} band={band} T={T} "
+            f"k0={k0} tiles={tiles}")
+    if (ckpt.device != q.device or ckpt.dtype != torch.int32
+            or ckpt.dim() != 3 or ckpt.shape[1:] != (B, band)
+            or ckpt.shape[0] < k0 + tiles or not ckpt.is_contiguous()):
+        raise ValueError(f"ckpt must be a contiguous (>= {k0 + tiles}, {B}, "
+                         f"{band}) int32 tensor on {q.device}, got "
+                         f"{tuple(ckpt.shape)} {ckpt.dtype} on "
+                         f"{ckpt.device}")
+    G = T // 16
+    dev = q.device
+    vdirs = torch.empty((tiles, G, B, band), dtype=torch.int32, device=dev)
+    wcol = torch.empty((tiles, T + 1, B), dtype=torch.int16, device=dev)
+    nm = torch.empty((tiles, -(-G // 32), B, band), dtype=torch.int32,
+                     device=dev)
+    lib = native_build.load("band_dp", _FUNCS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lrm_band_dp_tiles(
+            q.data_ptr(), t.data_ptr(), ckpt[k0].data_ptr(), B, L, W, band,
+            i0, T, tiles, vdirs.data_ptr(), wcol.data_ptr(), nm.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"band_dp_wide kernel launch failed: error {err}")
+    band_dp_tiles.launches += 1
+    return vdirs, wcol, nm
+
+
+band_dp_tiles.launches = 0

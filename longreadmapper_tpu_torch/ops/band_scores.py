@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from . import cuda_build
+from .. import native_build
 from .band_dp import WIDE_MAX_BAND, _check_qt
 from .gact import gact_forward
 from .wavefront import banded_nw_scores
@@ -35,7 +35,7 @@ def _launch(q, t, W: int, band: int, T: int, H, ckpt, wcol):
         raise ValueError(f"band_scores takes band % 128 == 0 in [128, "
                          f"{WIDE_MAX_BAND}] and 0 <= W < band; got W={W} "
                          f"band={band}")
-    lib = cuda_build.load("band_scores", _FUNCS)
+    lib = native_build.load("band_scores", _FUNCS)
     ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -5,12 +5,17 @@ gact_forward, gact_runs_cols_c, gact_traceback_c).
 forward pass   — the banded DP over all L rows keeps only every T-th row
                  (the checkpoints) and the band-centre score column:
                  O(L/T * band) memory instead of O(L * band).
-traceback pass — tiles replay newest first; each tile's vertical direction
-                 words and its group bitmap are recomputed from its
-                 checkpoint row (ops/band_dp.banded_nw_dirs with an entry
-                 row: the wide CUDA kernel on the card), then the
-                 column-consuming walk crosses the tile one M-run plus one
-                 indel per iteration, as ops/traceback.device_traceback_c.
+traceback pass — tiles replay newest first, in groups: each group's
+                 vertical direction words and group bitmaps are recomputed
+                 from the tiles' checkpoint rows at once
+                 (ops/band_dp.banded_nw_dirs_tiles: one launch of the wide
+                 CUDA kernel on the card), newest group first, as many
+                 tiles a group as fit in the caller's direction budget;
+                 then the column-consuming walk crosses the group's tiles
+                 one by one, one M-run plus one indel per iteration, as
+                 ops/traceback.device_traceback_c.  The grouping changes
+                 no output: the walk sees the same words in the same
+                 order.
 
 `gact_forward` here is the plain version; on the card the step calls
 ops/band_scores.band_checkpoints, whose kernel has the same contract.  The
@@ -22,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from .band_dp import banded_nw_dirs
+from .band_dp import banded_nw_dirs_tiles
 from .traceback import OP_PAD, group_below, msb32
 from .wavefront import dp_rows, row0
 
@@ -61,10 +66,20 @@ def gact_runs_cols_c(L: int, T: int, W: int, scale: int = 1) -> int:
     return 2 * (scale * 2 * W + 2 * (L // T) + 16)
 
 
+def gact_group_tiles(B: int, L: int, T: int, band: int, budget: int) -> int:
+    """Tiles per rematerialization group: as many as the bytes of their
+    direction words, bitmaps and centre columns fit in `budget` (at least
+    one, at most all L/T)."""
+    G = T // 16
+    tile_bytes = 4 * B * band * (G + -(-G // 32)) + 2 * B * (T + 1)
+    return max(1, min(L // T, budget // tile_bytes))
+
+
 def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
-                     scale: int = 1):
+                     scale: int = 1, group: int = 1):
     """Column-consuming rematerialized walk.  lens (B,) with dead lanes
-    (unmapped / over-limit) masked to 0 by the caller.
+    (unmapped / over-limit) masked to 0 by the caller; `group` tiles are
+    rematerialized at a time (gact_group_tiles).
 
     Returns (runs (B, gact_runs_cols_c(L, T, W, scale)) int16 entries
     (count << 2 | op) in reverse path order with pad gaps between tiles,
@@ -90,66 +105,79 @@ def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
     done = i <= 0
     buf = torch.full((n_rows, B, 2), OP_PAD, dtype=torch.int16, device=dev)
     ptr = nsat = syncs = 0
-    for k in range(K - 1, -1, -1):
-        lo = k * T
-        vdirs, _, nm = banded_nw_dirs(q, t, W, band, h0=ckpt[k], i0=lo, n=T)
-        Vf = vdirs.reshape(-1)
-        nmf = [nm[w].reshape(-1) for w in range(nm.shape[0])]
+    k_hi = K - 1
+    while k_hi >= 0:
+        k_lo = max(0, k_hi - group + 1)
+        vg, _, nmg = banded_nw_dirs_tiles(q, t, W, band, ckpt, T, k_lo,
+                                          k_hi - k_lo + 1)
+        for k in range(k_hi, k_lo - 1, -1):
+            lo = k * T
+            Vf = vg[k - k_lo].reshape(-1)
+            nmf = [w.reshape(-1) for w in nmg[k - k_lo]]
 
-        def word_at(g, d):
-            flat = ((g * B + bidx) * band + d).clamp(0, G * B * band - 1)
-            return Vf[flat].to(i64) & _MASK32
+            def word_at(g, d):
+                flat = ((g * B + bidx) * band + d).clamp(0,
+                                                         G * B * band - 1)
+                return Vf[flat].to(i64) & _MASK32
 
-        it = 0
-        while it < tile_bound:
-            alive = ~done & ((i > lo) | ((k == 0) & (j > 0)))
-            syncs += 1
-            if not bool(alive.any()):
-                break
-            in_tile = i > lo
-            active = ~done & (in_tile | ((k == 0) & (j > 0)))
-            d = (j - i + W).clamp(0, band - 1)
-            ii = (i - 1 - lo).clamp(0, T - 1)        # row within the tile
-            g_cur, r = ii >> 4, ii & 15
-            w_cur = word_at(g_cur, d)
-            sh = 2 * (15 - r)
-            wm_cur = ((w_cur << sh) & _MASK32) >> sh   # pairs above i off
-            in_cur = (wm_cur != 0) & in_tile
-            # highest group strictly below g_cur with a non-M pair
-            g2 = group_below(nmf, (bidx * band + d).clamp(0, B * band - 1),
-                             g_cur)
-            has_below = (g2 >= 0) & in_tile
-            any_nm = active & in_tile & (in_cur | has_below)
-            gstar = torch.where(in_cur, g_cur, g2.clamp(min=0))
-            wsel = torch.where(in_cur, wm_cur, word_at(gstar, d))
-            # 15 - (clz(wsel) >> 1): the lowest row of the word with a non-M
-            pstar = (15 - ((31 - msb32(wsel)) >> 1)).clamp(min=0)
-            # M-run floor: the indel row, else the tile entry (row 0 in
-            # tile 0: the walk then owes only the synthetic all-D row)
-            floor_row = torch.where(any_nm, lo + gstar * 16 + pstar + 1,
-                                    0 if k == 0 else lo)
-            mrun = torch.where(active & in_tile, i - floor_row, 0)
-            i2 = i - mrun
-            j2 = j - mrun
-            op = (wsel >> (2 * pstar)) & 3
-            take_e = any_nm & ~((i2 == 0) & (j2 == 0))
-            i3 = torch.where(take_e & (op == 1), i2 - 1, i2)
-            j3 = torch.where(take_e & (op == 2), j2 - 1, j2)
-            drun = torch.where(active & ~any_nm & (i2 == 0), j2.clamp(min=0),
-                               0)
-            j4 = torch.where(drun > 0, 0, j3)
-            done = done | ((i3 == 0) & (j4 == 0))
-            e1 = torch.where(mrun > 0, mrun << 2, OP_PAD)
-            e2 = torch.where(take_e, 4 | op,
-                             torch.where(drun > 0, (drun << 2) | 2, OP_PAD))
-            buf[ptr, :, 0] = e1.to(torch.int16)
-            buf[ptr, :, 1] = e2.to(torch.int16)
-            # writes that land on the clamped last row: the first is
-            # legitimate, every later one overwrites it for all lanes
-            nsat += ptr == n_rows - 1
-            ptr = min(ptr + 1, n_rows - 1)
-            i, j = i3, j4
-            it += 1
+            it = 0
+            while it < tile_bound:
+                alive = ~done & ((i > lo) | ((k == 0) & (j > 0)))
+                syncs += 1
+                if not bool(alive.any()):
+                    break
+                in_tile = i > lo
+                active = ~done & (in_tile | ((k == 0) & (j > 0)))
+                d = (j - i + W).clamp(0, band - 1)
+                ii = (i - 1 - lo).clamp(0, T - 1)    # row within the tile
+                g_cur, r = ii >> 4, ii & 15
+                w_cur = word_at(g_cur, d)
+                sh = 2 * (15 - r)
+                # pairs above i off
+                wm_cur = ((w_cur << sh) & _MASK32) >> sh
+                in_cur = (wm_cur != 0) & in_tile
+                # highest group strictly below g_cur with a non-M pair
+                g2 = group_below(nmf,
+                                 (bidx * band + d).clamp(0, B * band - 1),
+                                 g_cur)
+                has_below = (g2 >= 0) & in_tile
+                any_nm = active & in_tile & (in_cur | has_below)
+                gstar = torch.where(in_cur, g_cur, g2.clamp(min=0))
+                wsel = torch.where(in_cur, wm_cur, word_at(gstar, d))
+                # 15 - (clz(wsel) >> 1): the word's lowest row with a non-M
+                pstar = (15 - ((31 - msb32(wsel)) >> 1)).clamp(min=0)
+                # M-run floor: the indel row, else the tile entry (row 0 in
+                # tile 0: the walk then owes only the synthetic all-D row)
+                floor_row = torch.where(any_nm,
+                                        lo + gstar * 16 + pstar + 1,
+                                        0 if k == 0 else lo)
+                mrun = torch.where(active & in_tile, i - floor_row, 0)
+                i2 = i - mrun
+                j2 = j - mrun
+                op = (wsel >> (2 * pstar)) & 3
+                take_e = any_nm & ~((i2 == 0) & (j2 == 0))
+                i3 = torch.where(take_e & (op == 1), i2 - 1, i2)
+                j3 = torch.where(take_e & (op == 2), j2 - 1, j2)
+                drun = torch.where(active & ~any_nm & (i2 == 0),
+                                   j2.clamp(min=0), 0)
+                j4 = torch.where(drun > 0, 0, j3)
+                done = done | ((i3 == 0) & (j4 == 0))
+                e1 = torch.where(mrun > 0, mrun << 2, OP_PAD)
+                e2 = torch.where(take_e, 4 | op,
+                                 torch.where(drun > 0, (drun << 2) | 2,
+                                             OP_PAD))
+                buf[ptr, :, 0] = e1.to(torch.int16)
+                buf[ptr, :, 1] = e2.to(torch.int16)
+                # writes that land on the clamped last row: the first is
+                # legitimate, every later one overwrites it for all lanes
+                nsat += ptr == n_rows - 1
+                ptr = min(ptr + 1, n_rows - 1)
+                i, j = i3, j4
+                it += 1
+        # free the group (and the views of it) before the next one is
+        # allocated: two would not fit the budget
+        del vg, nmg, Vf, nmf
+        k_hi = k_lo - 1
     gact_traceback_c.host_syncs += syncs
     return buf.permute(1, 0, 2).reshape(B, -1), nsat >= 2
 

@@ -12,12 +12,11 @@ import json
 import sys
 from typing import Optional, TextIO
 
-from longreadmapper_tpu.formats.sam import sam_header
-from longreadmapper_tpu.utils.config import Params, read_params
-from longreadmapper_tpu.utils.log import new_logger
-
+from ..formats.sam import sam_header
 from ..index.device import load_device_index
 from ..models.mapper import TorchMapper
+from ..utils.config import Params, read_params
+from ..utils.log import new_logger
 from .reads import chunks, load_read_batches
 
 

@@ -10,15 +10,14 @@ to the JAX package's.  The accelerator lchash build is not ported
 
 from __future__ import annotations
 
-from longreadmapper_tpu.formats.catmeta import create_meta, load_cat
-from longreadmapper_tpu.formats.lch import write_lch
-from longreadmapper_tpu.utils.config import Params
-from longreadmapper_tpu.utils.log import new_logger
-
+from ..formats.catmeta import create_meta, load_cat
+from ..formats.lch import write_lch
 from ..index.device import _assemble_host_arrays, save_device_cache
 from ..index.fmi import FMIndex, encode_bytes
 from ..index.lchash import lc_build_from_sa
 from ..index.sa import sa_build
+from ..utils.config import Params
+from ..utils.log import new_logger
 
 
 def build_index(fasta_path: str, params: Params | None = None,

@@ -14,7 +14,7 @@ import queue
 import threading
 from typing import Iterator, List, Optional, Tuple
 
-from longreadmapper_tpu.formats.fastx import read_fastx
+from ..formats.fastx import read_fastx
 
 ReadTuple = Tuple[str, str, Optional[str]]  # (name, seq, qual)
 

@@ -22,11 +22,10 @@ from collections import Counter
 
 import torch
 
-from longreadmapper_tpu.utils.config import Params
-
 from ..index.device import load_device_index
 from ..mapping.pipeline import map_step
 from ..models.mapper import TorchMapper
+from ..utils.config import Params
 from .reads import chunks
 
 TRACED_STEPS = 3

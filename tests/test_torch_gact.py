@@ -45,8 +45,9 @@ def _weave(B=4, L=2048, T=128, C=24, seed=11):
     return q, t, np.full(B, L, np.int32)
 
 
-def _both(q, t, lens, T, W, band, scale=1):
-    """(JAX, port) outputs of gact_forward and gact_traceback_c."""
+def _both(q, t, lens, T, W, band, scale=1, group=1):
+    """(JAX, port) outputs of gact_forward and gact_traceback_c; the port
+    rematerializes `group` tiles at a time."""
     import jax.numpy as jnp
     from longreadmapper_tpu.ops import gact as jg
     from longreadmapper_tpu_torch.ops import gact as tg
@@ -57,7 +58,7 @@ def _both(q, t, lens, T, W, band, scale=1):
     tq, tt = torch.from_numpy(q), torch.from_numpy(t)
     ck, wc = tg.gact_forward(tq, tt, T, W, band)
     runs, sat = tg.gact_traceback_c(tq, tt, ck, torch.from_numpy(lens), T, W,
-                                    band, scale=scale)
+                                    band, scale=scale, group=group)
     return ((np.asarray(ck_w), np.asarray(wc_w), np.asarray(runs_w),
              bool(sat_w)), (ck.numpy(), wc.numpy(), runs.numpy(), sat))
 
@@ -110,6 +111,70 @@ def test_gact_walk_saturation_weave_matches_jax(scale):
         assert got[3]                             # the flag, never silence
 
 
+@pytest.mark.parametrize("group", [1, 3, 8])
+def test_grouped_walk_matches_jax(group):
+    """Tiles rematerialized a group at a time (1, a size that does not
+    divide the 8 tiles, all of them): JAX's runs bit for bit."""
+    from longreadmapper_tpu_torch.ops import gact as tg
+    from longreadmapper_tpu_torch.ops.band_dp import banded_nw_dirs_tiles
+    B, L, T, W, band = 5, 512, 64, 30, 128
+    q, t, lens = _pair(17, B, L)
+    lens[3] = L - 40                              # a shorter read
+    calls = []
+    orig = tg.banded_nw_dirs_tiles
+    tg.banded_nw_dirs_tiles = lambda *a: calls.append(a[-2:]) or orig(*a)
+    try:
+        want, got = _both(q, t, lens, T, W, band, group=group)
+    finally:
+        tg.banded_nw_dirs_tiles = orig
+    assert orig is banded_nw_dirs_tiles
+    _assert_equal(want, got)
+    assert ((got[2] & 3 == 1) | (got[2] & 3 == 2)).any()
+    # newest group first, each as large as allowed
+    sizes = {1: [1] * 8, 3: [3, 3, 2], 8: [8]}[group]
+    assert [n for _, n in calls] == sizes
+    assert [k0 for k0, _ in calls] == [8 - sum(sizes[:m + 1])
+                                       for m in range(len(sizes))]
+
+
+def test_plain_tiles_equal_single_tile_loop():
+    """The multi-tile entry's plain version (and the wrapper on the CPU,
+    which launches nothing) equals the single-tile plain calls."""
+    from longreadmapper_tpu_torch.ops.band_dp import (band_dp_tiles,
+                                                      banded_nw_dirs,
+                                                      banded_nw_dirs_tiles)
+    from longreadmapper_tpu_torch.ops.gact import gact_forward
+    from longreadmapper_tpu_torch.ops.wavefront import banded_nw_dirs_v
+    B, L, T, W, band = 3, 1024, 128, 60, 128
+    q, t, _ = (torch.from_numpy(a) for a in _pair(8, B, L))
+    ckpt, _ = gact_forward(q, t, T, W, band)
+    before = (banded_nw_dirs.launches, band_dp_tiles.launches)
+    v, wc, nm = banded_nw_dirs_tiles(q, t, W, band, ckpt, T, 2, 5)
+    assert (banded_nw_dirs.launches, band_dp_tiles.launches) == before
+    assert v.shape == (5, T // 16, B, band) and wc.shape == (5, T + 1, B)
+    assert nm.shape == (5, 1, B, band)
+    for y in range(5):
+        k = 2 + y
+        want = banded_nw_dirs_v(q, t, W, band, h0=ckpt[k], i0=k * T, n=T)
+        for g, w in zip((v[y], wc[y], nm[y]), want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B,band,budget,want", [
+    (40, 5120, 1 << 30, 39),          # the 50 kb first pass: 98 tiles
+    (40, 10112, 1 << 30, 20),         # its full-band retry
+    (200, 2176, 1 << 30, 18),         # the 10 kb retry: 20 tiles
+    (40, 5120, 0, 1),                 # a budget below one tile
+    (2, 128, 1 << 30, 98)])           # never more than all tiles
+def test_gact_group_tiles(B, band, budget, want):
+    from longreadmapper_tpu_torch.ops.gact import gact_group_tiles
+    L, T = 50176, 512
+    g = gact_group_tiles(B, L, T, band, budget)
+    assert g == want
+    tile = 4 * B * band * (T // 16 + 1) + 2 * B * (T + 1)
+    assert g == 1 or g * tile <= budget
+
+
 def test_tile_entry_dirs_match_jax_vertical_row_step():
     """A tile of T rows entered from checkpoint row k*T gives JAX's
     vertical _dp_row_step words, the rows' wcol and the group bitmap."""
@@ -138,18 +203,24 @@ def test_tile_entry_dirs_match_jax_vertical_row_step():
 
 
 def test_wrapper_tile_entry_runs_plain_version_on_cpu():
-    from longreadmapper_tpu_torch.ops.band_dp import (band_dp_wide,
-                                                      banded_nw_dirs)
+    """One tile through the multi-tile wrapper (and a whole pass at a wide
+    band through banded_nw_dirs) on the CPU: the plain version, no launch."""
+    from longreadmapper_tpu_torch.ops.band_dp import (band_dp_tiles,
+                                                      banded_nw_dirs,
+                                                      banded_nw_dirs_tiles)
     from longreadmapper_tpu_torch.ops.gact import gact_forward
     from longreadmapper_tpu_torch.ops.wavefront import banded_nw_dirs_v
     q, t, _ = (torch.from_numpy(a) for a in _pair(4, 3, 256))
     ckpt, _ = gact_forward(q, t, 64, 20, 128)
-    before = (banded_nw_dirs.launches, band_dp_wide.launches)
-    got = banded_nw_dirs(q, t, 20, 128, h0=ckpt[2], i0=128, n=64)
+    before = (banded_nw_dirs.launches, band_dp_tiles.launches)
+    got = banded_nw_dirs_tiles(q, t, 20, 128, ckpt, 64, 2, 1)
     want = banded_nw_dirs_v(q, t, 20, 128, h0=ckpt[2], i0=128, n=64)
-    assert (banded_nw_dirs.launches, band_dp_wide.launches) == before
     for g, w in zip(got, want):
+        assert torch.equal(g[0], w)
+    for g, w in zip(banded_nw_dirs(q, t, 20, 640),
+                    banded_nw_dirs_v(q, t, 20, 640)):
         assert torch.equal(g, w)
+    assert (banded_nw_dirs.launches, band_dp_tiles.launches) == before
 
 
 def test_walk_refuses_int16_count_overflow():
@@ -162,17 +233,47 @@ def test_walk_refuses_int16_count_overflow():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,L,W,band,T", [(16, 2048, 1024, 2176, 0),
-                                          (37, 4096, 409, 896, 0),
-                                          (8, 4096, 2508, 5120, 512),
-                                          (4, 1024, 5017, 10112, 256)])
-def test_wide_kernel_matches_plain_on_card(B, L, W, band, T):
-    """Resident mode (T == 0, the whole pass) and tile mode (entered from
-    the plain forward pass's checkpoint row at T)."""
+@pytest.mark.parametrize("B,L,W,band,T,k0,tiles", [
+    (8, 8192, 2508, 5120, 512, 3, 13),     # the 50 kb first pass
+    (4, 4096, 5017, 10112, 256, 0, 16),    # its retry band, every tile
+    (16, 2048, 1024, 2176, 128, 5, 11)])
+def test_tiles_kernel_matches_plain_on_card(B, L, W, band, T, k0, tiles):
+    """The multi-tile entry: one launch of grid (B, tiles), entered from
+    the plain forward pass's checkpoint rows in place."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from _torch_parity import mutate_rows
-    from longreadmapper_tpu_torch.ops.band_dp import (band_dp_wide,
+    from longreadmapper_tpu_torch.ops.band_dp import (
+        band_dp_tiles, banded_nw_dirs_tiles, banded_nw_dirs_tiles_v)
+    from longreadmapper_tpu_torch.ops.gact import gact_forward
+    rng = np.random.default_rng(B + L + tiles)
+    q = rng.integers(0, 4, (B, L)).astype(np.int8)
+    t = mutate_rows(rng, q, L // 20, pad=L // 16)
+    qd, td = torch.from_numpy(q).cuda(), torch.from_numpy(t).cuda()
+    ckpt, _ = gact_forward(qd, td, T, W, band)
+    before = band_dp_tiles.launches
+    got = banded_nw_dirs_tiles(qd, td, W, band, ckpt, T, k0, tiles)
+    want = banded_nw_dirs_tiles_v(qd, td, W, band, ckpt, T, k0, tiles)
+    torch.cuda.synchronize()
+    assert band_dp_tiles.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,W,band,T", [(16, 2048, 1024, 2176, 0),
+                                          (37, 4096, 409, 896, 0),
+                                          (8, 4096, 2508, 5120, 512),
+                                          (4, 1024, 5017, 10112, 256),
+                                          (2, 1024, 8000, 16384, 256)])
+def test_wide_kernel_matches_plain_on_card(B, L, W, band, T):
+    """Resident mode (T == 0, the whole pass through banded_nw_dirs) and
+    one tile (entered from the plain forward pass's checkpoint row at T),
+    both launches of the multi-tile entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from _torch_parity import mutate_rows
+    from longreadmapper_tpu_torch.ops.band_dp import (band_dp_tiles,
                                                       banded_nw_dirs)
     from longreadmapper_tpu_torch.ops.gact import gact_forward
     from longreadmapper_tpu_torch.ops.wavefront import banded_nw_dirs_v
@@ -180,14 +281,15 @@ def test_wide_kernel_matches_plain_on_card(B, L, W, band, T):
     q = rng.integers(0, 4, (B, L)).astype(np.int8)
     t = mutate_rows(rng, q, L // 20, pad=L // 16)
     qd, td = torch.from_numpy(q).cuda(), torch.from_numpy(t).cuda()
-    kw = {}
+    before = band_dp_tiles.launches
     if T:
         ckpt, _ = gact_forward(qd, td, T, W, band)
-        kw = dict(h0=ckpt[1].contiguous(), i0=T, n=T)
-    before = band_dp_wide.launches
-    got = banded_nw_dirs(qd, td, W, band, **kw)
-    want = banded_nw_dirs_v(qd, td, W, band, **kw)
+        got = [x[0] for x in band_dp_tiles(qd, td, W, band, ckpt, T, 1, 1)]
+        want = banded_nw_dirs_v(qd, td, W, band, h0=ckpt[1], i0=T, n=T)
+    else:
+        got = banded_nw_dirs(qd, td, W, band)
+        want = banded_nw_dirs_v(qd, td, W, band)
     torch.cuda.synchronize()
-    assert band_dp_wide.launches == before + 1
+    assert band_dp_tiles.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -95,7 +95,8 @@ def test_checkpoints_are_rows_of_the_score_matrix():
 @pytest.mark.parametrize("B,L,W,band,T", [(128, 1024, 102, 256, 0),
                                           (16, 1024, 600, 1280, 0),
                                           (8, 2048, 2000, 4096, 512),
-                                          (4, 512, 5017, 10112, 128)])
+                                          (4, 512, 5017, 10112, 128),
+                                          (2, 512, 8000, 16384, 128)])
 def test_kernel_matches_plain_on_card(B, L, W, band, T):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
