@@ -15,16 +15,21 @@ Phases (each raises on failure; nothing is caught):
                prints each kernel's registers, stack and spills
   3. kernel  — each kernel against its plain version on the card,
                bit-equal at every listed shape; median times at the main
-               shapes: band_dp (warp per read; band_dp_wide timed beside
-               it at its four bands), band_dp_wide (resident, one tile,
+               shapes: band_dp (warp per read, at bands 128-512;
+               band_dp_wide timed beside it; the step takes the warp
+               kernel at ops/band_dp.BANDS), band_dp_wide (resident, one
+               tile,
                and every tile of each gact pass of the main path: 50 kb
                at band 5120 and 10112, the 10 kb retry at band 2176,
                entered from the plain forward pass's checkpoints),
-               band_scores (the checkpoints of those passes and of an
-               8192-row pass, held to the plain forward pass, and the
-               full matrix); then, in turns in one loop, each gact pass's
+               band_scores (the checkpoints of those passes at one CTA a
+               read and at the card's cluster size, and of an 8192-row
+               pass, held to the plain forward pass, and the full
+               matrix); then, in turns in one loop, each gact pass's
                tiles in the walk's groups against single-tile launches,
-               its checkpoints, and the 10 kb resident pass
+               its checkpoints at each C (the card's choice,
+               ops/band_scores.cluster_ctas, beside C = 1), and the 10 kb
+               resident pass
   4. map     — a 4 Mb single-contig genome and 16384 1 kb reads (3%
                substitutions, both strands, planted positions), all made
                from --seed; `cli index` then `cli map` in-process; checks
@@ -32,7 +37,8 @@ Phases (each raises on failure; nothing is caught):
                consumes its read and spells its ED against the genome,
                and that the main path went through the kernel and never
                through a plain version
-  5. cpu     — `cli map --device cpu` (plain versions, in subprocesses)
+  5. cpu     — `cli map --device cpu` (plain versions, in subprocesses
+               that run beside phases 6 and 7 and are checked after them)
                and `--device cuda` give byte-identical SAM: the first 256
                1 kb reads, 16 reads of the 10 kb set (2 high-error, so the
                full-band retry runs through gact at band 2176) and 2 reads
@@ -269,16 +275,22 @@ def check_equal(kernel: str, where: str, got, want) -> int:
 def phase_kernel(seed: int) -> dict:
     import numpy as np
     from longreadmapper_tpu_torch.ops.band_dp import (
-        band_dp_tiles, banded_nw_dirs, banded_nw_dirs_tiles_v)
-    from longreadmapper_tpu_torch.ops.band_scores import (band_checkpoints,
-                                                          band_scores)
+        BANDS, _band_dp, band_dp_tiles, banded_nw_dirs,
+        banded_nw_dirs_tiles_v)
+    from longreadmapper_tpu_torch.ops.band_scores import (
+        band_checkpoints, band_scores, card_resident, cluster_ctas,
+        resident_clusters)
     from longreadmapper_tpu_torch.ops.gact import (gact_forward,
                                                    gact_group_tiles)
     from longreadmapper_tpu_torch.ops.wavefront import (banded_nw_dirs_v,
                                                         banded_nw_scores,
                                                         row0)
 
+    import torch
     rng = np.random.default_rng(seed)
+    resident = card_resident(0)
+    log(f"[3 kernel] clusters the card holds at once, one CTA an SM "
+        f"(cudaOccupancyMaxActiveClusters): {json.dumps(resident)}")
     res = {k: dict(err=0, ms=None, plain_ms=None, bound_ms=None,
                    bound_by=None)
            for k in ("band_dp", "band_dp_wide", "band_scores")}
@@ -304,21 +316,23 @@ def phase_kernel(seed: int) -> dict:
 
     # band_dp, the warp-per-read kernel, at its four bands; band_dp_wide,
     # which takes these bands too, on the same inputs and timed beside it
+    # (banded_nw_dirs takes the warp kernel at BANDS, the wide one above)
     for B, L, W, band in SHAPES:
         q, t = dp_inputs(rng, B, L)
         where = f"B={B} L={L} W={W} band={band}"
         n0 = banded_nw_dirs.launches
-        got = banded_nw_dirs(q, t, W, band)
+        got = _band_dp(q, t, W, band)
         assert banded_nw_dirs.launches == n0 + 1
         want = banded_nw_dirs_v(q, t, W, band)
         err("band_dp", check_equal("band_dp", where, got, want))
         err("band_dp_wide", check_equal("band_dp_wide", where,
                                         wide_pass(q, t, W, band), want))
         del got, want
-        ms = cuda_ms(lambda: banded_nw_dirs(q, t, W, band), 20)
+        ms = cuda_ms(lambda: _band_dp(q, t, W, band), 20)
         wide_ms = cuda_ms(lambda: wide_pass(q, t, W, band), 20)
         log(f"[3 kernel] {where} median: band_dp {ms} ms, band_dp_wide "
-            f"{wide_ms} ms ({wide_ms / ms}x)")
+            f"{wide_ms} ms ({wide_ms / ms}x); the step takes "
+            f"{'band_dp' if band in BANDS else 'band_dp_wide'}")
         if (B, L, W, band) == MAIN_SHAPE:
             note("band_dp", where, ms,
                  cuda_ms(lambda: banded_nw_dirs_v(q, t, W, band), 3),
@@ -372,18 +386,32 @@ def phase_kernel(seed: int) -> dict:
         del want, got, want_t, ckpt
 
     # every gact pass of the main path at its shape: band_scores's
-    # checkpoints held to the plain forward pass, then the multi-tile entry
-    # over all the pass's tiles entered from the plain checkpoints; then
-    # the pass as the walk runs it (groups of gact_group_tiles, newest
-    # first) and as single-tile launches
+    # checkpoints at one CTA a read and at the card's cluster size (all
+    # sizes: scripts/torch_cluster_sweep.py) held to the plain forward pass,
+    # then the multi-tile entry over all the pass's tiles entered from the
+    # plain checkpoints; then the pass as the walk runs it (groups of
+    # gact_group_tiles, newest first) and as single-tile launches
+    chosen = {}
     for B, L, W, band in PASS_SHAPES:
         K = L // T
         q, t = dp_inputs(rng, B, L)
-        where = f"checkpoints B={B} L={L} W={W} band={band} T={T}"
+        name = f"{L // 1000} kb band {band}"
         want, ck_plain_ms = timed_once(lambda: gact_forward(q, t, T, W,
                                                             band))
-        err("band_scores", check_equal(
-            "band_scores", where, band_checkpoints(q, t, T, W, band), want))
+        chosen[name] = cluster_ctas(B, band, resident)
+        for C in sorted({1, chosen[name]}):
+            where = f"checkpoints B={B} L={L} W={W} band={band} T={T} C={C}"
+            err("band_scores", check_equal(
+                "band_scores", where,
+                band_checkpoints(q, t, T, W, band, ctas=C), want))
+            timed[f"checkpoints {name} C{C}"] = (
+                lambda q=q, t=t, W=W, band=band, C=C: band_checkpoints(
+                    q, t, T, W, band, ctas=C), ck_plain_ms,
+                ckpt_bound(B, L, band, T))
+        C = chosen[name]
+        log(f"[3 kernel] band_scores {name} B={B}: cluster_ctas -> C={C}"
+            + (f", {resident_clusters(B, band, C)} clusters resident at "
+               "once (cudaOccupancyMaxActiveClusters)" if C > 1 else ""))
         ckpt = want[0]
         del want
         where = f"tiles B={B} L={L} W={W} band={band} T={T} x{K}"
@@ -407,14 +435,10 @@ def phase_kernel(seed: int) -> dict:
             for k in range(K - 1, -1, -1):
                 band_dp_tiles(q, t, W, band, ckpt, T, k, 1)
 
-        name = f"{L // 1000} kb band {band}"
         timed[f"tiles {name} grouped by {group}"] = (
             grouped, plain_ms, dirs_bound(B, L, band, T, K))
         timed[f"tiles {name} single x{K}"] = (
             singles, plain_ms, dirs_bound(B, L, band, T, K))
-        timed[f"checkpoints {name}"] = (
-            lambda q=q, t=t, W=W, band=band: band_checkpoints(
-                q, t, T, W, band), ck_plain_ms, ckpt_bound(B, L, band, T))
 
     ms = turns({k: v[0] for k, v in timed.items()}, TURNS)
     log(f"[3 kernel] in turns ({TURNS} rounds): " + json.dumps(ms))
@@ -422,14 +446,19 @@ def phase_kernel(seed: int) -> dict:
         log(f"[3 kernel] {name}: {ms[name]} ms, bound {bnd[0]} ms by "
             f"{bnd[1]} ({bnd[0] / ms[name]:.4f} of it reached), plain "
             f"{plain_ms} ms")
+    for name, C in chosen.items():
+        one = ms[f"checkpoints {name} C1"]
+        best = ms[f"checkpoints {name} C{C}"]
+        log(f"[3 kernel] band_scores {name}: C={C} {best} ms against C=1 "
+            f"{one} ms ({best / one:.4f}x)")
     # the kernels line: the 50 kb first pass as the step launches it, its
-    # tiles in the walk's groups and its checkpoints
+    # tiles in the walk's groups and its checkpoints at cluster_ctas's C
     main = f"{PASS_SHAPES[0][1] // 1000} kb band {PASS_SHAPES[0][3]}"
     tiles = next(k for k in timed if k.startswith(f"tiles {main} grouped"))
     note("band_dp_wide", "pass " + tiles, ms[tiles], timed[tiles][1],
          timed[tiles][2])
-    note("band_scores", f"pass checkpoints {main}", ms[f"checkpoints {main}"],
-         timed[f"checkpoints {main}"][1], timed[f"checkpoints {main}"][2])
+    ck = f"checkpoints {main} C{chosen[main]}"
+    note("band_scores", "pass " + ck, ms[ck], timed[ck][1], timed[ck][2])
     del timed
 
     # band_scores, the full score matrix
@@ -656,11 +685,14 @@ def phase_map(d: str, seed: int, n_reads: int, genome_len: int = 4_000_000):
     return fa, fq, g, launches
 
 
-def phase_cpu(d: str, fa: str, sets):
-    """sets: (name, fq, n_reads, chunk_b).  The CPU maps run as
-    subprocesses, all at once, while the card maps the same reads."""
+def cpu_maps(d: str, fa: str, sets):
+    """Phase 5, first half.  sets: (name, fq, n_reads, chunk_b).  Starts
+    `cli map --device cpu` of every set as a subprocess, all at once, and
+    maps the same reads on the card meanwhile; returns (the subprocesses,
+    the card's SAM texts).  The CPU maps take minutes: the caller runs its
+    other phases beside them, then check_cpu_maps, and stop() in any case."""
     import torch
-    threads = max(1, len(os.sched_getaffinity(0)) // 2)
+    threads = max(1, len(os.sched_getaffinity(0)) // 4)
     env = dict(os.environ, OMP_NUM_THREADS=str(threads),
                PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
@@ -669,7 +701,8 @@ def phase_cpu(d: str, fa: str, sets):
         for name, fq, n, cb in sets:
             sam = os.path.join(d, f"{name}.cpu.sam")
             with open(sam, "w") as f, open(sam + ".log", "w") as e:
-                procs.append((name, sam, time.perf_counter(), subprocess.Popen(
+                procs.append((sam, threads, time.perf_counter(),
+                              subprocess.Popen(
                     [sys.executable, "-m", "longreadmapper_tpu_torch.cli"]
                     + map_argv(fa, fq, n, "cpu", cb), stdout=f, stderr=e,
                     env=env, cwd=HERE)))
@@ -683,27 +716,38 @@ def phase_cpu(d: str, fa: str, sets):
                 f"{time.perf_counter() - t0} s (index load included)")
             with open(sam) as f:
                 texts[name] = f.read()
-        for (name, fq, n, cb), (_, sam, t0, p) in zip(sets, procs):
-            rc = p.wait()
-            log(f"[5 cpu] {name}: cli map of {n} reads on cpu ({threads} "
-                f"threads) in {time.perf_counter() - t0} s, exit {rc}")
-            if rc != 0:
-                with open(sam + ".log") as f:
-                    raise RuntimeError(f"cpu map of {name} failed:\n"
-                                       + f.read()[-3000:])
-            with open(sam) as f:
-                cpu = f.read()
-            same = cpu == texts[name] and len(parse_sam(cpu)) == n
-            log(f"[5 cpu] check {'PASS' if same else 'FAIL'}: {name}: SAM "
-                f"of {n} reads byte-identical between the CPU (plain "
-                f"versions) and the card ({len(cpu)} bytes)")
-            if not same:
-                raise AssertionError("phase 5 failed")
-    finally:
-        for *_, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    except BaseException:
+        stop(procs)
+        raise
+    return procs, texts
+
+
+def check_cpu_maps(sets, procs, texts) -> None:
+    """Phase 5, second half: waits for the CPU maps and holds their SAM
+    byte-identical to the card's."""
+    for (name, fq, n, cb), (sam, threads, t0, p) in zip(sets, procs):
+        rc = p.wait()
+        log(f"[5 cpu] {name}: cli map of {n} reads on cpu ({threads} "
+            f"threads) in {time.perf_counter() - t0} s, exit {rc}")
+        if rc != 0:
+            with open(sam + ".log") as f:
+                raise RuntimeError(f"cpu map of {name} failed:\n"
+                                   + f.read()[-3000:])
+        with open(sam) as f:
+            cpu = f.read()
+        same = cpu == texts[name] and len(parse_sam(cpu)) == n
+        log(f"[5 cpu] check {'PASS' if same else 'FAIL'}: {name}: SAM "
+            f"of {n} reads byte-identical between the CPU (plain "
+            f"versions) and the card ({len(cpu)} bytes)")
+        if not same:
+            raise AssertionError("phase 5 failed")
+
+
+def stop(procs) -> None:
+    for *_, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def phase_stages(tag: str, fa: str, reads, traced_steps: int = 3):
@@ -811,19 +855,25 @@ def main(argv=None) -> int:
         with open(fq) as f, open(fq_short, "w") as o:
             for _ in range(4 * N_CPU_READS):
                 o.write(f.readline())
-        phase_cpu(d, fa, [("1kb", fq_short, N_CPU_READS, N_CPU_READS)] + [
+        sets = [("1kb", fq_short, N_CPU_READS, N_CPU_READS)] + [
             (name, os.path.join(d, f"{name}.cpu.fq"), len(CPU_LONG[name]),
-             2048) for name in LONG_SETS])
-        done("5 cpu")
-        phase_stages("6 stages", fa, next(iter(load_read_batches(
-            fq, N_STAGE_READS, background=False))))
-        done("6 stages")
-        counts = {"band_dp_wide": 0, "band_scores": 0}
-        for name, (reads, pos, hi) in long_data.items():
-            for k, v in phase_long(d, fa, g, name, reads, pos,
-                                   hi).items():
-                counts[k] += v
-            done(f"7 long {name}")
+             2048) for name in LONG_SETS]
+        procs, texts = cpu_maps(d, fa, sets)
+        try:
+            done("5 cpu, card maps (the CPU maps run beside phases 6-7)")
+            phase_stages("6 stages", fa, next(iter(load_read_batches(
+                fq, N_STAGE_READS, background=False))))
+            done("6 stages")
+            counts = {"band_dp_wide": 0, "band_scores": 0}
+            for name, (reads, pos, hi) in long_data.items():
+                for k, v in phase_long(d, fa, g, name, reads, pos,
+                                       hi).items():
+                    counts[k] += v
+                done(f"7 long {name}")
+            check_cpu_maps(sets, procs, texts)
+            done("5 cpu, the CPU maps checked")
+        finally:
+            stop(procs)
     launches = dict(band_dp=launches, **counts)
     src = {"band_dp": "band_dp.cu", "band_dp_wide": "band_dp.cu",
            "band_scores": "band_scores.cu"}

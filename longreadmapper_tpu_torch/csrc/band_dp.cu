@@ -19,27 +19,47 @@
 //   nm    (ceil(G/32), B, band)  bit g&31 of word g>>5 set iff vdirs[g]
 //                                at (b, d) holds a non-M pair
 //
-// What bounds it on this card: the recurrence is sequential in the row
-// index, and each row needs an inclusive min-plus prefix scan across the
-// band (the in-row insertion chain).  The work per cell is a dozen integer
-// ops; the bytes are small (q and t are L bytes per read, the direction
+// What bounds the warp kernel on this card: the recurrence is sequential
+// in the row index and each row needs a min-plus prefix scan across the
+// band; the bytes are small (q and t are L bytes per read, the direction
 // volume L/16 * band * 4 bytes per read is written once, 134 MB at
-// B=2048, L=1024, band=256, ~40 us of HBM time).  So it is latency bound
-// on the per-row dependency chain, not bandwidth or ALU bound.
+// B=2048, L=1024, band=256, ~40 us of HBM time).  With 2048 reads a
+// launch the card is full (16 warps an SM), so the chains overlap and the
+// integer instructions issued a cell are the limit: the bound chip_smoke.py
+// reports counts 12 a cell, and the first version's row issued about 25
+// (a byte load, a compare and a select for the substitution, a min and a
+// subtract for the slope, the domain mask on every row, the d == W test,
+// a three-way select and an or-shift for the direction): 0.885 ms at
+// (2048, 1024, 102, 256), 43.5% of the 0.385 ms bound (PERF.md; NVIDIA
+// H100 80GB HBM3, 700 W).
 //
 // Design: one warp per read, so a row needs no block barrier.  Lane l owns
 // the K = band/32 contiguous band columns d = l*K .. l*K+K-1 and keeps
 // their scores, the 16-row direction words and the current 32-group nm
-// words in registers.  Per row:
-//   * the up-neighbour H(i-1, d+1) of a lane's last column comes from the
+// words in registers.  A per-warp shared-memory copy of t, padded with 5
+// by W+1 on the left and by band + 4 on the right (word-aligned, so the
+// last column's word load stays inside), holds the row window: column d
+// of row i reads tpad[i + d] with no bounds test.  The row is band_row.cuh's
+// per-thread steps, so it spends what the CTA kernels' row spends a cell:
+//   * the substitution bits of the K columns from 32-bit words (a funnel
+//     shift, an XOR with the replicated query byte and a carry-free
+//     zero-byte test for 4 columns: sub_words);
+//   * the slope-form scan as two DPX add-mins a column (__viaddmin_s32:
+//     min(a, up + 1) - k and the running min; slope_scan), then a 5-step
+//     __shfl_up_sync exclusive prefix min over the lane totals
+//     (warp_excl); the up-neighbour of a lane's last column comes from the
 //     next lane by one __shfl_down_sync (INF past the band edge);
-//   * the min-plus scan runs in slope form A[d] = cand[d] - d: a serial
-//     prefix min over the lane's K columns, then a 5-step __shfl_up_sync
-//     exclusive prefix min over the lane totals, then one min per column;
-//   * the target row window is a per-warp shared-memory copy of t padded
-//     with 5 by W+1 on the left and band on the right, so column d of row
-//     i reads tpad[i + d] with no bounds test; the query byte of the row is
-//     a shared-memory broadcast.
+//   * each column one min and one add-min, without the domain masks on
+//     rows inside the DP domain (finish_row), and column W read once after
+//     the row (column_at);
+//   * the direction pair shifted into the word by one __funnelshift_r.
+// The next row's substitution words load while the row's shuffles run,
+// the exclusive scan is 5 shuffles deep (warp_excl_short), and the inner
+// test is taken once a 16-row group.  Measured: 0.855 ms at (2048, 1024,
+// 102, 256), 45% of the bound, 0.92x the first version's row in the same
+// call; at band 512 band_dp_wide is faster, so the step takes this kernel
+// at 128-384
+// (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W).
 // Every 16 rows a lane stores its K words as int4 vectors (a warp writes
 // band*4 contiguous bytes); every 32 groups it stores its K nm words.
 
@@ -56,20 +76,27 @@ constexpr int kWarpsPerBlock = 4;
 
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 
+// Bytes of a warp's padded target: tpad[0 .. L + W + band], and the word
+// past the last column's.
+__host__ __device__ inline int tp_bytes(int L, int W, int band) {
+  return round16(L + W + 1 + band + 4);
+}
+
 template <int K>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 band_dp_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
                int B, int L, int W, int32_t* __restrict__ vdirs,
                int16_t* __restrict__ wcol, int32_t* __restrict__ nm) {
   constexpr int band = 32 * K;
-  extern __shared__ int8_t smem[];
+  extern __shared__ int4 smem_w[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + warp;
   if (b >= B) return;  // uniform per warp: no lane of this warp goes on
 
-  const int tp_len = round16(L + W + 1 + band);
-  int8_t* tp = smem + warp * (tp_len + round16(L));
+  const int tp_len = tp_bytes(L, W, band);
+  int8_t* tp =
+      reinterpret_cast<int8_t*>(smem_w) + warp * (tp_len + round16(L));
   int8_t* qs = tp + tp_len;
   const int8_t* qb = q + static_cast<size_t>(b) * L;
   const int8_t* tb = t + static_cast<size_t>(b) * L;
@@ -81,6 +108,7 @@ band_dp_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
   __syncwarp();
 
   const int d0 = lane * K;
+  const bool has_w = W >= d0 && W < d0 + K;
   int h[K];
   uint32_t word[K];
   uint32_t nmw[K];
@@ -88,55 +116,42 @@ band_dp_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
   for (int k = 0; k < K; ++k) {
     const int j0 = d0 + k - W;
     h[k] = (j0 >= 0 && j0 <= L) ? j0 : kInf;
+    word[k] = 0u;
     nmw[k] = 0u;
   }
   if (lane == 0) wcol[b] = 0;
 
   const int G = L / 16;
+  uint32_t sub[K / 4];
+  lrm::sub_words<K>(sub, tp, 1, d0, qs[0]);
   for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) word[k] = 0u;
+    // the group's 16 rows all inside the DP domain: no masks
+    const bool inner = g * 16 + 1 >= W && g * 16 + 16 + band - 1 - W <= L;
+#pragma unroll 2
     for (int r = 0; r < 16; ++r) {
       const int i = g * 16 + 1 + r;
-      const int qc = qs[i - 1];
       int nxt = __shfl_down_sync(kFull, h[0], 1);
       if (lane == 31) nxt = kInf;
-      int a[K], up1[K], A[K];
+      int A[K];
+      const int run = lrm::slope_scan<K>(A, h, sub, nxt) - d0;
+      // the next row's substitution words, off the row's chain
+      uint32_t sub_next[K / 4];
+      const int in = min(i + 1, L);
+      lrm::sub_words<K>(sub_next, tp, in, d0, qs[in - 1]);
+      const int excl = lrm::warp_excl_short(run, lane) + d0;  // lane 0: d0 0
+      lrm::finish_row<K>(h, A, sub, excl, nxt, i, d0, W, L, band, inner,
+                         [&](int k, int, int hp, int a, int up1, int row) {
+        const bool diag_ok = hp < kInf && a == row;
+        const uint32_t dir = diag_ok ? 0u : (up1 == row ? 1u : 2u);
+        word[k] = __funnelshift_r(word[k], dir, 2);
+      });
+      if (has_w)
+        wcol[static_cast<size_t>(i) * B + b] =
+            static_cast<int16_t>(lrm::column_at<K>(h, d0, W));
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int up = (k + 1 < K) ? h[k + 1] : nxt;
-        const int sub = (qc != tp[i + d0 + k]) ? 1 : 0;
-        a[k] = h[k] + sub;
-        up1[k] = up + 1;
-        A[k] = min(a[k], up1[k]) - (d0 + k);
-      }
-#pragma unroll
-      for (int k = 1; k < K; ++k) A[k] = min(A[k], A[k - 1]);
-      int tot = A[K - 1];
-#pragma unroll
-      for (int s = 1; s < 32; s <<= 1) {
-        const int o = __shfl_up_sync(kFull, tot, s);
-        if (lane >= s) tot = min(tot, o);
-      }
-      int excl = __shfl_up_sync(kFull, tot, 1);
-      if (lane == 0) excl = 0x7FFFFFFF;
-      int wc = 0;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int d = d0 + k;
-        const int j = i + d - W;
-        int row = min(A[k], excl) + d;
-        row = (j >= 0 && j <= L) ? min(row, kInf) : kInf;
-        const bool diag_ok = (h[k] < kInf) && (a[k] == row);
-        const bool up_ok = (up1[k] == row);
-        const uint32_t dir = diag_ok ? 0u : (up_ok ? 1u : 2u);
-        word[k] |= dir << (2 * r);
-        h[k] = row;
-        if (d == W) wc = row;
-      }
-      if (W >= d0 && W < d0 + K)
-        wcol[static_cast<size_t>(i) * B + b] = static_cast<int16_t>(wc);
+      for (int m = 0; m < K / 4; ++m) sub[m] = sub_next[m];
     }
+    // after 16 funnel shifts row r of the group sits at bits 2r
     int32_t* out = vdirs + (static_cast<size_t>(g) * B + b) * band + d0;
 #pragma unroll
     for (int k = 0; k < K; k += 4)
@@ -163,7 +178,7 @@ template <int K>
 cudaError_t launch(const int8_t* q, const int8_t* t, int B, int L, int W,
                    int32_t* vdirs, int16_t* wcol, int32_t* nm,
                    cudaStream_t stream) {
-  const int per_warp = round16(L + W + 1 + 32 * K) + round16(L);
+  const int per_warp = tp_bytes(L, W, 32 * K) + round16(L);
   const size_t smem = static_cast<size_t>(per_warp) * kWarpsPerBlock;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

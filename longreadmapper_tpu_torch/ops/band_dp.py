@@ -12,12 +12,12 @@ checkpoint row ckpt[k] at row k*T: the same three outputs with a leading
 tile axis; its plain version `banded_nw_dirs_tiles_v` is the loop of
 single-tile plain calls.  On a CPU tensor each runs its plain version; on
 a CUDA tensor it launches a kernel or raises:
-  * the warp-per-read kernel `band_dp` for a whole pass at band 128-512
-    (counted in `banded_nw_dirs.launches`);
+  * the warp-per-read kernel `band_dp` for a whole pass at bands 128, 256
+    and 384 (`BANDS`; counted in `banded_nw_dirs.launches`);
   * the CTA-per-read kernel `band_dp_wide`, through its one entry
     `band_dp_tiles` (grid (B, tiles), counted in `band_dp_tiles.launches`),
     for a group of tiles and for a whole pass at every other band up to
-    16384 (one tile of L rows entered from row 0).
+    16384, 512 included (one tile of L rows entered from row 0).
 """
 
 from __future__ import annotations
@@ -29,7 +29,10 @@ import torch
 from .. import native_build
 from .wavefront import banded_nw_dirs_v, row0
 
-BANDS = (128, 256, 384, 512)       # the warp-per-read kernel
+# the warp-per-read kernel's bands on the main path: at 512 band_dp_wide
+# is faster (scripts/torch_cluster_sweep.py; PERF.md), and _band_dp
+# takes 512 only to measure that
+BANDS = (128, 256, 384)
 WIDE_MAX_BAND = 16384              # the CTA-per-read kernel: band % 128 == 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -8,12 +8,15 @@ bit-equal on the same inputs.
 
 Both checkouts' csrc/band_dp.cu and csrc/band_scores.cu are built by nvcc
 for sm_90a (one process each, in parallel) and called through their C
-entries: lrm_band_dp (the warp kernel, a control that neither side
-changed), the wide kernel's entry (the 10 kb resident pass and one 512-row
-gact tile at the 50 kb bands 5120 and 10112: lrm_band_dp_tiles with one
-tile, or lrm_band_dp_wide in a checkout older than the multi-tile entry)
-and lrm_band_scores (the checkpoints of the gact forward pass), and, where
-both checkouts have it, lrm_band_dp_tiles with a group of 39 tiles at band
+entries: lrm_band_dp (the warp kernel, at the four bands of
+chip_smoke.SHAPES), the wide kernel's entry (the 10 kb resident pass and
+one 512-row gact tile at the 50 kb bands 5120 and 10112: lrm_band_dp_tiles
+with one tile, or lrm_band_dp_wide in a checkout older than the multi-tile
+entry) and lrm_band_scores (the checkpoints of the gact forward pass: an
+8192-row pass at one CTA a read on both sides, then that pass and a 50 kb
+pass at ops/band_scores.cluster_ctas's cluster size on a side that has
+clusters, against one CTA a read on a side that has not), and, where both
+checkouts have it, lrm_band_dp_tiles with a group of 39 tiles at band
 5120 and of 20 at band 10112, as a 50 kb walk launches them.  Each round
 calls base, new, new, base at every shape and times each call with CUDA
 events; the JSON printed last holds the medians, the card's name and
@@ -40,6 +43,8 @@ FUNCS = {"band_dp": {"lrm_band_dp": [P, P, I, I, I, I, P, P, P, P],
                                            P, P]},
          "band_scores": {"lrm_band_scores": [P, P, I, I, I, I, I, P, P, P,
                                              P]}}
+# lrm_band_scores of a checkout with clusters (it has lrm_band_scores_clusters)
+SCORES_CLUSTER = [P, P, I, I, I, I, I, I, I, P, P, P, P]
 
 
 def build(csrc: str, out: str) -> dict:
@@ -66,6 +71,8 @@ def build(csrc: str, out: str) -> dict:
                 continue
             getattr(libs[name], fn).restype = ctypes.c_int
             getattr(libs[name], fn).argtypes = argtypes
+    if hasattr(libs["band_scores"], "lrm_band_scores_clusters"):
+        libs["band_scores"].lrm_band_scores.argtypes = SCORES_CLUSTER
     return libs
 
 
@@ -82,7 +89,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab.py needs an NVIDIA GPU")
     from chip_smoke import dp_inputs
-    from longreadmapper_tpu_torch.ops.band_scores import band_checkpoints
+    from chip_smoke import PASS_SHAPES, SHAPES
+    from longreadmapper_tpu_torch.ops.band_scores import (band_checkpoints,
+                                                          cluster_ctas)
     from longreadmapper_tpu_torch.ops.wavefront import row0
 
     csrc = "longreadmapper_tpu_torch/csrc"
@@ -147,29 +156,41 @@ def main(argv=None) -> int:
             return out
         cases[name] = run
 
-    def scores_case(name, B, L, W, band, T):
+    def scores_case(name, B, L, W, band, T, ctas=1):
+        """The checkpoints at `ctas` CTAs a read on a side with clusters,
+        at one CTA a read on a side without."""
         q, t = dp_inputs(rng, B, L)
 
         def run(side, q=q, t=t):
             ck = torch.empty((L // T + 1, B, band), dtype=torch.int32,
                              device="cuda")
             wc = torch.empty((L + 1, B), dtype=torch.int16, device="cuda")
-            err = libs[side]["band_scores"].lrm_band_scores(
-                q.data_ptr(), t.data_ptr(), B, L, W, band, T, None,
-                ck.data_ptr(), wc.data_ptr(), stream)
+            lib = libs[side]["band_scores"]
+            shape = ((B, L, W, band, T, ctas, 0)
+                     if hasattr(lib, "lrm_band_scores_clusters")
+                     else (B, L, W, band, T))
+            err = lib.lrm_band_scores(q.data_ptr(), t.data_ptr(), *shape,
+                                      None, ck.data_ptr(), wc.data_ptr(),
+                                      stream)
             if err:
                 raise RuntimeError(f"{side} {name}: launch error {err}")
             return ck, wc
         cases[name] = run
 
-    dirs_case("band_dp 1 kb (control)", 2048, 1024, 102, 256, warp=True)
+    for B, L, W, band in SHAPES:
+        dirs_case(f"band_dp {B},{L},{band}", B, L, W, band, warp=True)
     dirs_case("resident 10 kb", 200, 10240, 512, 1152)
     for W, band in ((2508, 5120), (5017, 10112)):
         q, t = dp_inputs(rng, 40, 8192)
         ckpt, _ = band_checkpoints(q, t, 512, W, band)
         dirs_case(f"tile {band}", 40, 8192, W, band,
                   h0=ckpt[8].contiguous(), i0=8 * 512, n=512, qt=(q, t))
-    scores_case("checkpoints 8192", 40, 8192, 2508, 5120, 512)
+    scores_case("checkpoints 8192 C1 (control)", 40, 8192, 2508, 5120, 512)
+    C = cluster_ctas(40, 5120)
+    scores_case(f"checkpoints 8192 C{C}", 40, 8192, 2508, 5120, 512, C)
+    B, L, W, band = PASS_SHAPES[0]
+    C = cluster_ctas(B, band)
+    scores_case(f"checkpoints 50 kb pass C{C}", B, L, W, band, 512, C)
     if all(hasattr(lib["band_dp"], "lrm_band_dp_tiles")
            for lib in libs.values()):
         tiles_case("tiles 5120 x39", 40, 50176, 2508, 5120, 39)

@@ -91,16 +91,22 @@ def test_wrapper_runs_plain_version_on_cpu():
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,W,band", [(2048, 1024, 102, 256),
                                         (37, 128, 12, 128),
-                                        (64, 2048, 204, 512)])
+                                        (64, 2048, 204, 512),
+                                        (9, 512, 0, 128), (9, 512, 127, 128),
+                                        (9, 768, 0, 256), (9, 768, 255, 256),
+                                        (9, 1024, 0, 384),
+                                        (9, 1024, 383, 384),
+                                        (9, 1024, 0, 512),
+                                        (9, 1024, 511, 512)])
 def test_kernel_matches_plain_on_card(B, L, W, band):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    from longreadmapper_tpu_torch.ops.band_dp import banded_nw_dirs
+    from longreadmapper_tpu_torch.ops.band_dp import _band_dp
     from longreadmapper_tpu_torch.ops.wavefront import banded_nw_dirs_v
     q, t = _inputs(11, B, L, n_edits=30, pad=L // 16)
     qd = torch.from_numpy(q).cuda()
     td = torch.from_numpy(t).cuda()
-    got = banded_nw_dirs(qd, td, W, band)
+    got = _band_dp(qd, td, W, band)        # the warp kernel at every band
     want = banded_nw_dirs_v(qd, td, W, band)
     torch.cuda.synchronize()
     for g, w in zip(got, want):

@@ -4,7 +4,10 @@ contract that tests/test_ops.py holds the Pallas kernel
 ops/wavefront_pallas.banded_nw_scores_pallas to; the Pallas kernel has no
 interpret entry), and the ops/band_scores.py wrappers, which run the plain
 versions on a CPU tensor and the CUDA kernel csrc/band_scores.cu on a CUDA
-tensor.  Every comparison is exact.
+tensor.  The kernel splits a read's row over a cluster of CTAs; a plain
+model of that split (`_sliced_forward`) is held to both packages'
+gact_forward, and the cluster chooser `cluster_ctas` to its rule.  Every
+comparison is exact.
 
 The card tests import no JAX:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -89,6 +92,167 @@ def test_checkpoints_are_rows_of_the_score_matrix():
     ckpt, wcol = gact_forward(q, t, T, W, band)
     assert torch.equal(ckpt.to(torch.int16), H[::T])
     assert torch.equal(wcol, H[:, :, W])
+
+
+def _sliced_forward(q, t, T, W, band, widths):
+    """gact_forward's contract computed as csrc/band_scores.cu splits each
+    row over a cluster: the columns in consecutive ranges of `widths` (one
+    a CTA; their sum >= band, padding columns only in the last range),
+    each with its own slope scan, in which the range's last column leaves
+    its up-neighbour out.  Each range publishes a slot (its total, its
+    first column of the previous row); a range takes its carry from the
+    slots of the ranges before it (each total with its left-out term: the
+    next range's first column + 1 at its last column) and its own last
+    column's up-neighbour from the next range's slot (INF past the last),
+    as the kernel's slots pass them between CTAs."""
+    from longreadmapper_tpu_torch.ops.wavefront import INF
+    B, L = q.shape
+    i32 = torch.int32
+    big = torch.iinfo(i32).max
+    cols = sum(widths)
+    starts = np.cumsum([0] + list(widths[:-1])).tolist()
+    assert starts[-1] < band <= cols and L % T == 0
+    d = torch.arange(cols, dtype=i32)
+    q32 = torch.from_numpy(q).to(i32)
+    tpad = torch.full((B, L + W + 1 + cols), 5, dtype=i32)
+    tpad[:, W + 1:W + 1 + L] = torch.from_numpy(t).to(i32)
+    real = d < band
+    h = torch.where(real & (d >= W) & (d - W <= L), d - W, INF).expand(
+        B, cols).clone()
+    inf_col = torch.full((B, 1), INF, dtype=i32)
+    ckpt, wcol = [h[:, :band]], [h[:, W]]
+    for i in range(1, L + 1):
+        a = h + (q32[:, i - 1:i] != tpad[:, i:i + cols]).to(i32)
+        scans, slots = [], []
+        for c0, w in zip(starts, widths):
+            up = torch.cat([h[:, c0 + 1:c0 + w], inf_col], dim=1)
+            A = torch.cummin(torch.minimum(a[:, c0:c0 + w], up + 1)
+                             - d[c0:c0 + w], dim=1).values
+            scans.append(A)
+            slots.append((A[:, -1], h[:, c0]))
+        slots.append((None, torch.full((B,), INF, dtype=i32)))
+        row = torch.empty_like(h)
+        for r, (c0, w) in enumerate(zip(starts, widths)):
+            carry = torch.full((B,), big, dtype=i32)
+            for r2 in range(r):
+                last = starts[r2] + widths[r2] - 1
+                carry = torch.minimum(carry, torch.minimum(
+                    slots[r2][0], slots[r2 + 1][1] + 1 - last))
+            A = scans[r].clone()
+            A[:, -1] = torch.minimum(A[:, -1],
+                                     slots[r + 1][1] + 1 - (c0 + w - 1))
+            row[:, c0:c0 + w] = (torch.minimum(A, carry[:, None])
+                                 + d[c0:c0 + w])
+        j = i + d - W
+        h = torch.where(real & (j >= 0) & (j <= L), row.clamp(max=INF), INF)
+        wcol.append(h[:, W])
+        if i % T == 0:
+            ckpt.append(h[:, :band])
+    return torch.stack(ckpt), torch.stack(wcol).to(torch.int16)
+
+
+@pytest.mark.parametrize("B,L,T,W,band,widths", [
+    (3, 256, 64, 64, 128, [128]),                    # C 1
+    (2, 256, 32, 127, 128, [64, 96]),                # C 2, W = band - 1
+    (3, 320, 64, 128, 256, [96, 128, 64]),           # C 3, centre
+    (2, 160, 32, 0, 384, [128, 64, 96, 128]),        # C 4, W 0
+    (2, 192, 64, 637, 640, [256, 128, 320]),         # near band - 1
+    (2, 128, 32, 320, 640, [160, 160, 160, 192]),    # C 4, centre
+    (3, 576, 64, 0, 512, [256, 288]),                # C 2, W 0
+    (2, 384, 16, 255, 256, [32, 32, 32, 192]),       # C 4, narrow ranges
+])
+def test_sliced_rows_match_gact_forward(B, L, T, W, band, widths):
+    """The row split over C column ranges, uneven and padded only in the
+    last, gives both packages' gact_forward exactly."""
+    import jax.numpy as jnp
+    from longreadmapper_tpu.ops.gact import gact_forward as jax_forward
+    from longreadmapper_tpu_torch.ops.gact import gact_forward
+    q, t = _inputs(B * L + band + len(widths), B, L, n_edits=L // 12,
+                   pad=L // 16)
+    got = _sliced_forward(q, t, T, W, band, widths)
+    port = gact_forward(torch.from_numpy(q), torch.from_numpy(t), T, W, band)
+    want = jax_forward(jnp.asarray(q), jnp.asarray(t), T, W, band)
+    for g, p, w in zip(got, port, want):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        assert torch.equal(g, p)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (got[0] < 0x3FFF).any() and (got[0] == 0x3FFF).any()
+
+
+def _kernel_takes(band, C):
+    """csrc/band_row.cuh cluster_fits at one of cluster_k's K: each CTA at
+    most 1024 threads and only the last rank with padding columns."""
+    for K in (8, 16, 4):
+        threads = -(-(band // K) // (32 * C)) * 32
+        if threads <= 1024 and (C - 1) * threads * K < band:
+            return True
+    return False
+
+
+@pytest.mark.parametrize("B,band,resident,want", [
+    (40, 5120, None, 2),       # a 50 kb pass: 40 clusters of 3 do not fit
+    (40, 10112, None, 2),      # its full-band retry
+    (39, 5120, None, 3),
+    (39, 2176, None, 3),
+    (66, 4096, None, 2),
+    (67, 4096, None, 1),       # no C runs in one wave
+    (200, 2176, None, 1),      # the 10 kb retry
+    (8, 16384, None, 4),
+    (30, 5120, None, 4),
+    (31, 10112, None, 3),
+    (3, 1280, None, 1),        # below CLUSTER_MIN_BAND
+    (2048, 256, None, 1),      # the 1 kb bucket
+    (40, 5120, {2: 57, 3: 38, 4: 28}, 2),      # another card's counts
+    (28, 5120, {2: 57, 3: 38, 4: 28}, 4),
+    (40, 5120, {2: 39, 3: 26, 4: 19}, 1),
+])
+def test_cluster_ctas(B, band, resident, want):
+    from longreadmapper_tpu_torch.ops.band_scores import cluster_ctas
+    if resident is None:
+        assert cluster_ctas(B, band) == want
+    else:
+        assert cluster_ctas(B, band, resident) == want
+
+
+def test_cluster_ctas_picks_shapes_the_kernel_takes():
+    from longreadmapper_tpu_torch.ops.band_scores import (
+        H100_RESIDENT, MAX_CTAS, cluster_ctas)
+    for band in range(128, 16384 + 1, 128):
+        for B in (1, 2, 8, 30, 33, 39, 40, 44, 66, 67, 200):
+            C = cluster_ctas(B, band)
+            assert 1 <= C <= MAX_CTAS
+            assert C == 1 or (B <= H100_RESIDENT[C]
+                              and _kernel_takes(band, C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,W,band,T,ctas", [
+    (8, 2048, 1024, 2176, 512, 2), (8, 2048, 1024, 2176, 512, 3),
+    (8, 2048, 1024, 2176, 512, 4),
+    (3, 1024, 600, 1280, 256, 3),       # uneven: the last rank half padding
+    (3, 1024, 600, 1280, 0, 3),         # the full matrix in a cluster
+    (2, 1024, 2508, 5120, 0, 2),
+    (4, 2048, 5017, 10112, 512, 3)])
+def test_cluster_kernel_matches_plain_on_card(B, L, W, band, T, ctas):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from longreadmapper_tpu_torch.ops.band_scores import (band_checkpoints,
+                                                          band_scores)
+    from longreadmapper_tpu_torch.ops.gact import gact_forward
+    from longreadmapper_tpu_torch.ops.wavefront import banded_nw_scores
+    q, t = _inputs(17, B, L, n_edits=L // 20, pad=L // 16)
+    qd, td = torch.from_numpy(q).cuda(), torch.from_numpy(t).cuda()
+    before = band_scores.launches
+    if T == 0:
+        got = [band_scores(qd, td, W, band, ctas=ctas)]
+        want = [banded_nw_scores(qd, td, W, band)]
+    else:
+        got = band_checkpoints(qd, td, T, W, band, ctas=ctas)
+        want = gact_forward(qd, td, T, W, band)
+    torch.cuda.synchronize()
+    assert band_scores.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
