@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (longreadmapper_tpu_torch) on one
 NVIDIA GPU: builds the hand-written kernels, holds each to its plain
 PyTorch version, drives `cli index` + `cli map` on a bacterial-scale
-reference with 1 kb, 10 kb and 50 kb reads, checks the SAM, and breaks the
-mapping step's time down by stage.
+reference with 1 kb, 10 kb and 50 kb reads, checks the SAM, breaks the
+mapping step's time down by stage, and maps the same reads in every index
+layout.
 
   python3 chip_smoke.py [--seed N]
 
@@ -32,17 +33,20 @@ Phases (each raises on failure; nothing is caught):
                resident pass
   4. map     — a 4 Mb single-contig genome and 16384 1 kb reads (3%
                substitutions, both strands, planted positions), all made
-               from --seed; `cli index` then `cli map` in-process; checks
-               record count, validity, placement, that every CIGAR
-               consumes its read and spells its ED against the genome,
-               and that the main path went through the kernel and never
-               through a plain version
+               from --seed; `cli index` (the lchash built on the card, held
+               byte for byte to the host build from the suffix array, both
+               timed, and the card build timed at four batch sizes) then
+               `cli map` in-process; checks record count, validity,
+               placement, that every CIGAR consumes its read and spells its
+               ED against the genome, that every chunk was encoded on the
+               card (raw bytes in), and that the main path went through
+               the kernel and never through a plain version
   5. cpu     — `cli map --device cpu` (plain versions, in subprocesses
                that run beside phases 6 and 7 and are checked after them)
-               and `--device cuda` give byte-identical SAM: the first 256
-               1 kb reads, 16 reads of the 10 kb set (2 high-error, so the
-               full-band retry runs through gact at band 2176) and 2 reads
-               of the 50 kb set
+               and `--device cuda` give byte-identical SAM, both through
+               the device read encode: the first 256 1 kb reads, 16 reads
+               of the 10 kb set (2 high-error, so the full-band retry runs
+               through gact at band 2176) and 2 reads of the 50 kb set
   6. stages  — per-stage times of the mapping step on the 1 kb reads and
                a torch.profiler trace of its device kernels
   7. long    — 800 reads of 10 kb and 160 of 50 kb on the phase-4 genome
@@ -53,6 +57,15 @@ Phases (each raises on failure; nothing is caught):
                long-read kernels' launches (at 50 kb, fewer multi-tile
                launches a gact pass than its 98 tiles); then per-stage
                times
+  8. layouts — the phase-4 reads (16384 1 kb, and phase 5's 10 kb and 50
+               kb reads) in the slim layout through `cli map --slim-index`
+               (served by deriving from the full cache) and in every layout
+               in-process (full and slim, int32 and forced pos64
+               positions): each SAM byte-identical to the full int32
+               layout's; per layout the index tables' device bytes, bytes
+               per position without the lchash (within 2% of 9.5 / 6.0 /
+               10.5 / 7.0), the 1 kb map's reads/s, the seed_vote stage's
+               ms and the largest genome the card would hold (computed)
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that the kernels'
@@ -114,6 +127,14 @@ LONG_SETS = {
 }
 HI_EVERY = 50
 CPU_LONG = {"10kb": [0, HI_EVERY] + list(range(1, 15)), "50kb": [1, 2]}
+# phase 8: the index layouts, their load_device_index arguments and the
+# device bytes a position each should take without the lchash (counted
+# from the tables: sa_ctx 8 or 4, sa_hi 1, packed + text_packed 0.5,
+# occ_samp 1, text_pair 0.5)
+LAYOUTS = {"full int32": ({}, 9.5), "slim int32": (dict(slim=True), 6.0),
+           "full pos64": (dict(force_pos_dtype="int64"), 10.5),
+           "slim pos64": (dict(force_pos_dtype="int64", slim=True), 7.0)}
+LCH_CHUNKS = (1 << 20, 1 << 22, 1 << 24, 1 << 26)   # phase 4's batch sizes
 
 
 def log(msg: str) -> None:
@@ -549,12 +570,21 @@ def map_argv(fa: str, fq: str, n: int, device: str, chunk_b: int):
 
 
 def map_cli(fa: str, fq: str, n: int, device: str, sam: str, log_path: str,
-            chunk_b: int = 0):
+            chunk_b: int = 0, extra=()):
     """`cli map` in-process, SAM to `sam`, its verbose log to `log_path`."""
     from longreadmapper_tpu_torch import cli
     with open(sam, "w") as f, open(log_path, "w") as e, \
             contextlib.redirect_stdout(f), contextlib.redirect_stderr(e):
-        cli.main(map_argv(fa, fq, n, device, chunk_b or min(n, 2048)))
+        cli.main(map_argv(fa, fq, n, device, chunk_b or min(n, 2048))
+                 + list(extra))
+
+
+def chunk_counts(log_path: str):
+    """(raw-encoded, host-encoded) chunk parts of a `cli map` log."""
+    with open(log_path) as f:
+        m = re.search(r"chunks: (\d+) raw-encoded on the device, (\d+) "
+                      r"host-encoded", f.read())
+    return (int(m.group(1)), int(m.group(2))) if m else None
 
 
 def bad_alignments(recs, g) -> int:
@@ -601,6 +631,7 @@ def check_map(tag: str, sam: str, map_log: str, n_reads: int, pos, g,
             m = re.search(r"retried reads (\d+)", line)
             if m:
                 retried = int(m.group(1))
+    chunks = chunk_counts(map_log)
     checks = [
         (len(recs) == n_reads, f"records {len(recs)} == {n_reads}"),
         (len(valid) >= 0.99 * n_reads,
@@ -609,7 +640,7 @@ def check_map(tag: str, sam: str, map_log: str, n_reads: int, pos, g,
          f"within {tol} bp of planted {near} >= 0.99 * {len(valid)}"),
         (bad == 0, f"CIGARs that miss the read's length or the ED {bad} "
                    "== 0"),
-    ] + [c(buckets, retried) for c in extra]
+    ] + [c(buckets, retried, chunks) for c in extra]
     for ok, what in checks:
         log(f"[{tag}] check {'PASS' if ok else 'FAIL'}: {what}")
     if not all(ok for ok, _ in checks):
@@ -651,6 +682,51 @@ def walk_syncs() -> int:
     return device_traceback_c.host_syncs + gact_traceback_c.host_syncs
 
 
+def phase_lch(fa: str) -> None:
+    """Phase 4, the lchash: the .lch that `cli index` built on the card
+    against the host build from the suffix array (in-process, timed), then
+    the card build timed at each of LCH_CHUNKS k-mers a batch."""
+    import numpy as np
+    import torch
+    from longreadmapper_tpu_torch.formats.catmeta import load_cat
+    from longreadmapper_tpu_torch.formats.lch import read_lch
+    from longreadmapper_tpu_torch.index.device import DeviceIndex, bwt_arrays
+    from longreadmapper_tpu_torch.index.fmi import FMIndex, encode_bytes
+    from longreadmapper_tpu_torch.index.lchash import (DEVICE_CHUNK,
+                                                       lc_build_device,
+                                                       lc_build_from_sa)
+    hlen, card = read_lch(fa + ".cat.lch")
+    fmi = FMIndex.read(fa + ".cat", with_sa=True)
+    t0 = time.perf_counter()
+    host = lc_build_from_sa(fmi.sa, encode_bytes(load_cat(fa + ".cat")),
+                            hlen)
+    t_host = time.perf_counter() - t0
+    same = card.dtype == host.dtype and np.array_equal(card, host)
+    log(f"[4 map] lchash (hlen {hlen}, {card.shape[0]} k-mers): host build "
+        f"from the SA (lc_build_from_sa) in {t_host} s")
+    log(f"[4 map] check {'PASS' if same else 'FAIL'}: the card-built .lch "
+        f"equals the host build byte for byte ({card.nbytes} bytes)")
+    if not same:
+        raise AssertionError("phase 4 failed: the card's lchash differs")
+    del card
+    arrays, dollar_pos = bwt_arrays(fmi)
+    arrays["c4"] = fmi.c4().astype(np.int32)
+    idx = DeviceIndex.from_arrays(arrays, "cuda")
+    for chunk in LCH_CHUNKS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kl = lc_build_device(idx.packed, idx.occ_samp, idx.c4, dollar_pos,
+                             fmi.length, hlen, chunk=chunk)
+        t = time.perf_counter() - t0
+        if not np.array_equal(kl, host):
+            raise AssertionError(f"lc_build_device at chunk {chunk} "
+                                 "differs from the host build")
+        log(f"[4 map] lc_build_device, {chunk} k-mers a batch "
+            f"({-(-host.shape[0] // chunk)} batches x {hlen} steps"
+            f"{', the default' if chunk == DEVICE_CHUNK else ''}): {t} s, "
+            "equal to the host build")
+
+
 def phase_map(d: str, seed: int, n_reads: int, genome_len: int = 4_000_000):
     import torch
     from longreadmapper_tpu_torch import cli
@@ -661,10 +737,16 @@ def phase_map(d: str, seed: int, n_reads: int, genome_len: int = 4_000_000):
     log(f"[4 map] data made in {time.perf_counter() - t0} s "
         f"({genome_len} bp genome, {n_reads} reads of 1 kb, 3% "
         "substitutions)")
+    index_log = os.path.join(d, "index.log")
     t0 = time.perf_counter()
-    cli.main(["index", fa, "--quiet"])
-    log(f"[4 map] cli index (hlen by auto_hlen) in "
+    with open(index_log, "w") as e, contextlib.redirect_stderr(e):
+        cli.main(["index", fa])            # lchash on the card (--device)
+    log(f"[4 map] cli index (hlen by auto_hlen, the lchash on the card) in "
         f"{time.perf_counter() - t0} s")
+    with open(index_log) as f:
+        for line in f:
+            log(f"[4 map] index log: {line.rstrip()}")
+    phase_lch(fa)
 
     sam = os.path.join(d, "out.sam")
     map_log = os.path.join(d, "map.log")
@@ -678,11 +760,15 @@ def phase_map(d: str, seed: int, n_reads: int, genome_len: int = 4_000_000):
         "end to end (index load included)")
     log(f"[4 map] walk host syncs {walk_syncs()}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30} GiB")
+    n_chunks = -(-n_reads // 2048)
     check_map("4 map", sam, map_log, n_reads, pos, g, 16, [
-        lambda b, r: (launches > 0, f"band_dp kernel launches {launches} "
-                                    "> 0"),
-        lambda b, r: (plain == 0, f"plain DP calls on CUDA {plain} == 0")])
-    return fa, fq, g, launches
+        lambda b, r, c: (launches > 0, f"band_dp kernel launches "
+                                       f"{launches} > 0"),
+        lambda b, r, c: (plain == 0, f"plain DP calls on CUDA {plain} == 0"),
+        lambda b, r, c: (c == (n_chunks, 0), f"chunks (raw-encoded on the "
+                                             f"card, host-encoded) {c} == "
+                                             f"({n_chunks}, 0)")])
+    return fa, fq, pos, g, launches
 
 
 def cpu_maps(d: str, fa: str, sets):
@@ -735,10 +821,17 @@ def check_cpu_maps(sets, procs, texts) -> None:
                                    + f.read()[-3000:])
         with open(sam) as f:
             cpu = f.read()
-        same = cpu == texts[name] and len(parse_sam(cpu)) == n
+        raw = [chunk_counts(os.path.join(os.path.dirname(sam),
+                                         f"{name}.{dev}.sam.log"))
+               for dev in ("cpu", "cuda")]
+        same = (cpu == texts[name] and len(parse_sam(cpu)) == n
+                and all(c is not None and c[0] > 0 and c[1] == 0
+                        for c in raw))
         log(f"[5 cpu] check {'PASS' if same else 'FAIL'}: {name}: SAM "
             f"of {n} reads byte-identical between the CPU (plain "
-            f"versions) and the card ({len(cpu)} bytes)")
+            f"versions) and the card ({len(cpu)} bytes), every chunk "
+            f"encoded on its device (raw-encoded, host-encoded: cpu "
+            f"{raw[0]}, card {raw[1]})")
         if not same:
             raise AssertionError("phase 5 failed")
 
@@ -794,23 +887,134 @@ def phase_long(d: str, fa: str, g, name: str, reads, pos, hi) -> dict:
     # (band_scores, then band_dp_wide in groups of tiles); at 50 kb every
     # pass is gact, one band_scores launch a pass
     check_map(tag, sam, sam + ".log", n, pos, g, max(16, read_len // 100), [
-        lambda b, r: (b == [want_cfg], f"bucket configs {b} == "
-                                       f"[{want_cfg}]"),
-        lambda b, r: (r is not None and r >= n_hi,
-                      f"retried reads {r} >= high-error reads {n_hi}"),
-        lambda b, r: (counts["band_dp_wide"] > 0
-                      and counts["band_scores"] > 0,
-                      f"launches {counts}: band_dp_wide and band_scores "
-                      "> 0"),
-        lambda b, r: (counts["band_dp_wide"]
-                      < tiles_a_pass * counts["band_scores"],
-                      f"band_dp_wide launches {counts['band_dp_wide']} < "
-                      f"{tiles_a_pass} tiles x {counts['band_scores']} gact "
-                      "passes"),
-        lambda b, r: (plain == 0, f"plain DP / scores / gact_forward calls "
-                                  f"on CUDA {plain} == 0")])
+        lambda b, r, c: (b == [want_cfg], f"bucket configs {b} == "
+                                          f"[{want_cfg}]"),
+        lambda b, r, c: (r is not None and r >= n_hi,
+                         f"retried reads {r} >= high-error reads {n_hi}"),
+        lambda b, r, c: (counts["band_dp_wide"] > 0
+                         and counts["band_scores"] > 0,
+                         f"launches {counts}: band_dp_wide and band_scores "
+                         "> 0"),
+        lambda b, r, c: (counts["band_dp_wide"]
+                         < tiles_a_pass * counts["band_scores"],
+                         f"band_dp_wide launches {counts['band_dp_wide']} < "
+                         f"{tiles_a_pass} tiles x {counts['band_scores']} "
+                         "gact passes"),
+        lambda b, r, c: (plain == 0, f"plain DP / scores / gact_forward "
+                                     f"calls on CUDA {plain} == 0"),
+        lambda b, r, c: (c is not None and c[0] > 0 and c[1] == 0,
+                         f"chunks (raw-encoded on the card, host-encoded) "
+                         f"{c}: all raw")])
     phase_stages(tag, fa, [(nm, s, None) for nm, s in reads], 1)
     return counts
+
+
+def map_sam(index, fq: str, n: int, chunk_b: int):
+    """`cli map`'s SAM (seed 20, threshold 300, @RG id 0) of `fq`, mapped
+    in-process on the card over an index already loaded; returns the SAM
+    text and the mapper."""
+    import torch
+    from longreadmapper_tpu_torch.formats.sam import sam_header
+    from longreadmapper_tpu_torch.models.mapper import TorchMapper
+    from longreadmapper_tpu_torch.runtime.reads import (chunks,
+                                                        load_read_batches)
+    from longreadmapper_tpu_torch.utils.config import Params
+    idx, meta, mta = index
+    mapper = TorchMapper(idx, meta, mta, Params(batch_size=n),
+                         chunk_b=chunk_b, device="cuda")
+    parts = [sam_header(mta, 0)]
+    for batch in load_read_batches(fq, n):
+        for text, _, _ in mapper.map_stream_sam(chunks(batch, mapper.B)):
+            parts.append(text)
+    torch.cuda.synchronize()
+    return "".join(parts), mapper
+
+
+def phase_layouts(d: str, fa: str, refs: dict, pos, g, stage_reads):
+    """Phase 8.  refs: set name -> (fastq, reads, chunk_b, the full int32
+    layout's SAM text on the card); pos: the 1 kb reads' planted
+    positions."""
+    import gc
+    from dataclasses import fields
+    import torch
+    from longreadmapper_tpu_torch.index.device import load_device_index
+    from longreadmapper_tpu_torch.runtime.stages import stage_times
+
+    fq1, n1, cb1, ref1 = refs["1kb"]
+    sam = os.path.join(d, "slim.cli.sam")
+    t0 = time.perf_counter()
+    map_cli(fa, fq1, n1, "cuda", sam, sam + ".log", cb1, ["--slim-index"])
+    log(f"[8 layouts] cli map --slim-index of {n1} reads in "
+        f"{time.perf_counter() - t0} s (index load included)")
+    with open(sam) as f:
+        same = f.read() == ref1
+    check_map("8 layouts slim cli", sam, sam + ".log", n1, pos, g, 16, [
+        lambda b, r, c: (same, "SAM byte-identical to the full int32 "
+                               "layout's (phase 4)"),
+        lambda b, r, c: (c is not None and c[1] == 0, f"chunks {c}: all "
+                                                      "raw")])
+    total = torch.cuda.get_device_properties(0).total_memory
+    for name, (load, want_bpp) in LAYOUTS.items():
+        tag = f"8 layouts {name}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        index = load_device_index(fa, "cuda", verbose=False, **load)
+        t_load = time.perf_counter() - t0
+        idx, meta = index[0], index[1]
+        tables = {f.name: getattr(idx, f.name).nbytes for f in fields(idx)
+                  if getattr(idx, f.name) is not None}
+        lch = tables["lch"] + tables.get("lch_hi", 0)
+        table_bytes = sum(tables.values())
+        bpp = (table_bytes - lch) / meta.n
+        log(f"[{tag}] index loaded in {t_load} s: {meta}; device bytes of "
+            f"the tables {table_bytes} ({json.dumps(tables)}); "
+            f"{bpp} bytes a position without lch/lch_hi")
+        checks = [(abs(bpp - want_bpp) <= 0.02 * want_bpp,
+                   f"bytes a position {bpp} within 2% of {want_bpp}")]
+        for set_name, (fq, n, cb, ref) in refs.items():
+            t0 = time.perf_counter()
+            text, mapper = map_sam(index, fq, n, cb)
+            t_map = time.perf_counter() - t0
+            stream_s = sum(mapper.phase_s.values())
+            recs = parse_sam(text)
+            bad = bad_alignments([r for r in recs if r[1] in ("0", "16")],
+                                 g)
+            log(f"[{tag}] {set_name}: {n} reads in {t_map} s, "
+                f"{n / stream_s} reads/s over the stream (phase_s "
+                f"{json.dumps(mapper.phase_s)}); retried reads "
+                f"{mapper.retried_reads}; chunks raw {mapper.raw_chunks} / "
+                f"host {mapper.host_chunks}")
+            checks += [(text == ref, f"{set_name}: SAM byte-identical to "
+                                     "the full int32 layout's"),
+                       (len(recs) == n and bad == 0,
+                        f"{set_name}: records {len(recs)} == {n}, CIGARs "
+                        f"that miss the read or the ED {bad} == 0")]
+            if set_name == "1kb":
+                peak = torch.cuda.max_memory_allocated()
+                work = peak - table_bytes
+                # the most positions the card's memory leaves room for
+                # beside the lchash and the 1 kb map's working memory, and
+                # the most the position width addresses; the .cat holds
+                # both strands, so a genome of half as many bp
+                by_memory = (total - lch - work) / bpp / 2
+                by_width = 2 ** (40 if meta.pos_dtype == "int64" else 31) / 2
+                log(f"[{tag}] peak device memory {peak} bytes, of which "
+                    f"the 1 kb map's working memory {work}; largest genome "
+                    f"the card would hold (computed, not measured): "
+                    f"{min(by_memory, by_width) / 1e9} Gb (by memory "
+                    f"{by_memory / 1e9}, by position width "
+                    f"{by_width / 1e9})")
+        st = stage_times(fa, stage_reads, chunk_b=2048, device="cuda",
+                         traced_steps=0, index=index)
+        log(f"[{tag}] stages {json.dumps(st)}")
+        for ok, what in checks:
+            log(f"[{tag}] check {'PASS' if ok else 'FAIL'}: {what}")
+        if not all(ok for ok, _ in checks):
+            raise AssertionError(f"{tag} failed")
+        del index, idx, mapper
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -840,17 +1044,17 @@ def main(argv=None) -> int:
     kres = phase_kernel(args.seed)
     done("3 kernel")
     with tempfile.TemporaryDirectory(prefix="lrm_smoke_") as d:
-        fa, fq, g, launches = phase_map(d, args.seed, N_READS)
+        fa, fq, pos, g, launches = phase_map(d, args.seed, N_READS)
         done("4 map")
         long_data = {}
         for k, name in enumerate(LONG_SETS):
             n, read_len, _ = LONG_SETS[name]
-            reads, pos, hi = make_long_reads(g, args.seed + 1 + k, n,
-                                             read_len)
+            reads, lpos, hi = make_long_reads(g, args.seed + 1 + k, n,
+                                              read_len)
             write_fastq(os.path.join(d, f"{name}.fq"), reads)
             write_fastq(os.path.join(d, f"{name}.cpu.fq"),
                         [reads[i] for i in CPU_LONG[name]])
-            long_data[name] = (reads, pos, hi)
+            long_data[name] = (reads, lpos, hi)
         fq_short = os.path.join(d, "short.cpu.fq")
         with open(fq) as f, open(fq_short, "w") as o:
             for _ in range(4 * N_CPU_READS):
@@ -861,12 +1065,13 @@ def main(argv=None) -> int:
         procs, texts = cpu_maps(d, fa, sets)
         try:
             done("5 cpu, card maps (the CPU maps run beside phases 6-7)")
-            phase_stages("6 stages", fa, next(iter(load_read_batches(
-                fq, N_STAGE_READS, background=False))))
+            stage_reads = next(iter(load_read_batches(
+                fq, N_STAGE_READS, background=False)))
+            phase_stages("6 stages", fa, stage_reads)
             done("6 stages")
             counts = {"band_dp_wide": 0, "band_scores": 0}
-            for name, (reads, pos, hi) in long_data.items():
-                for k, v in phase_long(d, fa, g, name, reads, pos,
+            for name, (reads, lpos, hi) in long_data.items():
+                for k, v in phase_long(d, fa, g, name, reads, lpos,
                                        hi).items():
                     counts[k] += v
                 done(f"7 long {name}")
@@ -874,6 +1079,13 @@ def main(argv=None) -> int:
             done("5 cpu, the CPU maps checked")
         finally:
             stop(procs)
+        with open(os.path.join(d, "out.sam")) as f:
+            refs = {"1kb": (fq, N_READS, 2048, f.read())}
+        for name in long_data:
+            refs[name] = (os.path.join(d, f"{name}.cpu.fq"),
+                          len(CPU_LONG[name]), 2048, texts[name])
+        phase_layouts(d, fa, refs, pos, g, stage_reads)
+        done("8 layouts")
     launches = dict(band_dp=launches, **counts)
     src = {"band_dp": "band_dp.cu", "band_dp_wide": "band_dp.cu",
            "band_scores": "band_scores.cu"}

@@ -1,13 +1,16 @@
 """Command-line entry points of the port, with the JAX CLI's argv contract:
 
   index  — `... index ref.fa [--hlen N] [--o-ratio N] [--n-seed N]
-           [--host-only] [--no-devidx] [--quiet]`
+           [--device cuda|cpu] [--host-only] [--no-devidx] [--quiet]`
   map    — `... map ref.fa reads.fq [batch seed thres] [--chunk-b N]
-           [--rg-id N] [--device cuda|cpu] [--quiet]` (SAM on stdout)
+           [--rg-id N] [--device cuda|cpu] [--slim-index] [--quiet]`
+           (SAM on stdout)
 
 `--device` defaults to `cuda` and fails when no card is present; pass
-`--device cpu` to run the plain PyTorch versions.  `mapdist`, `warmup`,
-`index --ram-gb` and `map --slim-index` raise NotImplementedError.
+`--device cpu` to run the plain PyTorch versions.  `index` builds the
+lchash on that device, or on the host from the suffix array with
+`--host-only`.  `mapdist`, `warmup` and `index --ram-gb` raise
+NotImplementedError.
 
 Usage: python -m longreadmapper_tpu_torch.cli <index|map> ...
 """
@@ -35,9 +38,12 @@ def main(argv=None) -> int:
                          ">= 1 Mb, 12 below)")
     ia.add_argument("--o-ratio", type=int, default=32)
     ia.add_argument("--n-seed", type=int, default=0)
+    ia.add_argument("--device", default="cuda",
+                    help="torch device of the lchash build (default cuda; "
+                         "cpu runs the plain PyTorch version)")
     ia.add_argument("--host-only", action="store_true",
-                    help="accepted for compatibility: the port builds the "
-                         "lchash on the host only")
+                    help="build the lchash on the host from the suffix "
+                         "array instead of on --device")
     ia.add_argument("--ram-gb", type=float, default=0)
     ia.add_argument("--no-devidx", action="store_true",
                     help="skip persisting the device-layout cache")
@@ -57,7 +63,10 @@ def main(argv=None) -> int:
     ma.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions)")
-    ma.add_argument("--slim-index", action="store_true")
+    ma.add_argument("--slim-index", action="store_true",
+                    help="slim index layout: the SA without its context "
+                         "column, each vote's verify window rebuilt from "
+                         "the text (about 3.5 B a position less)")
     ma.add_argument("--quiet", action="store_true")
 
     for name in ("mapdist", "warmup"):
@@ -79,13 +88,12 @@ def main(argv=None) -> int:
                 print(f"[index] auto hlen = {hlen}", file=sys.stderr)
         p = Params(hlen=hlen, o_ratio=args.o_ratio, n_seed=args.n_seed)
         build_index(args.fasta, p, verbose=not args.quiet,
-                    devidx=not args.no_devidx)
+                    devidx=not args.no_devidx,
+                    device=None if args.host_only else args.device)
         return 0
 
     if args.cmd == "map":
         from .runtime.accaln import run_mapping
-        if args.slim_index:
-            raise roadmap_gap("map --slim-index", "A10")
         if len(args.pos) == 3:
             p = Params(batch_size=args.pos[0], seed_len=args.pos[1],
                        thres=args.pos[2])
@@ -97,7 +105,7 @@ def main(argv=None) -> int:
         rg_id = args.rg_id if args.rg_id is not None else int(time.time())
         run_mapping(args.fasta, args.reads, p, sys.stdout, rg_id=rg_id,
                     chunk_b=args.chunk_b, verbose=not args.quiet,
-                    device=args.device)
+                    device=args.device, slim=args.slim_index)
         return 0
 
     raise roadmap_gap(f"the `{args.cmd}` subcommand", "A11")

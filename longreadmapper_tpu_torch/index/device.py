@@ -1,34 +1,43 @@
 """Device-resident index: the torch counterpart of
-longreadmapper_tpu/index/device.py.
-
-Fields are the JAX DeviceIndex's fields of the full layout with int32
-positions, the only layout this port has:
+longreadmapper_tpu/index/device.py, with the JAX DeviceIndex's fields:
 
   packed      (ceil(n/16),) int32   2-bit packed BWT, 16 bases per word
   occ_samp    (ceil(n/16)+1, 4)     exclusive per-word base counts
-  c4          (4,) int32            C-table entries for A, C, G, T
-  sa_ctx      (n, 2) int32          [SA[p], packed 16-base left context]
-  lch         (4^hlen, 2) int32     (k, l) SA interval per hlen-mer
+  c4          (4,)                  C-table entries for A, C, G, T
+  sa_ctx      (n, 2) int32          [SA[p] low 32 bits, packed 16-base
+                                    left context]; (n,) SA low 32 bits in
+                                    the slim layout
+  sa_hi       (n,) uint8            SA high byte (pos64 only, else None)
+  lch         (4^hlen, 2) int32     (k, l) SA interval per hlen-mer (low
+                                    32 bits under pos64)
+  lch_hi      (4^hlen, 2) uint8     high bytes of (k, l) (pos64 only)
   text_packed (ceil(n/16),) int32   2-bit text ('$' packed as 0)
-  mta_start, mta_len (M,) int32     contig table for seq_lookup
+  text_pair   (nw+2, 2) int32       adjacent padded text words (slim only)
+  mta_start, mta_len (M,)           contig table for seq_lookup
 
-The JAX DeviceIndex's pos64 and slim fields (sa_hi, lch_hi, text_pair)
-have no counterpart until those layouts are ported (ROADMAP.md A10).
+Positions are int32 when the .cat has n < 2^31 positions and 40-bit
+split-hi (pos64) otherwise: int32 low words beside uint8 high bytes, joined
+to int64 only after a gather, so an index row costs 1 B more instead of 4
+(the difference between a human genome fitting on one card or not).
+c4 and mta_* are int64 under pos64.  The slim layout drops the context
+column of sa_ctx; the step rebuilds each vote's verify window from one
+text_pair gather.
 
 The host assembly (`_pack_ctx_words`, `_assemble_host_arrays`) and the
 `<genome>.cat.devidx/` cache are numpy copies of the JAX module in the same
-on-disk format, so both packages share one cache.
+on-disk format and with its cache rules, so both packages share one cache.
 """
 
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..device import pick_device, roadmap_gap
+from ..device import pick_device
 from ..formats.catmeta import MtaEntry, load_cat, load_mta
 from ..formats.lch import read_lch
 from ..ops.rank import occ_samples, pack_codes
@@ -50,40 +59,39 @@ class IndexMeta:
     slim: bool = False
 
 
-def _check_slice(meta: IndexMeta) -> None:
-    if meta.pos_dtype != "int32":
-        raise roadmap_gap("the 40-bit split-hi (pos64) index layout", "A10")
-    if meta.slim:
-        raise roadmap_gap("the slim index layout", "A10")
-
-
 @dataclass
 class DeviceIndex:
     packed: torch.Tensor
     occ_samp: torch.Tensor
     c4: torch.Tensor
     sa_ctx: torch.Tensor
+    sa_hi: Optional[torch.Tensor]
     lch: torch.Tensor
+    lch_hi: Optional[torch.Tensor]
     text_packed: torch.Tensor
+    text_pair: Optional[torch.Tensor]
     mta_start: torch.Tensor
     mta_len: torch.Tensor
 
     @staticmethod
-    def from_arrays(arrays: dict, meta: IndexMeta,
-                    device) -> "DeviceIndex":
+    def from_arrays(arrays: dict, device) -> "DeviceIndex":
         """Upload host arrays (the numpy dict of _assemble_host_arrays, the
         devidx cache, or np.asarray of each field of the JAX DeviceIndex)
-        to `device`.  Arrays are shared with numpy where the device is the
-        CPU; the port never writes to an index tensor."""
-        _check_slice(meta)
+        to `device`; absent or None arrays stay None.  Arrays are shared
+        with numpy where the device is the CPU; the port never writes to
+        an index tensor."""
         dev = pick_device(device)
+
+        def up(a):
+            if a is None:
+                return None
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
         with warnings.catch_warnings():
             # read-only (mmap) arrays: torch warns that writes would be UB
             warnings.simplefilter("ignore", UserWarning)
-            return DeviceIndex(**{
-                f.name: torch.from_numpy(
-                    np.ascontiguousarray(arrays[f.name])).to(dev)
-                for f in fields(DeviceIndex)})
+            return DeviceIndex(**{f.name: up(arrays.get(f.name))
+                                  for f in fields(DeviceIndex)})
 
 
 def _pack_ctx_words(sa: np.ndarray, text_codes: np.ndarray) -> np.ndarray:
@@ -117,39 +125,96 @@ def _pack_ctx_words(sa: np.ndarray, text_codes: np.ndarray) -> np.ndarray:
     return out
 
 
-def _assemble_host_arrays(fmi: FMIndex, lch_kl: np.ndarray, hlen: int,
-                          cat: np.ndarray, mta: list[MtaEntry]
-                          ) -> tuple[dict, IndexMeta]:
-    """Derive the device-layout numpy arrays (full layout, int32
-    positions) from the host index structures."""
-    n = fmi.length
-    if n >= 2**31:
-        raise roadmap_gap(f"an index of n={n} >= 2^31 positions (pos64)",
-                          "A10")
+def _text_pair_words(text_packed: np.ndarray) -> np.ndarray:
+    """(nw+2, 2) adjacent padded text words for the slim verify window:
+    row j = [padded[j], padded[j+1]] with padded = [0] + words + [0, 0],
+    _pack_ctx_words' indexing, so one pair gather rebuilds its ctx word."""
+    words = text_packed.view(np.uint32)
+    padded = np.concatenate([np.zeros(1, np.uint32), words,
+                             np.zeros(2, np.uint32)])
+    out = np.empty((padded.shape[0] - 1, 2), dtype=np.uint32)
+    out[:, 0] = padded[:-1]
+    out[:, 1] = padded[1:]
+    return out.view(np.int32)
+
+
+def bwt_arrays(fmi: FMIndex) -> tuple[dict, int]:
+    """The BWT-derived device arrays ({packed, occ_samp}) and the '$' row.
+    The index build computes them once for the card's lchash build and
+    hands them on to _assemble_host_arrays."""
     bwt_codes = encode_bytes(fmi.bwt)
     dollar_pos = int(np.nonzero(bwt_codes == 4)[0][0])
     packed_codes = bwt_codes.copy()
     packed_codes[dollar_pos] = 0
+    return dict(packed=pack_codes(packed_codes),
+                occ_samp=occ_samples(bwt_codes, dollar_pos)), dollar_pos
+
+
+def _assemble_host_arrays(fmi: FMIndex, lch_kl: np.ndarray, hlen: int,
+                          cat: np.ndarray, mta: list[MtaEntry],
+                          force_pos_dtype: str | None = None,
+                          slim: bool = False,
+                          bwt: tuple[dict, int] | None = None,
+                          ) -> tuple[dict, IndexMeta]:
+    """Derive the device-layout numpy arrays from the host index
+    structures: pos64 when n >= 2^31 or `force_pos_dtype` is 'int64', the
+    slim layout when `slim`.  `bwt` is bwt_arrays(fmi) when the caller has
+    it already."""
+    n = fmi.length
+    pos64 = (n >= 2**31) if force_pos_dtype is None \
+        else force_pos_dtype == "int64"
+    dtype = np.int64 if pos64 else np.int32
+    bwt_dev, dollar_pos = bwt if bwt is not None else bwt_arrays(fmi)
     text_codes = encode_bytes(cat)
 
     sa = fmi.sa
-    sa_ctx = np.empty((n, 2), dtype=np.int32)
-    sa_ctx[:, 0] = (sa & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
-    sa_ctx[:, 1] = _pack_ctx_words(sa, text_codes)
+    if slim:
+        sa_ctx = (sa & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    else:
+        sa_ctx = np.empty((n, 2), dtype=np.int32)
+        sa_ctx[:, 0] = (sa & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        sa_ctx[:, 1] = _pack_ctx_words(sa, text_codes)
+    sa_hi = (sa >> 32).astype(np.uint8) if pos64 else None
 
+    kl = np.asarray(lch_kl, dtype=np.uint64)
+    if pos64:
+        lch = (kl & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+        lch_hi = (kl >> np.uint64(32)).astype(np.uint8)
+    else:
+        lch = kl.astype(np.int32)
+        lch_hi = None
+
+    text_packed = pack_codes(np.where(text_codes < 4, text_codes, 0))
     arrays = dict(
-        packed=pack_codes(packed_codes),
-        occ_samp=occ_samples(bwt_codes, dollar_pos),
-        c4=fmi.c4().astype(np.int32),
+        packed=bwt_dev["packed"],
+        occ_samp=bwt_dev["occ_samp"],
+        c4=fmi.c4().astype(dtype),
         sa_ctx=sa_ctx,
-        lch=np.asarray(lch_kl, dtype=np.uint64).astype(np.int32),
-        text_packed=pack_codes(np.where(text_codes < 4, text_codes, 0)),
-        mta_start=np.array([m.offset for m in mta], dtype=np.int32),
-        mta_len=np.array([m.seq_len for m in mta], dtype=np.int32),
+        sa_hi=sa_hi,
+        lch=lch,
+        lch_hi=lch_hi,
+        text_packed=text_packed,
+        text_pair=_text_pair_words(text_packed) if slim else None,
+        mta_start=np.array([m.offset for m in mta], dtype=dtype),
+        mta_len=np.array([m.seq_len for m in mta], dtype=dtype),
     )
     meta = IndexMeta(n=n, dollar_pos=dollar_pos, hlen=hlen,
-                     n_contigs=len(mta), pos_dtype="int32")
+                     n_contigs=len(mta), pos_dtype=np.dtype(dtype).name,
+                     slim=slim)
     return arrays, meta
+
+
+def build_device_index(fmi: FMIndex, lch_kl: np.ndarray, hlen: int,
+                       cat: np.ndarray, mta: list[MtaEntry], device,
+                       force_pos_dtype: str | None = None,
+                       slim: bool = False) -> tuple[DeviceIndex, IndexMeta]:
+    """The device index of host index structures on `device`, in the
+    layout _assemble_host_arrays picks from `force_pos_dtype` and
+    `slim`."""
+    arrays, meta = _assemble_host_arrays(fmi, lch_kl, hlen, cat, mta,
+                                         force_pos_dtype=force_pos_dtype,
+                                         slim=slim)
+    return DeviceIndex.from_arrays(arrays, device), meta
 
 
 def _artifact_fingerprint(genome_path: str) -> dict:
@@ -209,9 +274,13 @@ def save_device_cache(genome_path: str, arrays: dict,
         raise
 
 
-def _load_device_cache(genome_path: str
+def _load_device_cache(genome_path: str, force_pos_dtype: str | None,
+                       slim: bool = False,
                        ) -> tuple[dict, IndexMeta] | None:
-    """The cached full-layout arrays, or None when absent or stale."""
+    """The cached device-layout arrays, or None when absent, stale or of
+    another layout.  A full-layout cache serves a slim request by deriving
+    the slim arrays (the SA column and text_pair); a slim cache cannot
+    serve a full request (its ctx words are gone)."""
     import json
     import os as _os
 
@@ -227,7 +296,9 @@ def _load_device_cache(genome_path: str
     if info.get("version") != _CACHE_VERSION:
         return None
     meta = IndexMeta(**info["meta"])
-    if meta.slim:
+    if force_pos_dtype is not None and meta.pos_dtype != force_pos_dtype:
+        return None
+    if meta.slim and not slim:
         return None
     if info["fingerprint"] != _artifact_fingerprint(genome_path):
         return None
@@ -237,33 +308,44 @@ def _load_device_cache(genome_path: str
         arrays[k] = np.load(p, mmap_mode="r") if _os.path.exists(p) else None
     if arrays["sa_ctx"] is None:
         return None
+    if slim and not meta.slim:
+        arrays["sa_ctx"] = np.ascontiguousarray(arrays["sa_ctx"][:, 0])
+        arrays["text_pair"] = _text_pair_words(
+            np.asarray(arrays["text_packed"]))
+        meta = replace(meta, slim=True)
     return arrays, meta
 
 
 def load_device_index(genome_path: str, device, cache: bool = True,
                       verbose: bool = True,
+                      force_pos_dtype: str | None = None, slim: bool = False,
                       ) -> tuple[DeviceIndex, IndexMeta, list[MtaEntry]]:
     """Load the artifact set (.mta/.cat/.sa5/.mfi/.lch) to `device`, via
-    the `<genome>.cat.devidx/` cache when its fingerprint matches (and
-    writing it after a from-artifacts build otherwise)."""
+    the `<genome>.cat.devidx/` cache when its fingerprint and layout match
+    (and writing it after a from-artifacts build otherwise).  `slim` loads
+    the slim layout; `force_pos_dtype='int64'` forces the pos64 layout on
+    any n, and such a load never writes the cache: it would shadow the
+    natural layout for every later load of both packages."""
     log = new_logger(verbose=verbose)
     mta = load_mta(genome_path + ".mta")
     if cache:
-        hit = _load_device_cache(genome_path)
+        hit = _load_device_cache(genome_path, force_pos_dtype, slim=slim)
         if hit is not None:
             arrays, meta = hit
             log.vlog(f"device index cache hit: {_cache_dir(genome_path)}")
-            return DeviceIndex.from_arrays(arrays, meta, device), meta, mta
+            return DeviceIndex.from_arrays(arrays, device), meta, mta
 
     prefix = genome_path + ".cat"
     fmi = FMIndex.read(prefix, with_sa=True)
     hlen, kl = read_lch(prefix + ".lch")
     cat = load_cat(prefix)
-    arrays, meta = _assemble_host_arrays(fmi, kl, hlen, cat, mta)
-    if cache:
+    arrays, meta = _assemble_host_arrays(fmi, kl, hlen, cat, mta,
+                                         force_pos_dtype=force_pos_dtype,
+                                         slim=slim)
+    if cache and force_pos_dtype is None:
         try:
             save_device_cache(genome_path, arrays, meta)
             log.vlog(f"device index cache written: {_cache_dir(genome_path)}")
         except OSError as e:
             log.vlog(f"device index cache write failed (continuing): {e}")
-    return DeviceIndex.from_arrays(arrays, meta, device), meta, mta
+    return DeviceIndex.from_arrays(arrays, device), meta, mta

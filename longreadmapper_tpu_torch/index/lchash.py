@@ -1,12 +1,21 @@
-"""lchash: precomputed SA intervals for all 4^hlen k-mers, built on the
-host straight from the suffix array (a copy of
-longreadmapper_tpu/index/lchash.py::lc_build_from_sa).  K-mer numbering:
-the first character occupies the most-significant 2 bits; absent k-mers
-store (0, 0).  The batched device build is not ported (ROADMAP.md A12)."""
+"""lchash: precomputed SA intervals for all 4^hlen k-mers (port of
+longreadmapper_tpu/index/lchash.py), built either on the host straight
+from the suffix array (`lc_build_from_sa`, a copy) or on a torch device by
+a batched backward search of every k-mer (`lc_build_device`); the two are
+byte-identical.  K-mer numbering: the first character occupies the
+most-significant 2 bits; absent k-mers store (0, 0)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..ops.rank import backward_step
+
+# k-mers a batch of the device build: hlen 14 (4^14 k-mers) in 64
+# batches.  On an H100 (700 W) 2^22 built hlen 14 in 3.60-3.90 s against
+# 6.06-8.20 at 2^20 and 4.06-4.47 at 2^24 and 2^26 (chip_smoke.py phase 4)
+DEVICE_CHUNK = 1 << 22
 
 
 def lc_build_from_sa(sa: np.ndarray, cat_codes: np.ndarray, hlen: int
@@ -52,3 +61,37 @@ def lc_build_from_sa(sa: np.ndarray, cat_codes: np.ndarray, hlen: int
     out = np.stack([np.where(absent, 0, lo), np.where(absent, 0, hi - 1)],
                    axis=1)
     return out.astype(np.uint64)
+
+
+def lc_build_device(packed, occ_samp, c4, dollar_pos: int, n: int,
+                    hlen: int, chunk: int = DEVICE_CHUNK,
+                    pos_dtype: torch.dtype | None = None) -> np.ndarray:
+    """lchash by a batched backward search of all 4^hlen k-mers, `chunk`
+    k-mers a batch, on the device of the index tensors (packed, occ_samp,
+    c4: the DeviceIndex fields).  Step j consumes the k-mer's bits
+    (id >> 2j) & 3, last character first, from (k, l) = (1, n - 1).
+    Returns (4^hlen, 2) uint64, (0, 0) for absent k-mers.
+
+    (k, l) start in occ_samp's dtype, as JAX's lc_build_device, except
+    that n >= 2^31 (or `pos_dtype`) seeds them int64: JAX's int32 seed of
+    l = n - 1 overflows there, and its index build falls back to the
+    host.  The port seeds int64 and never falls back."""
+    upper = 1 << (2 * hlen)
+    dev = packed.device
+    if pos_dtype is None:
+        pos_dtype = torch.int64 if n >= 2**31 else occ_samp.dtype
+    out = np.empty((upper, 2), dtype=np.uint64)
+    for start in range(0, upper, chunk):
+        ids = torch.arange(start, min(start + chunk, upper),
+                           dtype=torch.int64, device=dev)
+        k = torch.ones(ids.shape, dtype=pos_dtype, device=dev)
+        l = torch.full(ids.shape, n - 1, dtype=pos_dtype, device=dev)
+        for j in range(hlen):
+            c = ((ids >> (2 * j)) & 3).to(torch.int32)
+            k, l = backward_step(c4, packed, occ_samp, dollar_pos, k, l, c,
+                                 k <= l)
+        absent = k > l
+        kl = torch.stack([torch.where(absent, 0, k),
+                          torch.where(absent, 0, l)], dim=1)
+        out[start:start + ids.shape[0]] = kl.cpu().numpy()
+    return out

@@ -17,8 +17,16 @@ interval is >= thres wide are LF-narrowed on a compacted set of lanes.
 All phases are one batched tensor step.
 
 `map_step` returns the JAX step's two arrays byte for byte: `blob` (B,
-32 + head) int8 = 8 little-endian int32 meta words per read followed by
-the eager head of the pad-sorted CIGAR run entries, and `ops_tail`.
+4 * meta_words + head) int8 = the little-endian int32 meta words of each
+read (8; 10 under pos64, whose positions ship as [lo, hi] pairs) followed
+by the eager head of the pad-sorted CIGAR run entries, and `ops_tail`.
+`raw_map_step` is the JAX raw_step: it takes the ASCII of a uniform chunk
+and encodes and reverse-complements it on the device.
+
+Index layouts (index/device.py): positions are int32, or int64 joined
+from split-hi tables after each gather (pos64); the full layout gathers
+each vote's verify window with its SA value, the slim one rebuilds it from
+one text_pair gather (`_ctx_window`).
 
 Align has two branches, chosen per length bucket by MapperConfig.use_gact:
   * resident dirs (L <= gact_threshold, or a direction volume within
@@ -31,9 +39,7 @@ Align has two branches, chosen per length bucket by MapperConfig.use_gact:
 Long buckets run a narrow first pass (short_W_override / half_band) and
 flag reads whose ed reaches it (overflow bit 2) for the full-band retry.
 
-Slice: host-encoded input, the full index layout with int32 positions, the
-column traceback.  Everything else raises NotImplementedError naming its
-ROADMAP.md item.
+The column traceback is the port's only walk.
 """
 
 from __future__ import annotations
@@ -44,7 +50,6 @@ from typing import ClassVar
 
 import torch
 
-from ..device import roadmap_gap
 from ..index.device import DeviceIndex, IndexMeta
 from ..ops.band_dp import banded_nw_dirs
 from ..ops.band_scores import band_checkpoints
@@ -83,8 +88,9 @@ class MapperConfig:
     mid_dirs_budget: int = 1 << 30
     half_band: bool = False     # gact first pass at W/2 (overflow bit 2)
     short_W_override: int = 0   # resident first pass at this W (bit 2)
+    pos64: bool = False         # int64 positions from split-hi tables
+    slim: bool = False          # slim index layout (text_pair windows)
     OPS_HEAD_COLS: ClassVar[int] = 16      # eager CIGAR run bytes per read
-    META_WORDS: ClassVar[int] = 8          # int32 words per read in `blob`
 
     @property
     def phases(self) -> int:
@@ -191,18 +197,21 @@ class MapperConfig:
         cmax = max(self.L, self.short_band - self.short_W)
         return 2 if cmax < 8192 else 4
 
+    @property
+    def meta_words(self) -> int:
+        """int32 words per read in `blob`: positions (best, off) ship as
+        [lo, hi] pairs under pos64."""
+        return 10 if self.pos64 else 8
+
     @staticmethod
     def from_params(p: Params, meta: IndexMeta, B: int, L: int
                     ) -> "MapperConfig":
-        if meta.pos_dtype != "int32":
-            raise roadmap_gap("the pos64 index layout", "A10")
-        if meta.slim:
-            raise roadmap_gap("the slim index layout", "A10")
         return MapperConfig(
             B=B, L=L, seed_len=p.seed_len, gap_len=p.gap_len,
             thres=p.thres, hlen=meta.hlen, n=meta.n,
             dollar_pos=meta.dollar_pos, accept_score=p.accept_score,
-            error_rate=p.error_rate, vote_budget=p.vote_budget)
+            error_rate=p.error_rate, vote_budget=p.vote_budget,
+            pos64=meta.pos_dtype == "int64", slim=meta.slim)
 
 
 def _position_tables(cfg: MapperConfig, codes):
@@ -286,6 +295,30 @@ def _narrow_wide_seeds(cfg: MapperConfig, idx: DeviceIndex, wide,
     return k_seed, cnt, row_overflow
 
 
+def _join_hi(lo, hi):
+    """(int32 low word, uint8 high byte) -> int64 position; the int32 word
+    holds an unsigned value, so its sign is masked off."""
+    return (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
+
+
+def _ctx_window(cfg: MapperConfig, idx: DeviceIndex, sa12):
+    """Slim-layout verify window: the ctx word _pack_ctx_words would have
+    stored, rebuilt from one gather of the padded text pairs (rows
+    [padded[w], padded[w+1]]; w0's +1 is the pad offset), shifted down to
+    its top `left` bases.  start is in [-16, n-17]: >> and & 15 on int64
+    give the floor semantics of the negative sub-word offsets, and the
+    words are taken unsigned before they shift."""
+    start = sa12.to(torch.int64) - 16
+    w0 = (start >> 4) + 1
+    o = start & 15
+    pair = idx.text_pair[w0.clamp(0, idx.text_pair.shape[0] - 1)]
+    lo = (pair[..., 0].to(torch.int64) & 0xFFFFFFFF) >> (2 * o)
+    # o == 0 shifts the whole word out (JAX masks that lane to 0)
+    hi = ((pair[..., 1].to(torch.int64) & 0xFFFFFFFF) << (32 - 2 * o)
+          ) & 0xFFFFFFFF
+    return (lo | hi) >> (2 * (16 - cfg.left))
+
+
 def _slots_by_owner(C: int, cnt, k_seed, qw, j_ps, wide):
     """Slot -> seed assignment, seed-major / interval-rank-minor, for C
     slots per (read, phase) row: (p_rank, qw_slot, wide_slot, j_slot,
@@ -334,10 +367,17 @@ def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens):
     lens_bp = lens.to(I32).repeat_interleave(P)        # (BP,)
     seed_ok = j_ps < (lens_bp[:, None] - cfg.seed_len)
 
-    # lchash row gather; (0, 0) rows are absent k-mers
-    kl = idx.lch[num.clamp(0, idx.lch.shape[0] - 1).long()]
-    k12 = kl[..., 0]
-    l12 = kl[..., 1]
+    # lchash row gather; (0, 0) rows are absent k-mers.  pos64: (k, l)
+    # ride as int32 low words beside uint8 high bytes
+    safe_num = num.clamp(0, idx.lch.shape[0] - 1).long()
+    kl = idx.lch[safe_num]
+    if cfg.pos64:
+        klh = idx.lch_hi[safe_num]
+        k12 = _join_hi(kl[..., 0], klh[..., 0])
+        l12 = _join_hi(kl[..., 1], klh[..., 1])
+    else:
+        k12 = kl[..., 0]
+        l12 = kl[..., 1]
     present = ok & seed_ok & ~((k12 == 0) & (l12 == 0))
     cnt12 = torch.where(present, torch.clamp(l12 - k12 + 1, max=cfg.thres),
                         0).to(I32)
@@ -350,15 +390,27 @@ def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens):
         CS, cnt, k_seed, qw, j_ps, wide)
     valid = j_slot >= 0
 
-    # one fused gather per vote: (SA value, packed 16-base left context)
-    row = idx.sa_ctx[p_rank.clamp(0, cfg.n - 1).long()]     # (BP, C, 2)
-    sa12 = row[..., 0]
+    # one fused gather per vote: (SA value, packed 16-base left context);
+    # the slim layout gathers the SA value alone
+    p_safe = p_rank.clamp(0, cfg.n - 1).long()
+    if cfg.slim:
+        sa_low = idx.sa_ctx[p_safe]                          # (BP, C)
+        sa12 = _join_hi(sa_low, idx.sa_hi[p_safe]) if cfg.pos64 else sa_low
+    else:
+        row = idx.sa_ctx[p_safe]                             # (BP, C, 2)
+        sa12 = (_join_hi(row[..., 0], idx.sa_hi[p_safe]) if cfg.pos64
+                else row[..., 0])
     if left > 0:
-        win = (row[..., 1].to(torch.int64) & 0xFFFFFFFF) >> (2 * (16 - left))
+        if cfg.slim:
+            win = _ctx_window(cfg, idx, sa12)
+        else:
+            win = ((row[..., 1].to(torch.int64) & 0xFFFFFFFF)
+                   >> (2 * (16 - left)))
         qwu = qw_slot.to(torch.int64) & 0xFFFFFFFF
         verified = valid & (wide_slot | ((sa12 >= left) & (win == qwu)))
     else:
         verified = valid
+    # int64 under pos64
     keys = sa12 - torch.where(wide_slot, 0, left).to(I32) - j_slot
 
     v1, key1, v2 = top2_votes(keys, verified)
@@ -391,12 +443,14 @@ def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens):
 
 def _seq_lookup(idx: DeviceIndex, loc, qlen):
     """First contig whose forward or reverse half fully contains
-    [loc, loc+qlen).  Returns (found, gi, strand, off, loc_fwd)."""
+    [loc, loc+qlen), in the contig table's position dtype (int64 under
+    pos64).  Returns (found, gi, strand, off, loc_fwd)."""
+    pdt = idx.mta_start.dtype
     start = idx.mta_start[None, :]
     slen = idx.mta_len[None, :]
     end = start + 2 * slen
-    loc_ = loc.to(I32)[:, None]
-    q_ = qlen.to(I32)[:, None]
+    loc_ = loc.to(pdt)[:, None]
+    q_ = qlen.to(pdt)[:, None]
     fwd = (loc_ >= start) & (loc_ + q_ <= start + slen)
     rev = (loc_ >= start + slen) & (loc_ + q_ <= end)
     hit = fwd | rev
@@ -405,9 +459,9 @@ def _seq_lookup(idx: DeviceIndex, loc, qlen):
     g_start = idx.mta_start[gi]
     g_end = g_start + 2 * idx.mta_len[gi]
     strand = rev.gather(1, gi[:, None])[:, 0] & found
-    off = torch.where(strand, g_end - loc.to(I32) - qlen.to(I32),
-                      loc.to(I32) - g_start)
-    loc_fwd = torch.where(strand, off + g_start, loc.to(I32))
+    off = torch.where(strand, g_end - loc.to(pdt) - qlen.to(pdt),
+                      loc.to(pdt) - g_start)
+    loc_fwd = torch.where(strand, off + g_start, loc.to(pdt))
     return found, gi.to(I32), strand, off, loc_fwd
 
 
@@ -508,8 +562,17 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
     # a bit-2 lane's ed' is only an upper bound: never report it
     ed = torch.where((ed_raw <= limit) & ~band_short, ed_raw, -1)
 
-    meta = torch.stack([best.to(I32), found.to(I32), gi, strand.to(I32),
-                        off.to(I32), ed, limit, overflow], dim=1)
+    if cfg.pos64:
+        # best and off as little-endian [lo, hi] int32 pairs
+        b2 = best.to(torch.int64).contiguous().view(I32).reshape(B, 2)
+        o2 = off.to(torch.int64).contiguous().view(I32).reshape(B, 2)
+        meta = torch.stack([b2[:, 0], b2[:, 1], found.to(I32), gi,
+                            strand.to(I32), o2[:, 0], o2[:, 1], ed, limit,
+                            overflow], dim=1)
+    else:
+        meta = torch.stack([best.to(I32), found.to(I32), gi,
+                            strand.to(I32), off.to(I32), ed, limit,
+                            overflow], dim=1)
     # pad entries (op 3) to the back, path order kept (stable), then the
     # int16/int32 entries as little-endian bytes
     is_pad = ((run_units & 3) == 3).to(torch.int8)
@@ -521,7 +584,35 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
         head = min(cfg.OPS_HEAD_COLS, K)
         head -= head % cfg.tb_entry_bytes
     meta_bytes = meta.contiguous().view(torch.int8).reshape(
-        B, 4 * cfg.META_WORDS)
+        B, 4 * cfg.meta_words)
     blob = torch.cat([meta_bytes, compact[:, :head]], dim=1)
     mark("pack")
     return dict(blob=blob, ops_tail=compact[:, head:K])
+
+
+def encode_raw(raw, L0: int):
+    """(codes, codes_rc) of a (B, L) uint8 ASCII chunk whose reads are all
+    L0 long (pad bytes 0): a/c/g/t of either case -> 0-3, every other byte
+    -> 4, as the host encode's table; the reverse complement front-aligned
+    with pad 4.  L0 comes from the host, so the roll costs no sync."""
+    u = raw | 32                                   # fold ASCII case
+    codes = torch.full_like(raw, 4, dtype=torch.int8)
+    for c, ch in enumerate(b"acgt"):
+        codes = torch.where(u == ch, c, codes)
+    comp = torch.where(codes < 4, 3 - codes, codes)
+    # the flipped row holds the read at [L - L0, L); rolling it left by
+    # L - L0 front-aligns it and wraps the leading pad 4s to the tail
+    codes_rc = torch.roll(comp.flip(1), L0 - raw.shape[1], dims=1)
+    return codes, codes_rc
+
+
+def raw_map_step(cfg: MapperConfig, idx: DeviceIndex, raw, lens, limits,
+                 L0: int, mark=None):
+    """map_step of a uniform chunk shipped as raw ASCII (B, L) uint8 on
+    the index's device, its reads L0 long: the JAX raw_step.  Half the H2D
+    bytes of the host encode's two int8 arrays; byte-identical output.
+    `mark("encode")` follows the encode."""
+    codes, codes_rc = encode_raw(raw, L0)
+    if mark is not None:
+        mark("encode")
+    return map_step(cfg, idx, codes, codes_rc, lens, limits, mark)

@@ -3,8 +3,9 @@ longreadmapper_tpu/models/mapper.py::TPUMapper, single device).
 
 Bundles the device-resident DeviceIndex with the mapping step (one config
 per read-length bucket) and the host post-processing (CIGAR decode + SAM).
-Reads are always host-encoded (the JAX mapper's raw device-encode variant
-gives identical records and is not ported).
+A chunk part whose reads all have one length ships as raw ASCII and is
+encoded on the device (pipeline.raw_map_step, the JAX mapper's raw
+variant); ragged parts and every retry tier are encoded on the host.
 
 Defined-behaviour choices shared with the JAX package and its oracle:
 unmapped reads (flag 0x4) emit CIGAR '*' and ED:I:-1; lookup failures
@@ -25,7 +26,7 @@ from ..device import pick_device
 from ..formats.fastx import _encode_lut
 from ..formats.sam import cigar_string, sam_record
 from ..index.device import DeviceIndex, IndexMeta
-from ..mapping.pipeline import MapperConfig, map_step
+from ..mapping.pipeline import MapperConfig, map_step, raw_map_step
 from ..utils.config import Params
 
 
@@ -149,6 +150,8 @@ class TorchMapper:
         self.overflow_reads = 0   # reads whose final meta carries a flag
         self.retried_reads = 0    # reads re-run through the exact tier
         self.retried_sat_chunks = 0   # gact chunks re-walked, 4x run buffer
+        self.raw_chunks = 0       # chunk parts encoded on the device
+        self.host_chunks = 0      # chunk parts encoded on the host (ragged)
         # wall-clock seconds per host phase: prepare = read packing,
         # dispatch = H2D + step (the step syncs the host on the walk),
         # fetch = waiting for the D2H copies, assemble = SAM building
@@ -242,8 +245,21 @@ class TorchMapper:
                 codes_rc[i, :raw.shape[0]] = clut[raw[::-1]]
         return codes, codes_rc, lens, self._limits(lens)
 
+    def _pack_raw(self, part, L: int, n_pack: int):
+        """Raw bytes of a uniform-length part for the device encode:
+        (raw, None, lens, limits), the None marking the raw variant."""
+        L0 = len(part[0][1])
+        raw = np.zeros((n_pack, L), dtype=np.uint8)
+        raw[:len(part), :L0] = np.frombuffer(
+            "".join(p[1] for p in part).encode(),
+            np.uint8).reshape(len(part), L0)
+        lens = np.zeros(n_pack, dtype=np.int32)
+        lens[:len(part)] = L0
+        return raw, None, lens, self._limits(lens)
+
     def _prepare_chunk(self, reads):
-        """Host-side packing (numpy) of up to B reads into cfg.B parts."""
+        """Host-side packing (numpy) of up to B reads into cfg.B parts:
+        raw bytes for a part of one read length, else host codes."""
         n_real = len(reads)
         assert n_real <= self.B
         L = _bucket_len(max((len(s) for _, s, _ in reads), default=1))
@@ -251,7 +267,10 @@ class TorchMapper:
         prepped = []
         for s in range(0, max(n_real, 1), cfg.B):
             part = reads[s:s + cfg.B]
-            prepped.append((part,) + self._pack_reads(part, L, cfg.B))
+            if part and all(len(p[1]) == len(part[0][1]) for p in part):
+                prepped.append((part,) + self._pack_raw(part, L, cfg.B))
+            else:
+                prepped.append((part,) + self._pack_reads(part, L, cfg.B))
         return L, prepped
 
     # ------------------------------------------------------- device steps
@@ -266,6 +285,12 @@ class TorchMapper:
                 for a in arrays]
 
     def _run_step(self, cfg: MapperConfig, codes, codes_rc, lens, limits):
+        """The step of one packed part; `codes_rc` None marks raw bytes
+        (_pack_raw), whose read length is known here on the host."""
+        if codes_rc is None:
+            draw, dl, dlim = self._h2d(codes, lens, limits)
+            return raw_map_step(cfg, self.idx, draw, dl, dlim,
+                                int(lens.max()))
         dc, drc, dl, dlim = self._h2d(codes, codes_rc, lens, limits)
         return map_step(cfg, self.idx, dc, drc, dl, dlim)
 
@@ -285,7 +310,7 @@ class TorchMapper:
 
     @staticmethod
     def _split_blob(cfg: MapperConfig, blob: np.ndarray):
-        mb = 4 * cfg.META_WORDS
+        mb = 4 * cfg.meta_words
         return np.ascontiguousarray(blob[:, :mb]).view(np.int32), blob[:, mb:]
 
     def _dispatch_chunk(self, prepared):
@@ -293,6 +318,10 @@ class TorchMapper:
         cfg = self._step_for(L)
         parts = []
         for part, codes, codes_rc, lens, limits in prepped:
+            if codes_rc is None:
+                self.raw_chunks += 1
+            else:
+                self.host_chunks += 1
             out = self._run_step(cfg, codes, codes_rc, lens, limits)
             parts.append((cfg, part, lens, self._start_d2h(out)))
         return parts
@@ -339,7 +368,7 @@ class TorchMapper:
         so the whole chunk re-runs and its meta/ops are replaced; a flag
         that survives even 4x shows in overflow_reads."""
         if not cfg.use_gact or not (
-                out["meta"][:len(reads), cfg.META_WORDS - 1] & 2).any():
+                out["meta"][:len(reads), cfg.meta_words - 1] & 2).any():
             return out
         meta, ops = self._fetch_step(self._sat_step_for(cfg.L), reads)
         self.retried_sat_chunks += 1
@@ -355,7 +384,7 @@ class TorchMapper:
         if cfg.exact_slots:
             return out
         meta = out["meta"]
-        flagged = np.flatnonzero(meta[:len(reads), cfg.META_WORDS - 1] & 5)
+        flagged = np.flatnonzero(meta[:len(reads), cfg.meta_words - 1] & 5)
         if flagged.size == 0:
             return out
         cfg_r = self._retry_step_for(cfg.L)
@@ -380,7 +409,7 @@ class TorchMapper:
 
     def _count_overflow(self, cfg, reads, out) -> None:
         self.overflow_reads += int(
-            (out["meta"][:len(reads), cfg.META_WORDS - 1] != 0).sum())
+            (out["meta"][:len(reads), cfg.meta_words - 1] != 0).sum())
 
     def collect_chunk(self, pending) -> List[MapRecord]:
         t0 = time.perf_counter()
@@ -429,15 +458,22 @@ class TorchMapper:
     _COMP = bytes.maketrans(b"ACGTacgt", b"TGCATGCA")
 
     @staticmethod
-    def _meta_cols(meta: np.ndarray):
-        """(found, gi, strand, off, ed) columns of the 8-word meta row."""
+    def _meta_cols(cfg: MapperConfig, meta: np.ndarray):
+        """(found, gi, strand, off, ed) columns of either meta layout."""
+        if cfg.pos64:
+            # [best_lo, best_hi, found, gi, strand, off_lo, off_hi, ed,
+            #  limit, overflow]
+            off = ((meta[:, 6].astype(np.int64) << 32)
+                   | meta[:, 5].astype(np.uint32).astype(np.int64))
+            return (meta[:, 2] != 0, meta[:, 3], meta[:, 4] != 0, off,
+                    meta[:, 7])
         return (meta[:, 1] != 0, meta[:, 2], meta[:, 3] != 0, meta[:, 4],
                 meta[:, 5])
 
     def _postprocess_sam(self, cfg: MapperConfig, reads, lens, out
                          ) -> Tuple[str, int]:
         """Chunk-vectorized SAM assembly, one f-string per record."""
-        found, gi, strand, off, ed = self._meta_cols(out["meta"])
+        found, gi, strand, off, ed = self._meta_cols(cfg, out["meta"])
         n = len(reads)
         cigs = _cigar_strings_batch(np.asarray(out["ops"][:n]),
                                     cfg.tb_entry_bytes)
@@ -473,7 +509,7 @@ class TorchMapper:
 
     def _postprocess(self, cfg: MapperConfig, reads, lens, out
                      ) -> List[MapRecord]:
-        found, gi, strand, off, ed = self._meta_cols(out["meta"])
+        found, gi, strand, off, ed = self._meta_cols(cfg, out["meta"])
         all_runs = _rle_runs_batch(np.asarray(out["ops"]),
                                    cfg.tb_entry_bytes)
         recs: List[MapRecord] = []

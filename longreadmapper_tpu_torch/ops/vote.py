@@ -1,5 +1,4 @@
-"""Top-2 diagonal voting (port of longreadmapper_tpu/ops/vote.py, int32
-branch).
+"""Top-2 diagonal voting (port of longreadmapper_tpu/ops/vote.py).
 
 Reproduces the reference histogram's semantics exactly:
   - bucket id = key >> 4 (16 bp diagonal quantization);
@@ -10,6 +9,11 @@ One stable sort by bucket carries a packed (pos << 4 | key & 15) payload:
 stability puts the run's first insertion at its head, and the run's
 minimum key is bucket*16 + min(key & 15), found by a segmented min.
 Returns (v1, key1, v2): top-1 count, top-1 bucket's min key, top-2 count.
+
+Keys are int32, or int64 on the pos64 path.  JAX sorts an int64 bucket as
+a (hi, lo ^ sign) int32 pair with a (max, max) sentinel; that order is
+the signed int64 order and the sentinel is the int64 maximum, so the port
+sorts the int64 bucket itself.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 _ORD_BITS = 27
 _SENT = 0x7FFFFFFF
+_SENT64 = 0x7FFFFFFFFFFFFFFF
 
 
 def _top1(count, first_occ, eligible):
@@ -33,19 +38,28 @@ def _top1(count, first_occ, eligible):
 
 
 def top2_votes(keys, valid):
-    """keys: (B, V) int32 diagonals; valid: (B, V) bool.  Insertion order
-    is the column index (callers lay votes out seed-major, SA-hit-minor)."""
-    keys = keys.to(torch.int32)
+    """keys: (B, V) int32 diagonals, or int64 (pos64); valid: (B, V)
+    bool.  Insertion order is the column index (callers lay votes out
+    seed-major, SA-hit-minor)."""
+    wide = keys.dtype == torch.int64
+    if not wide:
+        keys = keys.to(torch.int32)
     B, V = keys.shape
     assert V < (1 << (_ORD_BITS - 4))
     dev = keys.device
     pos = torch.arange(V, dtype=torch.int32, device=dev)[None, :]
-    payload = (pos << 4) | (keys & 15)
-    # bucket + 128 keeps seed-offset-negative keys ordered
-    bucket = torch.where(valid, (keys >> 4) + 128, _SENT)
+    if wide:
+        payload = (pos << 4) | (keys & 15).to(torch.int32)
+        sent = _SENT64
+        bucket = torch.where(valid, keys >> 4, sent)
+    else:
+        payload = (pos << 4) | (keys & 15)
+        sent = _SENT
+        # bucket + 128 keeps seed-offset-negative keys ordered
+        bucket = torch.where(valid, (keys >> 4) + 128, sent)
     b_s, order = torch.sort(bucket, dim=1, stable=True)
     p_s = payload.gather(1, order)
-    valid_s = b_s != _SENT
+    valid_s = b_s != sent
     pos_s = p_s >> 4
     head = torch.ones_like(valid_s)
     head[:, 1:] = b_s[:, 1:] != b_s[:, :-1]
@@ -61,7 +75,8 @@ def top2_votes(keys, valid):
         xs[:, :-s] = x[:, s:]
         x = torch.minimum(x, torch.where(same, xs, 15))
         s *= 2
-    min_key = (b_s - 128) * 16 + x                 # valid at run heads
+    # valid at run heads
+    min_key = b_s * 16 + x if wide else (b_s - 128) * 16 + x
 
     idx = torch.arange(V, dtype=torch.int32, device=dev)[None, :].expand(
         B, V)
@@ -82,8 +97,9 @@ def top2_votes(keys, valid):
 
 def top2_small_histo(keys, valid):
     """Top-2 for the small cross-phase histogram: same semantics,
-    O(P^2) dense (P is ~21)."""
-    keys = keys.to(torch.int32)
+    O(P^2) dense (P is ~21); int64 keys (pos64) compare directly."""
+    if keys.dtype != torch.int64:
+        keys = keys.to(torch.int32)
     B, P = keys.shape
     bucket = keys >> 4
     eq = ((bucket[:, :, None] == bucket[:, None, :])
@@ -92,7 +108,8 @@ def top2_small_histo(keys, valid):
     pidx = torch.arange(P, dtype=torch.int32, device=keys.device)
     earlier = eq & (pidx[None, None, :] < pidx[None, :, None])
     is_first = valid & ~earlier.any(dim=2)
-    min_key = torch.where(eq, keys[:, None, :], _SENT).amin(dim=2)
+    min_key = torch.where(eq, keys[:, None, :],
+                          torch.iinfo(keys.dtype).max).amin(dim=2)
     fo = pidx[None, :].expand(B, P)
     top1, v1 = _top1(counts, fo, is_first)
     key1 = torch.where(v1 > 0, min_key.gather(1, top1[:, None])[:, 0], 0)

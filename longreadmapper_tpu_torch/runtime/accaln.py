@@ -24,19 +24,22 @@ def run_mapping(genome_path: str, reads_path: str,
                 params: Optional[Params] = None,
                 out: Optional[TextIO] = None, rg_id: int = 0,
                 chunk_b: int = 0, verbose: bool = True,
-                device="cuda") -> tuple[int, int]:
-    """Map `reads_path` against the index of `genome_path` on `device`;
-    SAM to `out` (default stdout).  Returns (valid, total).  The verbose
-    log ends with the mapper's host-phase seconds and retry counters."""
+                device="cuda", slim: bool = False) -> tuple[int, int]:
+    """Map `reads_path` against the index of `genome_path` on `device`
+    (the slim index layout when `slim`); SAM to `out` (default stdout).
+    Returns (valid, total).  The verbose log ends with the mapper's
+    host-phase seconds, its chunk counts and retry counters."""
     p = params or read_params()
     out = out or sys.stdout
     log = new_logger(verbose=verbose)
 
     log.vlog("Start initialization")
     t0 = log.vlog("loading index artifacts for %s", genome_path)
-    idx, meta, mta = load_device_index(genome_path, device, verbose=verbose)
-    log.vlog("index loaded in %.2fs (n=%d, hlen=%d, %s positions, %s)",
-             log.elapse(t0), meta.n, meta.hlen, meta.pos_dtype, device)
+    idx, meta, mta = load_device_index(genome_path, device, verbose=verbose,
+                                       slim=slim)
+    log.vlog("index loaded in %.2fs (n=%d, hlen=%d, %s positions, %s, %s)",
+             log.elapse(t0), meta.n, meta.hlen, meta.pos_dtype,
+             "slim" if meta.slim else "full", device)
     log.vlog("Current settings:")
     log.vlog("batch_size: %d", p.batch_size)
     log.vlog("seed_length: %d", p.seed_len)
@@ -58,6 +61,8 @@ def run_mapping(genome_path: str, reads_path: str,
     for cfg in mapper.bucket_configs():
         log.vlog("bucket %s", json.dumps(cfg))
     log.vlog("phase_s %s", json.dumps(mapper.phase_s))
+    log.vlog("chunks: %d raw-encoded on the device, %d host-encoded",
+             mapper.raw_chunks, mapper.host_chunks)
     log.vlog("retried reads %d, overflow reads %d, retried_sat_chunks %d",
              mapper.retried_reads, mapper.overflow_reads,
              mapper.retried_sat_chunks)

@@ -1,7 +1,8 @@
 """Where the mapping step's time goes: per-stage times of `map_step` and,
 on CUDA, a `torch.profiler` trace of the device kernels.  The stages are
 those of the branch the bucket takes (resident: band_dp, walk; gact:
-gact_forward, gact_walk).
+gact_forward, gact_walk), after `encode` where the chunk ships raw bytes
+(pipeline.raw_map_step).
 
 Each read chunk runs through `map_step` twice: once with a device sync
 after every stage (host clock, so a stage's time includes its launches)
@@ -23,7 +24,7 @@ from collections import Counter
 import torch
 
 from ..index.device import load_device_index
-from ..mapping.pipeline import map_step
+from ..mapping.pipeline import map_step, raw_map_step
 from ..models.mapper import TorchMapper
 from ..utils.config import Params
 from .reads import chunks
@@ -31,13 +32,28 @@ from .reads import chunks
 TRACED_STEPS = 3
 
 
+def _step(cfg, idx, codes, codes_rc, lens, limits, dev):
+    """The step of one packed part (TorchMapper._prepare_chunk), its
+    inputs uploaded once: a function of `mark`."""
+    up = [torch.from_numpy(a).to(dev) for a in (codes, lens, limits)]
+    if codes_rc is None:                          # raw bytes, one length
+        L0 = int(lens.max())
+        return lambda mark=None: raw_map_step(cfg, idx, *up, L0, mark=mark)
+    drc = torch.from_numpy(codes_rc).to(dev)
+    return lambda mark=None: map_step(cfg, idx, up[0], drc, up[1], up[2],
+                                      mark=mark)
+
+
 def stage_times(genome_path: str, reads, chunk_b: int = 2048,
-                device="cuda", traced_steps: int = TRACED_STEPS) -> dict:
+                device="cuda", traced_steps: int = TRACED_STEPS,
+                index=None) -> dict:
     """Mean ms per chunk of each stage and of the whole step over
     `reads` (at least two chunks) at the default parameters (seed length
     20, threshold 300), plus the device trace of `traced_steps` steps on
-    CUDA."""
-    idx, meta, mta = load_device_index(genome_path, device, verbose=False)
+    CUDA.  `index` is a loaded (idx, meta, mta) of `genome_path` in
+    another layout, else its default layout is loaded."""
+    idx, meta, mta = index or load_device_index(genome_path, device,
+                                                verbose=False)
     mapper = TorchMapper(idx, meta, mta, Params(), chunk_b=chunk_b,
                          device=device)
     dev = mapper.device
@@ -47,13 +63,13 @@ def stage_times(genome_path: str, reads, chunk_b: int = 2048,
         L, prepped = mapper._prepare_chunk(chunk)
         for _, *arrays in prepped:
             steps.append((mapper._step_for(L),
-                          [torch.from_numpy(a).to(dev) for a in arrays]))
+                          _step(mapper._step_for(L), idx, *arrays, dev)))
     if len(steps) < 2:
         raise ValueError("stage_times needs at least two chunks of reads")
 
     stage_s: dict[str, float] = {}
     step_s = 0.0
-    for i, (cfg, args) in enumerate(steps):
+    for i, (cfg, step) in enumerate(steps):
         sync()
         last = [time.perf_counter()]
 
@@ -64,9 +80,9 @@ def stage_times(genome_path: str, reads, chunk_b: int = 2048,
                 stage_s[stage] = stage_s.get(stage, 0.0) + now - last[0]
             last[0] = now
 
-        map_step(cfg, idx, *args, mark=mark)
+        step(mark)
         t0 = time.perf_counter()
-        map_step(cfg, idx, *args)
+        step()
         sync()
         if i:
             step_s += time.perf_counter() - t0
@@ -80,19 +96,19 @@ def stage_times(genome_path: str, reads, chunk_b: int = 2048,
                vote_slots=cfg.vote_slots, max_seeds=cfg.max_seeds,
                stage_ms={k: v / n * 1e3 for k, v in stage_s.items()},
                step_ms=step_s / n * 1e3, trace=None)
-    if dev.type == "cuda":
-        out["trace"] = _trace(cfg, idx, steps[1][1], traced_steps)
+    if dev.type == "cuda" and traced_steps:
+        out["trace"] = _trace(steps[1][1], traced_steps)
     return out
 
 
-def _trace(cfg, idx, args, n_steps: int) -> dict | None:
+def _trace(step, n_steps: int) -> dict | None:
     """Device kernels of n_steps steps; None when the profiler sees no
     device activity."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
-            map_step(cfg, idx, *args)
+            step()
         torch.cuda.synchronize()
     ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
     if not ev:

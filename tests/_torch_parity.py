@@ -7,6 +7,8 @@ the card-only tests can import it where JAX is absent."""
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -23,7 +25,7 @@ def torch_index(jidx, jmeta, device="cpu"):
     arrays = {k: (None if getattr(jidx, k) is None
                   else np.asarray(getattr(jidx, k)))
               for k in jidx._fields}
-    return DeviceIndex.from_arrays(arrays, meta, device), meta
+    return DeviceIndex.from_arrays(arrays, device), meta
 
 
 def build_both(fa: str, hlen: int, lch: str = "sa"):
@@ -115,3 +117,20 @@ def mutate_rows(rng, q: np.ndarray, n_edits: int, pad: int = 0):
     if pad:
         q[:, L - pad:] = 4
     return t
+
+
+def cigar_check(rec, genome: str):
+    """(query bases the record's CIGAR consumes, the edit distance of its
+    alignment against the genome) for a mapped SAM record (split fields);
+    lowercase read bases match, N matches nothing."""
+    seq, ref = rec[9].upper(), genome[int(rec[3]) - 1:]
+    qi = ri = ed = 0
+    for n, op in re.findall(r"(\d+)([MID])", rec[5]):
+        n = int(n)
+        if op == "M":
+            ed += sum(a != b for a, b in zip(seq[qi:qi + n], ref[ri:ri + n]))
+        else:
+            ed += n
+        qi += n if op in "MI" else 0
+        ri += n if op in "MD" else 0
+    return qi, ed

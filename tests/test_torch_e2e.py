@@ -130,7 +130,7 @@ def cli_dirs(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_cli")
     out = {}
     for name, main, extra in (("jax", jcli.main, ["--host-only"]),
-                              ("torch", tcli.main, [])):
+                              ("torch", tcli.main, ["--device", "cpu"])):
         os.makedirs(root / name)
         fa = str(root / name / "ref.fa")
         write_fasta(fa, [("c1", genome[:12000]), ("c2", genome[12000:])])
@@ -222,7 +222,7 @@ import io, sys
 from longreadmapper_tpu.utils.config import Params
 from longreadmapper_tpu_torch.runtime.accidx import build_index
 from longreadmapper_tpu_torch.runtime.accaln import run_mapping
-build_index({fa!r}, Params(hlen=5), verbose=False)
+build_index({fa!r}, Params(hlen=5), verbose=False, device="cpu")
 buf = io.StringIO()
 valid, total = run_mapping({fa!r}, {fq!r}, Params(), buf, verbose=False,
                            chunk_b=8, device="cpu")
@@ -251,11 +251,14 @@ def test_outside_slice_raises(pipe):
     from dataclasses import replace
     from longreadmapper_tpu_torch.mapping.pipeline import MapperConfig
     from longreadmapper_tpu_torch import cli as tcli
-    # long buckets are in the slice now: the 3072 bucket builds a config
+    # long buckets and the slim / pos64 layouts are in the slice now
     assert MapperConfig.from_params(pipe["params"], pipe["tmeta"], 16,
                                     3072).L == 3072
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        MapperConfig.from_params(pipe["params"],
-                                 replace(pipe["tmeta"], slim=True), 16, 256)
+    cfg = MapperConfig.from_params(
+        pipe["params"], replace(pipe["tmeta"], slim=True,
+                                pos_dtype="int64"), 16, 256)
+    assert (cfg.slim, cfg.pos64, cfg.meta_words) == (True, True, 10)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
         tcli.main(["warmup", "ref.fa"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
+        tcli.main(["index", "ref.fa", "--ram-gb", "1"])

@@ -1,8 +1,10 @@
 """The port's import rule: no module of longreadmapper_tpu_torch, and not
 chip_smoke.py, imports `longreadmapper_tpu` or `jax`.  An AST scan holds
 the source to it, and a fresh process that refuses both packages at import
-indexes a genome and maps reads through the port's CLI; its SAM equals the
-SAM of the JAX package's TPUMapper (through the JAX CLI) in this process.
+indexes a genome (the lchash by the device build, on the CPU) and maps
+reads through the port's CLI in the full and the slim layout; each SAM
+equals the SAM of the JAX package's TPUMapper (through the JAX CLI) in
+this process.
 The host suffix-array build fails loudly, with g++'s message, when its
 source does not compile."""
 
@@ -79,10 +81,12 @@ class Refuse(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, Refuse())
 from longreadmapper_tpu_torch import cli
-assert cli.main(["index", sys.argv[1], "--hlen", "6", "--quiet"]) == 0
-assert cli.main(["map", sys.argv[1], sys.argv[2], "1000", "20", "300",
-                 "--chunk-b", "8", "--rg-id", "0", "--device", "cpu",
+assert cli.main(["index", sys.argv[1], "--hlen", "6", "--device", "cpu",
                  "--quiet"]) == 0
+for layout in ([], ["--slim-index"]):
+    assert cli.main(["map", sys.argv[1], sys.argv[2], "1000", "20", "300",
+                     "--chunk-b", "8", "--rg-id", "0", "--device", "cpu",
+                     "--quiet"] + layout) == 0
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("longreadmapper_tpu", "jax", "jaxlib")]
 assert not loaded, loaded
@@ -120,9 +124,9 @@ def test_cli_maps_with_jax_package_refused(tmp_path):
         assert jcli.main(["map", jfa, fq, "1000", "20", "300", "--chunk-b",
                           "8", "--rg-id", "0", "--quiet"]) == 0
     want = buf.getvalue()
-    assert got.count("\n") == 6 + 4          # @SQ x2, @RG, @PG + records
-    assert "\t1000M\t" in got
-    assert got == want
+    assert want.count("\n") == 6 + 4         # @SQ x2, @RG, @PG + records
+    assert "\t1000M\t" in want
+    assert got == want + want                # full, then slim
 
 
 def test_sais_build_failure_raises_with_compiler_message(tmp_path,

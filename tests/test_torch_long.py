@@ -8,7 +8,6 @@ the half-band retry, and the gact saturation tier.  One case departs from
 TPUMapper on purpose: a 10240-bucket retry through gact, whose int16 run
 entries the port widens to the chunk's int32 (ROADMAP.md section C)."""
 
-import re
 from dataclasses import replace
 
 import numpy as np
@@ -18,7 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_parity import build_both
+from _torch_parity import build_both, cigar_check
 from conftest import write_fasta
 from longreadmapper_tpu.mapping import pipeline as jpipe
 from longreadmapper_tpu.models.mapper import TPUMapper
@@ -212,22 +211,6 @@ def test_sam_resident_10240_bucket_int32(g60):
     assert valid == 1 and ("I" in cigar or "D" in cigar)
 
 
-def _cigar_check(rec, genome):
-    """(query bases the record's CIGAR consumes, the edit distance of its
-    alignment against the genome) for a mapped SAM record."""
-    seq, ref = rec[9], genome[int(rec[3]) - 1:]
-    qi = ri = ed = 0
-    for n, op in re.findall(r"(\d+)([MID])", rec[5]):
-        n = int(n)
-        if op == "M":
-            ed += sum(a != b for a, b in zip(seq[qi:qi + n], ref[ri:ri + n]))
-        else:
-            ed += n
-        qi += n if op in "MI" else 0
-        ri += n if op in "MD" else 0
-    return qi, ed
-
-
 def test_retry_widens_run_entries_10240(g60):
     """At the 10240 bucket the first pass is resident with int32 run
     entries and the full-band retry takes gact with int16 entries (a
@@ -249,7 +232,7 @@ def test_retry_widens_run_entries_10240(g60):
     text, total, valid = next(tm.map_stream_sam(iter([reads])))
     assert (total, valid, tm.retried_reads, tm.overflow_reads) == (2, 2, 1, 0)
     for rec in (line.split("\t") for line in text.splitlines()):
-        assert _cigar_check(rec, genome) == (len(rec[9]),
+        assert cigar_check(rec, genome) == (len(rec[9]),
                                              int(rec[11][len("ED:I:"):]))
 
 
