@@ -3,17 +3,20 @@
 NVIDIA GPU: builds the hand-written kernels, holds each to its plain
 PyTorch version, drives `cli index` + `cli map` on a bacterial-scale
 reference with 1 kb, 10 kb and 50 kb reads, checks the SAM, breaks the
-mapping step's time down by stage, and maps the same reads in every index
-layout.
+mapping step's time down by stage, maps the same reads in every index
+layout, and builds the index's suffix array by blocks on disk and on the
+card, and scores the reads with the affine aligner.
 
   python3 chip_smoke.py [--seed N]
 
 Phases (each raises on failure; nothing is caught):
   1. device  — requires CUDA; prints the card's name and power limit
   2. build   — nvcc builds csrc/band_dp.cu and csrc/band_scores.cu for
-               sm_90a and g++ the host suffix-array build csrc/sais.cpp,
-               from this checkout, one compiler each, in parallel, and
-               prints each kernel's registers, stack and spills
+               sm_90a and g++ the host code (the suffix-array build
+               csrc/sais.cpp, the external build's merge csrc/samerge.cpp,
+               the affine traceback csrc/affine.cpp), from this checkout,
+               one compiler each, in parallel, and prints each kernel's
+               registers, stack and spills
   3. kernel  — each kernel against its plain version on the card,
                bit-equal at every listed shape; median times at the main
                shapes: band_dp (warp per read, at bands 128-512;
@@ -66,6 +69,19 @@ Phases (each raises on failure; nothing is caught):
                per position without the lchash (within 2% of 9.5 / 6.0 /
                10.5 / 7.0), the 1 kb map's reads/s, the seed_vote stage's
                ms and the largest genome the card would hold (computed)
+  9. index   — on the phase-4 genome: `cli index --ram-gb G` (G for about
+               EXT_BLOCKS blocks; the external suffix-array build and its
+               native merge) on a copy of the FASTA, its five artifacts and
+               devidx cache byte-identical to phase 4's, its sa_build stage
+               beside phase 4's; `sa_build_device` (prefix doubling on the
+               card) on the phase-4 .cat, equal to phase 4's .sa5, and on a
+               random .cat of 2^27 - 1 codes (a 67 Mb genome and its
+               reverse complement), equal to the host SA-IS, each timed
+               with its rounds and peak device memory; `banded_sw_affine`
+               at the 1 kb main shape on the first 2048 1 kb reads against
+               their planted windows, bit-equal to the same call on the
+               CPU, its score and ends equal to `affine_align` for 64
+               reads, timed
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that the kernels'
@@ -135,6 +151,9 @@ LAYOUTS = {"full int32": ({}, 9.5), "slim int32": (dict(slim=True), 6.0),
            "full pos64": (dict(force_pos_dtype="int64"), 10.5),
            "slim pos64": (dict(force_pos_dtype="int64", slim=True), 7.0)}
 LCH_CHUNKS = (1 << 20, 1 << 22, 1 << 24, 1 << 26)   # phase 4's batch sizes
+EXT_BLOCKS = 8                     # phase 9: blocks of the external build
+BIG_SA_GENOME = (1 << 26) - 1      # phase 9: a .cat of 2^27 - 1 codes
+N_AFFINE_ALIGN = 64                # phase 9: reads held to affine_align
 
 
 def log(msg: str) -> None:
@@ -1017,6 +1036,171 @@ def phase_layouts(d: str, fa: str, refs: dict, pos, g, stage_reads):
         torch.cuda.empty_cache()
 
 
+def same_files(a: str, b: str, chunk: int = 1 << 26) -> bool:
+    """Byte equality of two files, read in chunks (the .lch is 4.3 GB)."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(chunk)
+            if x != fb.read(chunk):
+                return False
+            if not x:
+                return True
+
+
+def stage_seconds(index_log: str, stage: str) -> float:
+    """The seconds of `stage` in a `cli index` log ("<stage> done in Ns")."""
+    with open(index_log) as f:
+        return float(re.search(stage + r" done in ([0-9.]+)s",
+                               f.read()).group(1))
+
+
+def phase_index(d: str, fa: str, fq: str, pos, g, seed: int) -> None:
+    """Phase 9: the external suffix-array build through `cli index
+    --ram-gb`, the card's prefix-doubling build at two sizes, and the
+    affine aligner at the 1 kb main shape."""
+    import shutil
+    import numpy as np
+    import torch
+    from longreadmapper_tpu_torch import cli
+    from longreadmapper_tpu_torch.formats.catmeta import load_cat
+    from longreadmapper_tpu_torch.formats.ui40 import read_sa5
+    from longreadmapper_tpu_torch.index.fmi import encode_bytes
+    from longreadmapper_tpu_torch.index.sa import (sa_build_device,
+                                                   suffix_array)
+    from longreadmapper_tpu_torch.ops.affine import (affine_align,
+                                                     banded_sw_affine)
+    out, checks = {}, []
+    prefix = fa + ".cat"
+    n = os.path.getsize(prefix)
+
+    # the external build on a copy of the phase-4 FASTA
+    ext = os.path.join(d, "ext")
+    os.makedirs(ext)
+    fa2 = os.path.join(ext, "ref.fa")
+    shutil.copyfile(fa, fa2)
+    # a budget of one block of ceil(n / EXT_BLOCKS) + 1 chars at 12 B a
+    # char (exact in GB: a power-of-2 division)
+    ram_gb = 12 * (-(-n // EXT_BLOCKS) + 1) / 2**30
+    index_log = os.path.join(ext, "index.log")
+    t0 = time.perf_counter()
+    with open(index_log, "w") as e, contextlib.redirect_stderr(e):
+        cli.main(["index", fa2, "--ram-gb", repr(ram_gb)])
+    out["ext_index_s"] = time.perf_counter() - t0
+    with open(index_log) as f:
+        for line in f:
+            log(f"[9 index] --ram-gb index log: {line.rstrip()}")
+    with open(index_log) as f:
+        out["blocks"] = int(re.search(r"external build, (\d+) blocks",
+                                      f.read()).group(1))
+    out["ext_sa_s"] = stage_seconds(index_log, "sa_build")
+    out["in_ram_sa_s"] = stage_seconds(os.path.join(d, "index.log"),
+                                       "sa_build")
+    log(f"[9 index] cli index --ram-gb {ram_gb} ({ram_gb * 2**30:.0f} "
+        f"bytes, n = {n}): {out['blocks']} blocks, in "
+        f"{out['ext_index_s']} s; sa_build stage {out['ext_sa_s']} s "
+        f"against phase 4's in-RAM {out['in_ram_sa_s']} s")
+    names = [".mta", ".cat", ".cat.sa5", ".cat.mfi", ".cat.lch"]
+    cache = sorted(os.listdir(fa + ".cat.devidx"))
+    names += [os.path.join(".cat.devidx", c) for c in cache]
+    differ = [nm for nm in names if not same_files(fa + nm, fa2 + nm)]
+    checks += [(out["blocks"] == EXT_BLOCKS,
+                f"external blocks {out['blocks']} == {EXT_BLOCKS}"),
+               (sorted(os.listdir(fa2 + ".cat.devidx")) == cache
+                and not differ,
+                f"the five artifacts and the {len(cache)} devidx files "
+                f"byte-identical to phase 4's in-RAM build (differ: "
+                f"{differ})")]
+    shutil.rmtree(ext)
+
+    # the card's prefix doubling on the phase-4 .cat, and on a larger .cat
+    want = read_sa5(prefix + ".sa5")
+    codes = encode_bytes(load_cat(prefix))
+    rng = np.random.default_rng(seed + 9)
+    big = rng.integers(0, 4, BIG_SA_GENOME).astype(np.uint8)
+    big = np.concatenate([big, 3 - big[::-1], [4]]).astype(np.uint8)
+    for name, c in (("phase-4 .cat", codes), ("random .cat", big)):
+        if c is big:
+            t0 = time.perf_counter()
+            want = suffix_array(np.frombuffer(b"ACGT$", np.uint8)[c])
+            out["host_sais_big_s"] = time.perf_counter() - t0
+            log(f"[9 index] host SA-IS (csrc/sais.cpp) on the {name}, n = "
+                f"{c.shape[0]}: {out['host_sais_big_s']} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = sa_build_device(c, device="cuda")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        key = "big" if c is big else "cat"
+        out[f"sa_device_{key}_ms"] = statistics.median(times) * 1e3
+        out[f"sa_device_{key}_rounds"] = sa_build_device.rounds
+        out[f"sa_device_{key}_peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"[9 index] sa_build_device on the {name}, n = {c.shape[0]}: "
+            f"{out[f'sa_device_{key}_ms']} ms (median of 3: {times} s; "
+            f"host in, host out), {sa_build_device.rounds} rounds, peak "
+            f"device memory {out[f'sa_device_{key}_peak_bytes']} bytes")
+        checks.append((np.array_equal(got, want),
+                       f"sa_build_device on the {name} equals "
+                       + ("the host SA-IS" if c is big else
+                          "phase 4's .sa5") + " element for element"))
+        del got, want
+    del big
+
+    # the affine scorer at the 1 kb main shape: the reads turned to the
+    # forward strand (the orientation with fewer mismatches) against
+    # their planted windows
+    B, L, W, band = MAIN_SHAPE
+    code = np.full(256, 4, np.uint8)
+    code[list(b"ACGT")] = range(4)
+    with open(fq) as f:
+        seqs = [line.strip() for i, line in enumerate(f) if i % 4 == 1][:B]
+    q = np.full((B, L), 4, np.int8)
+    t = np.full((B, L), 5, np.int8)
+    for b, s in enumerate(seqs):
+        r = code[np.frombuffer(s.encode(), np.uint8)]
+        win = g[pos[b]:pos[b] + L]
+        rc = 3 - r[::-1]
+        m = len(r)
+        if np.count_nonzero(rc != win[:m]) < np.count_nonzero(r != win[:m]):
+            r = rc
+        q[b, :m] = r
+        t[b, :win.shape[0]] = win
+    qc, tc = torch.from_numpy(q).cuda(), torch.from_numpy(t).cuda()
+    got = banded_sw_affine(qc, tc, W, band)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cpu = banded_sw_affine(torch.from_numpy(q), torch.from_numpy(t), W,
+                           band)
+    out["affine_cpu_s"] = time.perf_counter() - t0
+    same = all(torch.equal(x.cpu(), y) for x, y in zip(got, cpu))
+    sc, ei, ej = (x.cpu().numpy() for x in got)
+    agree = 0
+    for b in range(N_AFFINE_ALIGN):
+        score, span, _ = affine_align(q[b], t[b], W)
+        agree += (sc[b], ei[b], ej[b]) == ((score, span[1], span[3])
+                                           if score else (0, 0, 0))
+    out["affine_ms"] = cuda_ms(lambda: banded_sw_affine(qc, tc, W, band), 3)
+    log(f"[9 index] banded_sw_affine (B, L, W, band) = {MAIN_SHAPE}: "
+        f"{out['affine_ms']} ms on the card (median of 3, CUDA events), "
+        f"{out['affine_cpu_s']} s on the CPU; scores {sc.min()}-{sc.max()}, "
+        f"mean {sc.mean()}")
+    checks += [(same, "banded_sw_affine on the card bit-equal to the same "
+                      "call on the CPU (score, end_i, end_j)"),
+               (agree == N_AFFINE_ALIGN,
+                f"score, end_i, end_j equal to affine_align for {agree} of "
+                f"{N_AFFINE_ALIGN} reads"),
+               (bool((sc > 0).all()), "every read scores > 0")]
+    log("[9 index] " + json.dumps(out))
+    for ok, what in checks:
+        log(f"[9 index] check {'PASS' if ok else 'FAIL'}: {what}")
+    if not all(ok for ok, _ in checks):
+        raise AssertionError("phase 9 failed")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1086,6 +1270,8 @@ def main(argv=None) -> int:
                           len(CPU_LONG[name]), 2048, texts[name])
         phase_layouts(d, fa, refs, pos, g, stage_reads)
         done("8 layouts")
+        phase_index(d, fa, fq, pos, g, args.seed)
+        done("9 index")
     launches = dict(band_dp=launches, **counts)
     src = {"band_dp": "band_dp.cu", "band_dp_wide": "band_dp.cu",
            "band_scores": "band_scores.cu"}

@@ -1,7 +1,8 @@
 """Command-line entry points of the port, with the JAX CLI's argv contract:
 
   index  — `... index ref.fa [--hlen N] [--o-ratio N] [--n-seed N]
-           [--device cuda|cpu] [--host-only] [--no-devidx] [--quiet]`
+           [--device cuda|cpu] [--host-only] [--ram-gb G] [--no-devidx]
+           [--quiet]`
   map    — `... map ref.fa reads.fq [batch seed thres] [--chunk-b N]
            [--rg-id N] [--device cuda|cpu] [--slim-index] [--quiet]`
            (SAM on stdout)
@@ -9,8 +10,9 @@
 `--device` defaults to `cuda` and fails when no card is present; pass
 `--device cpu` to run the plain PyTorch versions.  `index` builds the
 lchash on that device, or on the host from the suffix array with
-`--host-only`.  `mapdist`, `warmup` and `index --ram-gb` raise
-NotImplementedError.
+`--host-only`, and the suffix array by the blocked external-memory build
+when `--ram-gb` bounds its working set below the in-RAM build's.
+`mapdist` and `warmup` raise NotImplementedError.
 
 Usage: python -m longreadmapper_tpu_torch.cli <index|map> ...
 """
@@ -44,7 +46,11 @@ def main(argv=None) -> int:
     ia.add_argument("--host-only", action="store_true",
                     help="build the lchash on the host from the suffix "
                          "array instead of on --device")
-    ia.add_argument("--ram-gb", type=float, default=0)
+    ia.add_argument("--ram-gb", type=float, default=0,
+                    help="bound the suffix-array build's working set (GB): "
+                         "a text whose in-RAM build (~12 B a char) would "
+                         "pass it builds by blocks on disk (byte-identical "
+                         ".sa5); 0 = in-RAM (default)")
     ia.add_argument("--no-devidx", action="store_true",
                     help="skip persisting the device-layout cache")
     ia.add_argument("--quiet", action="store_true")
@@ -77,9 +83,6 @@ def main(argv=None) -> int:
 
     if args.cmd == "index":
         from .runtime.accidx import build_index
-        if args.ram_gb > 0:
-            raise roadmap_gap("index --ram-gb (external-memory SA build)",
-                              "A12")
         hlen = args.hlen
         if hlen == 0:
             # the .cat is 2*genome+1; approximated from the FASTA size
@@ -89,6 +92,7 @@ def main(argv=None) -> int:
         p = Params(hlen=hlen, o_ratio=args.o_ratio, n_seed=args.n_seed)
         build_index(args.fasta, p, verbose=not args.quiet,
                     devidx=not args.no_devidx,
+                    ram_use=int(args.ram_gb * (1 << 30)),
                     device=None if args.host_only else args.device)
         return 0
 

@@ -1,5 +1,6 @@
 """Build and load the port's native code: the hand-written CUDA kernels and
-the host suffix-array build.
+the host code of the index build and the aligner (the suffix-array build,
+the external build's merge, the affine traceback).
 
 Each source of `SOURCES` in `csrc/` is compiled by its compiler (nvcc for
 sm_90a for the kernels, g++ for the host code) into a shared library with
@@ -51,6 +52,8 @@ SOURCES = {
     "band_dp": ("band_dp.cu", _nvcc, "*.cuh"),
     "band_scores": ("band_scores.cu", _nvcc, "*.cuh"),
     "sais": ("sais.cpp", _gxx, None),
+    "samerge": ("samerge.cpp", _gxx, None),
+    "affine": ("affine.cpp", _gxx, None),
 }
 
 
@@ -107,13 +110,16 @@ def build(names=tuple(SOURCES), force: bool = False) -> None:
 
 def load(name: str, functions: dict) -> ctypes.CDLL:
     """The library of SOURCES[name], built if stale, with each C function
-    of `functions` ({name: argtypes}) typed to return int."""
+    of `functions` typed: {name: argtypes} returns int, {name: (argtypes,
+    restype)} returns restype (a 64-bit count needs ctypes.c_int64)."""
     with _lock:
         if name not in _libs:
             build(names=(name,))
             lib = ctypes.CDLL(lib_path(name))
-            for fn, argtypes in functions.items():
-                getattr(lib, fn).restype = ctypes.c_int
+            for fn, spec in functions.items():
+                argtypes, restype = (spec if isinstance(spec, tuple)
+                                     else (spec, ctypes.c_int))
+                getattr(lib, fn).restype = restype
                 getattr(lib, fn).argtypes = argtypes
             _libs[name] = lib
         return _libs[name]

@@ -1,7 +1,8 @@
 """Index build — the `accidx` equivalent (port of
 longreadmapper_tpu/runtime/accidx.py).
 
-FASTA -> .mta/.cat -> suffix array (.sa5, native SA-IS) -> FM-index (.mfi)
+FASTA -> .mta/.cat -> suffix array (.sa5, native SA-IS in RAM, or by
+blocks on disk within `ram_use` bytes) -> FM-index (.mfi)
 -> lchash (.lch) -> the device-layout cache (<ref>.cat.devidx/).  The
 lchash is built on a torch device by a batched backward search (the card
 by default), or on the host from the SA (`device=None`, `index
@@ -29,8 +30,9 @@ def build_index(fasta_path: str, params: Params | None = None,
                 verbose: bool = True, devidx: bool = True,
                 ram_use: int = 0, device: str | None = "cuda") -> None:
     """Build the five artifacts (and the devidx cache when `devidx`).
-    `device` is the torch device of the lchash build; None builds it on
-    the host from the suffix array."""
+    `ram_use` > 0 bounds the suffix-array build's working set (bytes;
+    index/sa.py::sa_build).  `device` is the torch device of the lchash
+    build; None builds it on the host from the suffix array."""
     p = params or Params()
     log = new_logger(verbose=verbose)
     dev = None if device is None else pick_device(device)
@@ -42,7 +44,7 @@ def build_index(fasta_path: str, params: Params | None = None,
              len(mta))
 
     t0 = log.vlog("sa_build: suffix array -> %s.sa5", prefix)
-    sa = sa_build(prefix, ram_use=ram_use)
+    sa = sa_build(prefix, ram_use=ram_use, log=log.vlog)
     log.vlog("sa_build done in %.2fs (n=%d)", log.elapse(t0), sa.shape[0])
 
     t0 = log.vlog("fmi_build: C/BWT/O/CSA tables (o_ratio=%d)", p.o_ratio)

@@ -3,7 +3,8 @@ the smoke's main path does not reach alone: the lchash's device build, the
 device read encode, the forced pos64 and slim layouts, the vote-overflow
 tier (bit 0: reads inside a tandem repeat overflow the compact vote
 slots) and the gact saturation tier (bit 1, forced on a submitted chunk
-as tests/test_torch_long.py forces it on the CPU).  Every SAM is
+as tests/test_torch_long.py forces it on the CPU); and, off the map path,
+the card-side suffix-array build and the affine scorer.  Every SAM is
 byte-identical between the devices and every CIGAR is checked against the
 genome.
 
@@ -25,8 +26,11 @@ from longreadmapper_tpu_torch.index.device import (DeviceIndex, bwt_arrays,
                                                    load_device_index)
 from longreadmapper_tpu_torch.index.fmi import FMIndex
 from longreadmapper_tpu_torch.index.lchash import lc_build_device
+from longreadmapper_tpu_torch.index.sa import sa_build_device, suffix_array
 from longreadmapper_tpu_torch.mapping.pipeline import raw_map_step
 from longreadmapper_tpu_torch.models.mapper import TorchMapper
+from longreadmapper_tpu_torch.ops.affine import affine_align, \
+    banded_sw_affine
 from longreadmapper_tpu_torch.runtime.accidx import build_index
 from longreadmapper_tpu_torch.utils.config import Params
 
@@ -213,3 +217,55 @@ def test_gact_saturation_tier_card_matches_cpu(tmp_path):
         texts[dev] = "".join(got)
     assert texts["cuda"] == texts["cpu"]
     _check_records(texts["cuda"], genome, 4, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "satellite", "dollar"])
+def test_sa_build_device_card_matches_cpu_and_host(case):
+    _card()
+    rng = np.random.default_rng(11)
+    if case == "random":
+        codes = rng.integers(0, 4, 300000).astype(np.uint8)
+    elif case == "satellite":
+        codes = np.tile(np.array([0, 1, 2, 3, 2, 1, 0], np.uint8), 3000)
+    else:
+        codes = np.zeros(0, np.uint8)
+    codes = np.concatenate([codes, [4]]).astype(np.uint8)
+    got = sa_build_device(codes, device="cuda")
+    rounds = sa_build_device.rounds
+    np.testing.assert_array_equal(got, sa_build_device(codes, device="cpu"))
+    assert sa_build_device.rounds == rounds
+    text = np.frombuffer(b"ACGT$", np.uint8)[codes]
+    np.testing.assert_array_equal(got, suffix_array(text))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,W,band", [(64, 256, 26, 128),
+                                        (16, 512, 80, 640)])
+def test_banded_sw_affine_card_matches_cpu(B, L, W, band):
+    _card()
+    rng = np.random.default_rng(B + band)
+    q = rng.integers(0, 4, (B, L)).astype(np.int8)
+    t = q.copy()
+    m = rng.random((B, L)) < 0.05
+    t[m] = (t[m] + 1) % 4
+    t[1] = np.roll(t[1], 3)                   # a shifted diagonal
+    q[2, 100:] = 4                            # a tie along N
+    q[3] = 0                                  # a homopolymer row
+    t[3] = 0
+    t[-1] = 5                                 # nothing scores
+    got = banded_sw_affine(torch.from_numpy(q).cuda(),
+                           torch.from_numpy(t).cuda(), W, band)
+    want = banded_sw_affine(torch.from_numpy(q), torch.from_numpy(t), W,
+                            band)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == torch.int32
+        assert torch.equal(g.cpu(), w)
+    # band 2W + 1 holds the scorer to the traceback's best cell
+    got = banded_sw_affine(torch.from_numpy(q).cuda(),
+                           torch.from_numpy(t).cuda(), W, 2 * W + 1)
+    sc, ei, ej = (x.cpu().numpy() for x in got)
+    for b in range(8):
+        score, span, _ = affine_align(q[b], t[b], W)
+        assert (sc[b], ei[b], ej[b]) == ((score, span[1], span[3])
+                                         if score else (0, 0, 0)), b

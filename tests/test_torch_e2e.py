@@ -247,8 +247,9 @@ def test_device_cuda_refused_without_card():
     assert pick_device("cpu").type == "cpu"
 
 
-def test_outside_slice_raises(pipe):
+def test_outside_slice_raises(pipe, tmp_path, monkeypatch):
     from dataclasses import replace
+    from longreadmapper_tpu_torch.index import sa_external
     from longreadmapper_tpu_torch.mapping.pipeline import MapperConfig
     from longreadmapper_tpu_torch import cli as tcli
     # long buckets and the slim / pos64 layouts are in the slice now
@@ -260,5 +261,18 @@ def test_outside_slice_raises(pipe):
     assert (cfg.slim, cfg.pos64, cfg.meta_words) == (True, True, 10)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
         tcli.main(["warmup", "ref.fa"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
-        tcli.main(["index", "ref.fa", "--ram-gb", "1"])
+    # `index --ram-gb` is in the slice: it reaches the external build with
+    # the budget in bytes (tests/test_torch_sa.py checks what it builds)
+    class Reached(Exception):
+        pass
+
+    def external(prefix, ram_bytes):
+        raise Reached(prefix, ram_bytes)
+
+    monkeypatch.setattr(sa_external, "sa_build_external", external)
+    fa = str(tmp_path / "ref.fa")
+    write_fasta(fa, [("c", pipe["chrA"][:3000])])
+    with pytest.raises(Reached) as hit:
+        tcli.main(["index", fa, "--ram-gb", "0.00001", "--device", "cpu",
+                   "--quiet"])
+    assert hit.value.args == (fa + ".cat", int(0.00001 * (1 << 30)))

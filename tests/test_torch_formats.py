@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's host modules
 (longreadmapper_tpu_torch/formats, /utils and csrc/sais.cpp) against the
-originals: writers give byte-identical files, each reader reads the other
+originals: writers give byte-identical files (the streamed .sa5 writer
+too), each reader reads the other
 package's files, the parsers and SAM writers agree on fixed inputs, and the
 port's SA-IS equals longreadmapper_tpu.native.suffix_array."""
 
@@ -61,6 +62,13 @@ def _write(kind, pkg, d):
         sa[:3] = [0, (1 << 32) - 1, 1 << 32]
         ui40.write_sa5(sa, os.path.join(d, "x.sa5"), chunk=1000)
         return [os.path.join(d, "x.sa5")]
+    if kind == "sa5_stream":     # Sa5Writer, in uneven batches
+        sa = rng.integers(0, 1 << 39, 3001).astype(np.int64)
+        sa[:3] = [0, (1 << 32) - 1, 1 << 32]
+        with ui40.Sa5Writer(os.path.join(d, "x.sa5")) as w:
+            for s, e in ((0, 1), (1, 1), (1, 1000), (1000, 3001)):
+                w.append(sa[s:e])
+        return [os.path.join(d, "x.sa5")]
     if kind == "mfi":
         mfi.write_mfi(_mfi_data(mfi, rng), os.path.join(d, "x"))
         return [os.path.join(d, "x.mfi")]
@@ -77,7 +85,7 @@ def _read(kind, pkg, paths):
     """Read what _write wrote with package `pkg`; as comparable numpy /
     tuple values."""
     catmeta, lch, mfi, ui40 = PKGS[pkg]
-    if kind == "sa5":
+    if kind in ("sa5", "sa5_stream"):
         return [ui40.read_sa5(paths[0]), ui40.read_sa5(paths[0], count=5)]
     if kind == "mfi":
         m = mfi.read_mfi(paths[0][:-4])
@@ -91,7 +99,10 @@ def _read(kind, pkg, paths):
     return [np.array(mta, dtype=object), catmeta.load_cat(paths[1])]
 
 
-@pytest.mark.parametrize("kind", ["sa5", "mfi", "lch", "meta"])
+KINDS = ["sa5", "sa5_stream", "mfi", "lch", "meta"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
 def test_writers_give_byte_identical_files(tmp_path, kind):
     out = {}
     for pkg in PKGS:
@@ -100,10 +111,15 @@ def test_writers_give_byte_identical_files(tmp_path, kind):
                     for p in _write(kind, pkg, str(tmp_path / pkg))]
     assert out["jax"] == out["torch"]
     assert all(len(b) > 0 for b in out["torch"])
+    if kind == "sa5_stream":     # the stream writes what write_sa5 writes
+        os.makedirs(tmp_path / "whole")
+        whole = _write("sa5", "torch", str(tmp_path / "whole"))
+        assert out["torch"] == [open(whole[0], "rb").read()]
+        assert os.listdir(tmp_path / "torch") == ["x.sa5"]   # no .tmp
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-@pytest.mark.parametrize("kind", ["sa5", "mfi", "lch", "meta"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_readers_read_each_others_files(tmp_path, kind, writer):
     paths = _write(kind, writer, str(tmp_path))
     want = _read(kind, writer, paths)

@@ -4,7 +4,9 @@ the source to it, and a fresh process that refuses both packages at import
 indexes a genome (the lchash by the device build, on the CPU) and maps
 reads through the port's CLI in the full and the slim layout; each SAM
 equals the SAM of the JAX package's TPUMapper (through the JAX CLI) in
-this process.
+this process.  The same process indexes a copy of the genome with
+`--ram-gb` (the external suffix-array build and its native merge), whose
+artifacts equal the in-RAM build's.
 The host suffix-array build fails loudly, with g++'s message, when its
 source does not compile."""
 
@@ -61,6 +63,10 @@ def test_scanner_finds_forbidden_imports():
 def test_port_sources_import_no_jax_package():
     files = _port_sources()
     assert len(files) > 30
+    rel = {os.path.relpath(p, REPO) for p in files}
+    assert {"longreadmapper_tpu_torch/index/sa.py",
+            "longreadmapper_tpu_torch/index/sa_external.py",
+            "longreadmapper_tpu_torch/ops/affine.py"} <= rel
     bad = {}
     for path in files:
         with open(path) as f:
@@ -83,6 +89,12 @@ sys.meta_path.insert(0, Refuse())
 from longreadmapper_tpu_torch import cli
 assert cli.main(["index", sys.argv[1], "--hlen", "6", "--device", "cpu",
                  "--quiet"]) == 0
+# three blocks of 16384 chars, merged by csrc/samerge.cpp
+assert cli.main(["index", sys.argv[3], "--hlen", "6", "--device", "cpu",
+                 "--ram-gb", "0.00001", "--quiet"]) == 0
+for ext in (".mta", ".cat", ".cat.sa5", ".cat.mfi", ".cat.lch"):
+    with open(sys.argv[1] + ext, "rb") as a, open(sys.argv[3] + ext, "rb") as b:
+        assert a.read() == b.read(), ext
 for layout in ([], ["--slim-index"]):
     assert cli.main(["map", sys.argv[1], sys.argv[2], "1000", "20", "300",
                      "--chunk-b", "8", "--rg-id", "0", "--device", "cpu",
@@ -97,10 +109,13 @@ def test_cli_maps_with_jax_package_refused(tmp_path):
     rng = np.random.default_rng(41)
     genome = make_genome(rng, 20000, n_frac=0.005)
     port, jax_dir = tmp_path / "port", tmp_path / "jax"
-    os.makedirs(port)
-    os.makedirs(jax_dir)
+    ram = tmp_path / "ram"
+    for d in (port, jax_dir, ram):
+        os.makedirs(d)
     fa = str(port / "ref.fa")
     write_fasta(fa, [("c1", genome[:14000]), ("c2", genome[14000:])])
+    fa_ram = str(ram / "ref.fa")
+    write_fasta(fa_ram, [("c1", genome[:14000]), ("c2", genome[14000:])])
     clean = genome.replace("N", "A")
     fq = str(tmp_path / "reads.fq")
     write_fastq(fq, sample_reads(rng, clean[:14000], 4, 1000,
@@ -108,7 +123,7 @@ def test_cli_maps_with_jax_package_refused(tmp_path):
                 + sample_reads(rng, clean[14000:], 2, 1000, error_rate=0.0))
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    r = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, fa, fq],
+    r = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, fa, fq, fa_ram],
                        capture_output=True, text=True, env=env,
                        cwd=str(tmp_path), timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
