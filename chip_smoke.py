@@ -4,8 +4,9 @@ NVIDIA GPU: builds the hand-written kernels, holds each to its plain
 PyTorch version, drives `cli index` + `cli map` on a bacterial-scale
 reference with 1 kb, 10 kb and 50 kb reads, checks the SAM, breaks the
 mapping step's time down by stage, maps the same reads in every index
-layout, and builds the index's suffix array by blocks on disk and on the
-card, and scores the reads with the affine aligner.
+layout, builds the index's suffix array by blocks on disk and on the
+card, scores the reads with the affine aligner, and maps through `cli
+mapdist` (world 1) and after `cli warmup`.
 
   python3 chip_smoke.py [--seed N]
 
@@ -82,6 +83,18 @@ Phases (each raises on failure; nothing is caught):
                their planted windows, bit-equal to the same call on the
                CPU, its score and ends equal to `affine_align` for 64
                reads, timed
+  10. dist   — `cli mapdist` at world 1 (one NCCL rank, its group formed
+               and destroyed by the command) on the phase-4 reads, with the
+               index replicated and with `--shard-index` (the six gather
+               tables as ShardedRows: a masked gather and an NCCL
+               all_reduce a table): each .part0 byte-identical to phase 4's
+               SAM, the global valid count equal to phase 4's; the first
+               N_DIST_LONG 10 kb reads through the mesh's full-band gact
+               pass, checked as phase 4 and compared with phase 7's SAM;
+               the seed vote's stage times over the sharded and the
+               replicated tables; and the first chunk's dispatch seconds
+               of `cli map` in a fresh process, cold and after `cli warmup
+               --lengths 1024`, each SAM equal to phase 4's
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that the kernels'
@@ -154,6 +167,7 @@ LCH_CHUNKS = (1 << 20, 1 << 22, 1 << 24, 1 << 26)   # phase 4's batch sizes
 EXT_BLOCKS = 8                     # phase 9: blocks of the external build
 BIG_SA_GENOME = (1 << 26) - 1      # phase 9: a .cat of 2^27 - 1 codes
 N_AFFINE_ALIGN = 64                # phase 9: reads held to affine_align
+N_DIST_LONG = 200                  # phase 10: the first reads of the 10 kb set
 
 
 def log(msg: str) -> None:
@@ -510,9 +524,13 @@ def phase_kernel(seed: int) -> dict:
         err("band_scores", check_equal("band_scores", where, [got], [want]))
         del got, want
         if (B, L, W, band) == SCORES_1KB:
-            note("band_scores", where,
-                 cuda_ms(lambda: band_scores(q, t, W, band), 20),
+            ms = cuda_ms(lambda: band_scores(q, t, W, band), 20)
+            note("band_scores", where, ms,
                  cuda_ms(lambda: banded_nw_scores(q, t, W, band), 3))
+            # q and t once, H (L+1, B, band) int16 once
+            bnd = bound(B * L * band, 2 * B * L + 2 * (L + 1) * B * band)
+            log(f"[3 kernel] band_scores {where} bound {bnd[0]} ms by "
+                f"{bnd[1]} ({bnd[0] / ms:.4f} of it reached)")
     return res
 
 
@@ -1201,6 +1219,188 @@ def phase_index(d: str, fa: str, fq: str, pos, g, seed: int) -> None:
         raise AssertionError("phase 9 failed")
 
 
+def mapdist_cli(fa: str, fq: str, n: int, prefix: str, log_path: str,
+                extra=()):
+    """`cli mapdist --device cuda --rg-id 0 --chunk-b 2048` in-process at
+    world 1 (the command forms its own NCCL group and destroys it), its
+    verbose log to `log_path`; returns its global (valid, total)."""
+    from longreadmapper_tpu_torch import cli
+    with open(log_path, "w") as e, contextlib.redirect_stderr(e):
+        rc = cli.main(["mapdist", fa, fq, str(n), "20", "300", "--chunk-b",
+                       "2048", "--rg-id", "0", "--device", "cuda",
+                       "--out-prefix", prefix] + list(extra))
+    with open(log_path) as f:
+        m = re.search(r"global sensitivity: (\d+)/(\d+)", f.read())
+    if rc != 0 or m is None:
+        raise AssertionError(f"cli mapdist {extra} exited {rc} without its "
+                             "sensitivity line")
+    return int(m.group(1)), int(m.group(2))
+
+
+def dist_launches():
+    from longreadmapper_tpu_torch.ops.band_dp import (band_dp_tiles,
+                                                      banded_nw_dirs)
+    from longreadmapper_tpu_torch.ops.band_scores import band_scores
+    return dict(band_dp=banded_nw_dirs.launches,
+                band_dp_wide=band_dp_tiles.launches,
+                band_scores=band_scores.launches)
+
+
+# phase 10: `cli warmup` then `cli map` in one fresh process (or the map
+# alone), timing the first chunk's dispatch seconds (TorchMapper.phase_s)
+WARM_MAP = r"""
+import contextlib, json, sys, time
+sys.path.insert(0, sys.argv[1])
+from longreadmapper_tpu_torch import cli
+from longreadmapper_tpu_torch.models.mapper import TorchMapper
+fa, fq, n, warm, sam = sys.argv[2:7]
+first = []
+submit = TorchMapper.submit_chunk
+
+def timed(self, reads):
+    d0 = self.phase_s["dispatch"]
+    out = submit(self, reads)
+    if not first:
+        first.append(self.phase_s["dispatch"] - d0)
+    return out
+
+TorchMapper.submit_chunk = timed
+t0 = time.perf_counter()
+if warm == "1":
+    assert cli.main(["warmup", fa, "--lengths", "1024", "--chunk-b", "2048",
+                     "--device", "cuda", "--quiet"]) == 0
+t1 = time.perf_counter()
+with open(sam, "w") as f, contextlib.redirect_stdout(f):
+    assert cli.main(["map", fa, fq, n, "20", "300", "--chunk-b", "2048",
+                     "--rg-id", "0", "--device", "cuda", "--quiet"]) == 0
+print(json.dumps(dict(warmup_s=t1 - t0, map_s=time.perf_counter() - t1,
+                      first_dispatch_s=first[0])))
+"""
+
+
+def phase_dist(d: str, fa: str, fq: str, n_reads: int, pos, g, long10,
+               stage_reads) -> dict:
+    """Phase 10.  long10: (the 10 kb reads, their planted positions).
+    Returns the kernels' launches of the phase's mapdist runs."""
+    import torch
+    import torch.distributed as dist
+    from longreadmapper_tpu_torch.index.device import load_host_index
+    from longreadmapper_tpu_torch.parallel.dist import shard_index
+    from longreadmapper_tpu_torch.parallel.mesh import make_mesh
+    from longreadmapper_tpu_torch.runtime.launch import init_distributed
+    from longreadmapper_tpu_torch.runtime.stages import stage_times
+
+    with open(os.path.join(d, "out.sam")) as f:
+        ref = f.read()
+    ref_valid = sum(r[1] in ("0", "16") for r in parse_sam(ref))
+    counts = dict(band_dp=0, band_dp_wide=0, band_scores=0)
+    for name, extra in (("replicated", []),
+                        ("shard-index", ["--shard-index"])):
+        tag = f"10 dist {name}"
+        prefix = os.path.join(d, f"dist.{name}.sam")
+        reset_counts()
+        t0 = time.perf_counter()
+        valid, total = mapdist_cli(fa, fq, n_reads, prefix,
+                                   prefix + ".log", extra)
+        torch.cuda.synchronize()
+        t_map = time.perf_counter() - t0
+        run = dist_launches()
+        plain = plain_counts()
+        for k, v in run.items():
+            counts[k] += v
+        log(f"[{tag}] cli mapdist (world 1, NCCL) of {n_reads} reads in "
+            f"{t_map} s = {n_reads / t_map} reads/s end to end (index load "
+            f"included); launches {json.dumps(run)}")
+        with open(prefix + ".part0") as f:
+            same = f.read() == ref
+        check_map(tag, prefix + ".part0", prefix + ".log", n_reads, pos, g,
+                  16, [
+            lambda b, r, c: (same, "part0 byte-identical to phase 4's cli "
+                                   "map SAM"),
+            lambda b, r, c: ((valid, total) == (ref_valid, n_reads),
+                             f"global (valid, total) {(valid, total)} == "
+                             f"phase 4's {(ref_valid, n_reads)}"),
+            lambda b, r, c: (run["band_dp"] > 0 and plain == 0,
+                             f"band_dp launches {run['band_dp']} > 0, plain "
+                             f"DP calls on CUDA {plain} == 0")])
+
+    # the first N_DIST_LONG 10 kb reads: the mesh's full-band first pass
+    # takes gact (band_scores, then band_dp_wide in groups of tiles)
+    reads, lpos = long10
+    n = N_DIST_LONG
+    fq10 = os.path.join(d, "dist.10kb.fq")
+    write_fastq(fq10, reads[:n])
+    tag = "10 dist 10kb"
+    prefix = os.path.join(d, "dist.10kb.sam")
+    reset_counts()
+    t0 = time.perf_counter()
+    valid, total = mapdist_cli(fa, fq10, n, prefix, prefix + ".log")
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t0
+    run = dist_launches()
+    plain = plain_counts()
+    for k, v in run.items():
+        counts[k] += v
+    log(f"[{tag}] cli mapdist (world 1) of {n} reads of 10 kb in {t_map} s "
+        f"= {n / t_map} reads/s end to end (index load included); launches "
+        f"{json.dumps(run)}; global (valid, total) {(valid, total)}")
+    with open(prefix + ".part0") as f:
+        recs = parse_sam(f.read())
+    with open(os.path.join(d, "10kb.sam")) as f:
+        phase7 = parse_sam(f.read())[:n]
+    differ = sum(a != b for a, b in zip(recs, phase7))
+    log(f"[{tag}] records that differ from phase 7's SAM (half band + "
+        f"full-band retry): {differ} of {n}")
+    check_map(tag, prefix + ".part0", prefix + ".log", n, lpos, g, 100, [
+        lambda b, r, c: (run["band_scores"] > 0 and run["band_dp_wide"] > 0,
+                         f"launches {run}: band_scores and band_dp_wide > "
+                         "0"),
+        lambda b, r, c: (plain == 0, f"plain DP / scores / gact_forward "
+                                     f"calls on CUDA {plain} == 0"),
+        lambda b, r, c: (valid == sum(x[1] in ("0", "16") for x in recs)
+                         and total == n,
+                         f"global (valid, total) {(valid, total)} counts "
+                         "the part's mapped records")])
+
+    # the seed vote's cost over ShardedRows (masked gather + all_reduce a
+    # table) against the replicated tables, one world-1 group
+    _, _, formed = init_distributed("cuda")
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        arrays, meta, mta = load_host_index(fa, verbose=False)
+        for name, shard in (("replicated", False), ("sharded", True)):
+            idx = shard_index(arrays, mesh, shard, "cuda")
+            st = stage_times(fa, stage_reads, chunk_b=2048, device="cuda",
+                             traced_steps=0, index=(idx, meta, mta))
+            st.pop("trace")
+            log(f"[10 dist stages {name}] " + json.dumps(st))
+            del idx
+    finally:
+        if formed:
+            dist.destroy_process_group()
+
+    # warmup: the first chunk's dispatch in a fresh process, after `cli
+    # warmup --lengths 1024` and without it; both SAMs equal phase 4's
+    for warm in ("0", "1"):
+        sam = os.path.join(d, f"warm{warm}.sam")
+        r = subprocess.run([sys.executable, "-c", WARM_MAP, HERE, fa, fq,
+                            str(n_reads), warm, sam], capture_output=True,
+                           text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"warmup run failed:\n{r.stderr[-3000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        with open(sam) as f:
+            same = f.read() == ref
+        log(f"[10 dist warmup] {'after cli warmup' if warm == '1' else 'cold'}"
+            f": {json.dumps(res)}")
+        log(f"[10 dist warmup] check {'PASS' if same else 'FAIL'}: SAM "
+            "byte-identical to phase 4's")
+        if not same:
+            raise AssertionError("phase 10 failed: the map after warmup "
+                                 "differs")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1272,7 +1472,13 @@ def main(argv=None) -> int:
         done("8 layouts")
         phase_index(d, fa, fq, pos, g, args.seed)
         done("9 index")
+        reads10, lpos10, _ = long_data["10kb"]
+        dist_counts = phase_dist(d, fa, fq, N_READS, pos, g,
+                                 (reads10, lpos10), stage_reads)
+        done("10 dist")
     launches = dict(band_dp=launches, **counts)
+    for k, v in dist_counts.items():
+        launches[k] += v
     src = {"band_dp": "band_dp.cu", "band_dp_wide": "band_dp.cu",
            "band_scores": "band_scores.cu"}
     replaces = {"band_dp": "longreadmapper_tpu/ops/band_pallas.py:102",

@@ -6,15 +6,21 @@
   map    — `... map ref.fa reads.fq [batch seed thres] [--chunk-b N]
            [--rg-id N] [--device cuda|cpu] [--slim-index] [--quiet]`
            (SAM on stdout)
+  mapdist — `... mapdist ref.fa reads.fq [batch seed thres]
+           [--out-prefix P] [--chunk-b N] [--rg-id N] [--shard-index]
+           [--slim-index] [--model-shards N] [--device cuda|cpu] [--quiet]`
+           (one process a device, under `torchrun` or alone; SAM to
+           P.part<data index>, runtime/launch.py)
+  warmup — `... warmup ref.fa [--lengths 256,1024] [--chunk-b N]
+           [--slim-index] [--device cuda|cpu] [--quiet]`
 
 `--device` defaults to `cuda` and fails when no card is present; pass
 `--device cpu` to run the plain PyTorch versions.  `index` builds the
 lchash on that device, or on the host from the suffix array with
 `--host-only`, and the suffix array by the blocked external-memory build
 when `--ram-gb` bounds its working set below the in-RAM build's.
-`mapdist` and `warmup` raise NotImplementedError.
 
-Usage: python -m longreadmapper_tpu_torch.cli <index|map> ...
+Usage: python -m longreadmapper_tpu_torch.cli <index|map|mapdist|warmup> ...
 """
 
 from __future__ import annotations
@@ -24,7 +30,6 @@ import os
 import sys
 import time
 
-from .device import roadmap_gap
 from .utils.config import Params, auto_hlen, read_params
 
 
@@ -75,9 +80,39 @@ def main(argv=None) -> int:
                          "the text (about 3.5 B a position less)")
     ma.add_argument("--quiet", action="store_true")
 
-    for name in ("mapdist", "warmup"):
-        sp = sub.add_parser(name, help="not ported (ROADMAP.md A11)")
-        sp.add_argument("rest", nargs=argparse.REMAINDER)
+    md = sub.add_parser("mapdist",
+                        help="map over every rank of a process group, one "
+                             "device a rank (SAM stripes to "
+                             "--out-prefix.part<k>)")
+    md.add_argument("fasta")
+    md.add_argument("reads")
+    md.add_argument("pos", nargs="*", type=int)
+    md.add_argument("--out-prefix", default="out.sam")
+    md.add_argument("--chunk-b", type=int, default=0)
+    md.add_argument("--rg-id", type=int, default=0)
+    md.add_argument("--shard-index", action="store_true",
+                    help="row-shard the six gather tables of the index over "
+                         "a 'model' mesh axis instead of replicating them")
+    md.add_argument("--slim-index", action="store_true",
+                    help="slim index layout; composes with --shard-index")
+    md.add_argument("--model-shards", type=int, default=0,
+                    help="'model' axis size with --shard-index (default: "
+                         "every rank)")
+    md.add_argument("--device", default="cuda",
+                    help="cuda (NCCL, cuda:<LOCAL_RANK>) or cpu (Gloo)")
+    md.add_argument("--quiet", action="store_true")
+
+    wa = sub.add_parser("warmup",
+                        help="build the kernels and run every step variant "
+                             "of the given read-length buckets once")
+    wa.add_argument("fasta")
+    wa.add_argument("--lengths", default="256,1024",
+                    help="comma-separated read lengths (default 256,1024)")
+    wa.add_argument("--chunk-b", type=int, default=2048)
+    wa.add_argument("--slim-index", action="store_true",
+                    help="warm the slim layout's steps")
+    wa.add_argument("--device", default="cuda")
+    wa.add_argument("--quiet", action="store_true")
 
     args = ap.parse_args(argv)
 
@@ -112,7 +147,33 @@ def main(argv=None) -> int:
                     device=args.device, slim=args.slim_index)
         return 0
 
-    raise roadmap_gap(f"the `{args.cmd}` subcommand", "A11")
+    if args.cmd == "warmup":
+        from .index.device import load_device_index
+        from .models.mapper import TorchMapper
+        from .utils.log import new_logger
+        log = new_logger(verbose=not args.quiet)
+        idx, meta, mta = load_device_index(args.fasta, args.device,
+                                           slim=args.slim_index,
+                                           verbose=not args.quiet)
+        mapper = TorchMapper(idx, meta, mta, read_params(),
+                             chunk_b=args.chunk_b, device=args.device)
+        lengths = [int(x) for x in args.lengths.split(",") if x]
+        dt = mapper.warmup(lengths)
+        log.vlog("warmed %d bucket(s) in %.1fs", len(lengths), dt)
+        return 0
+
+    from .runtime.launch import run_distributed
+    if len(args.pos) == 3:
+        p = Params(batch_size=args.pos[0], seed_len=args.pos[1],
+                   thres=args.pos[2])
+    else:
+        p = read_params("params")
+    run_distributed(args.fasta, args.reads, p, out_prefix=args.out_prefix,
+                    rg_id=args.rg_id, chunk_b=args.chunk_b,
+                    shard_index_tables=args.shard_index,
+                    model_shards=args.model_shards, slim=args.slim_index,
+                    verbose=not args.quiet, device=args.device)
+    return 0
 
 
 if __name__ == "__main__":

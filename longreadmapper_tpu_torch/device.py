@@ -22,9 +22,3 @@ def pick_device(name: str | torch.device = "cuda") -> torch.device:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
-
-def roadmap_gap(what: str, item: str) -> NotImplementedError:
-    """The error raised for anything outside the ported slice."""
-    return NotImplementedError(
-        f"{what} is not ported to longreadmapper_tpu_torch yet "
-        f"(ROADMAP.md {item}); use longreadmapper_tpu for it")

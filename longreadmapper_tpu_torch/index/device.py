@@ -316,13 +316,14 @@ def _load_device_cache(genome_path: str, force_pos_dtype: str | None,
     return arrays, meta
 
 
-def load_device_index(genome_path: str, device, cache: bool = True,
-                      verbose: bool = True,
-                      force_pos_dtype: str | None = None, slim: bool = False,
-                      ) -> tuple[DeviceIndex, IndexMeta, list[MtaEntry]]:
-    """Load the artifact set (.mta/.cat/.sa5/.mfi/.lch) to `device`, via
-    the `<genome>.cat.devidx/` cache when its fingerprint and layout match
-    (and writing it after a from-artifacts build otherwise).  `slim` loads
+def load_host_index(genome_path: str, cache: bool = True,
+                    verbose: bool = True,
+                    force_pos_dtype: str | None = None, slim: bool = False,
+                    ) -> tuple[dict, IndexMeta, list[MtaEntry]]:
+    """The device-layout host arrays of the artifact set
+    (.mta/.cat/.sa5/.mfi/.lch) without uploading them: memmaps of the
+    `<genome>.cat.devidx/` cache when its fingerprint and layout match,
+    else built from the artifacts (and the cache written).  `slim` gives
     the slim layout; `force_pos_dtype='int64'` forces the pos64 layout on
     any n, and such a load never writes the cache: it would shadow the
     natural layout for every later load of both packages."""
@@ -333,7 +334,7 @@ def load_device_index(genome_path: str, device, cache: bool = True,
         if hit is not None:
             arrays, meta = hit
             log.vlog(f"device index cache hit: {_cache_dir(genome_path)}")
-            return DeviceIndex.from_arrays(arrays, device), meta, mta
+            return arrays, meta, mta
 
     prefix = genome_path + ".cat"
     fmi = FMIndex.read(prefix, with_sa=True)
@@ -348,4 +349,14 @@ def load_device_index(genome_path: str, device, cache: bool = True,
             log.vlog(f"device index cache written: {_cache_dir(genome_path)}")
         except OSError as e:
             log.vlog(f"device index cache write failed (continuing): {e}")
+    return arrays, meta, mta
+
+
+def load_device_index(genome_path: str, device, cache: bool = True,
+                      verbose: bool = True,
+                      force_pos_dtype: str | None = None, slim: bool = False,
+                      ) -> tuple[DeviceIndex, IndexMeta, list[MtaEntry]]:
+    """load_host_index's arrays uploaded to `device`."""
+    arrays, meta, mta = load_host_index(genome_path, cache, verbose,
+                                        force_pos_dtype, slim)
     return DeviceIndex.from_arrays(arrays, device), meta, mta

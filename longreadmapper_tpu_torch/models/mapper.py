@@ -1,11 +1,20 @@
 """TorchMapper — the end-to-end mapping model of the port (counterpart of
-longreadmapper_tpu/models/mapper.py::TPUMapper, single device).
+longreadmapper_tpu/models/mapper.py::TPUMapper).
 
 Bundles the device-resident DeviceIndex with the mapping step (one config
 per read-length bucket) and the host post-processing (CIGAR decode + SAM).
 A chunk part whose reads all have one length ships as raw ASCII and is
 encoded on the device (pipeline.raw_map_step, the JAX mapper's raw
 variant); ragged parts and every retry tier are encoded on the host.
+
+Under a ('data', 'model') mesh (parallel/) the mapper is one rank of ONE
+logical mapper: chunks are GLOBAL batches, each rank maps its own rows of
+every part through parallel/dist.sharded_map_step, and the sensitivity
+counter is a collective.  As in JAX's mesh mode every part is encoded on
+the host and runs exact slots at the full band, so no read needs the
+vote-overflow (bit 0) or narrow-band (bit 2) retry.  Unlike JAX, a chunk
+whose gact run buffer saturated (bit 1) still re-runs through the 4x tier
+(ROADMAP.md section C).
 
 Defined-behaviour choices shared with the JAX package and its oracle:
 unmapped reads (flag 0x4) emit CIGAR '*' and ED:I:-1; lookup failures
@@ -27,6 +36,7 @@ from ..formats.fastx import _encode_lut
 from ..formats.sam import cigar_string, sam_record
 from ..index.device import DeviceIndex, IndexMeta
 from ..mapping.pipeline import MapperConfig, map_step, raw_map_step
+from .. import native_build
 from ..utils.config import Params
 
 
@@ -133,17 +143,32 @@ def _bucket_len(n: int, minimum: int = 128) -> int:
 
 
 class TorchMapper:
-    def __init__(self, idx: DeviceIndex, meta: IndexMeta, mta, params: Params,
-                 chunk_b: int = 0, device="cuda"):
+    def __init__(self, idx, meta: IndexMeta, mta, params: Params,
+                 chunk_b: int = 0, device="cuda", mesh=None,
+                 shard_tables: bool = False):
+        """A single-device mapper over `idx`, a DeviceIndex on `device`;
+        or, when `mesh` is given, this rank's part of one mapper over the
+        mesh: `idx` is then the host arrays (index.device.load_host_index)
+        that parallel/dist.shard_index places, replicated or (with
+        shard_tables) row-sharded over 'model', and B is rounded up to a
+        multiple of the 'data' axis."""
         self.device = pick_device(device)
-        if idx.packed.device != self.device:
-            raise ValueError(f"index on {idx.packed.device}, mapper on "
-                             f"{self.device}")
-        self.idx = idx
+        self.mesh = mesh
         self.meta = meta
         self.mta = list(mta)
         self.params = params
         self.B = chunk_b or params.chunk_size
+        self.n_data, self.data_index = 1, 0
+        if mesh is not None:
+            from ..parallel.dist import shard_index
+            self.n_data = mesh["data"].size()
+            self.data_index = mesh.get_coordinate()[0]
+            self.B = -(-self.B // self.n_data) * self.n_data
+            idx = shard_index(idx, mesh, shard_tables, self.device)
+        if idx.packed.device != self.device:
+            raise ValueError(f"index on {idx.packed.device}, mapper on "
+                             f"{self.device}")
+        self.idx = idx
         self._cfgs = {}
         self._retry_cfgs = {}
         self._sat_cfgs = {}
@@ -152,6 +177,8 @@ class TorchMapper:
         self.retried_sat_chunks = 0   # gact chunks re-walked, 4x run buffer
         self.raw_chunks = 0       # chunk parts encoded on the device
         self.host_chunks = 0      # chunk parts encoded on the host (ragged)
+        # mapped reads of all ranks, from the mesh's collective counter
+        self.valid_global = 0
         # wall-clock seconds per host phase: prepare = read packing,
         # dispatch = H2D + step (the step syncs the host on the walk),
         # fetch = waiting for the D2H copies, assemble = SAM building
@@ -161,16 +188,31 @@ class TorchMapper:
     # ------------------------------------------------------------ configs
 
     def _b_for(self, L: int) -> int:
-        """Device batch per bucket: scaled down for reads above 1 kb."""
+        """Global batch per bucket: scaled down for reads above 1 kb, and a
+        multiple of the 'data' axis under a mesh."""
         if L <= 1024:
             return self.B
-        return max(8, (self.B * 1024 // L) // 8 * 8)
+        b = max(8, (self.B * 1024 // L) // 8 * 8)
+        return max(self.n_data, -(-b // self.n_data) * self.n_data)
+
+    def _local_rows(self, B: int) -> tuple[int, int]:
+        """This rank's contiguous rows [lo, hi) of a global batch of B
+        (all of them without a mesh)."""
+        share = B // self.n_data
+        return self.data_index * share, (self.data_index + 1) * share
 
     def _step_for(self, L: int) -> MapperConfig:
+        """The config of bucket L's first pass, at this rank's share of the
+        bucket's global batch."""
         if L not in self._cfgs:
             cfg = MapperConfig.from_params(self.params, self.meta,
                                            self._b_for(L), L)
-            if L > cfg.gact_threshold:
+            if self.mesh is not None:
+                # the retry tiers of bits 0 and 2 are a host-local affair:
+                # the mesh runs exact slots at the full band
+                cfg = replace(cfg, B=cfg.B // self.n_data, exact_slots=True,
+                              short_W_override=0)
+            elif L > cfg.gact_threshold:
                 # long buckets' first pass at half band on both long paths
                 # (half_band: gact, short_W_override: resident); lanes
                 # with ed >= W/2 flag bit 2 for the full-band retry
@@ -211,6 +253,37 @@ class TorchMapper:
                             path="gact" if cfg.use_gact else "resident",
                             W=W, band=band, entry_bytes=cfg.tb_entry_bytes))
         return out
+
+    def warmup(self, lengths: Sequence[int] = (256, 1024)) -> float:
+        """Pay the first-use costs of the buckets of `lengths` before a
+        stream: build the CUDA kernels (native_build), then run once on
+        the device every step variant that _prepare_chunk and the retry
+        tiers can dispatch for each bucket, as JAX's warmup compiles them:
+        host-encoded, raw (single device) and the exact-everything retry
+        (where the first pass is compact or narrow).  Each runs on a part
+        of pad rows, which loads its kernels' modules and fills the
+        allocator's pools; no counter of the mapper moves.  Returns the
+        elapsed seconds."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            native_build.build(names=("band_dp", "band_scores"))
+        for L in sorted({_bucket_len(int(n)) for n in lengths}):
+            cfg = self._step_for(L)
+            variants = [(cfg, False)]
+            if self.mesh is None:
+                variants.append((cfg, True))
+                if not cfg.exact_slots and (
+                        cfg.vote_slots < cfg.vote_slots_exact
+                        or cfg.half_band):
+                    variants.append((self._retry_step_for(L), False))
+            for c, raw in variants:
+                codes = (np.zeros((c.B, L), np.uint8) if raw
+                         else np.full((c.B, L), 4, np.int8))
+                lens = np.zeros(c.B, np.int32)
+                self._run_step(c, codes, None if raw else codes, lens, lens)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
 
     # ------------------------------------------------------------ packing
 
@@ -258,16 +331,23 @@ class TorchMapper:
         return raw, None, lens, self._limits(lens)
 
     def _prepare_chunk(self, reads):
-        """Host-side packing (numpy) of up to B reads into cfg.B parts:
-        raw bytes for a part of one read length, else host codes."""
+        """Host-side packing (numpy) of up to B reads into parts of the
+        bucket's global batch: raw bytes for a part of one read length,
+        else host codes.  Under a mesh `reads` is the GLOBAL chunk, so
+        every rank agrees on the bucket, and each rank packs only its own
+        rows of each part (pad rows where they hold no read: the rank
+        still runs the step, whose collectives its peers wait on)."""
         n_real = len(reads)
         assert n_real <= self.B
         L = _bucket_len(max((len(s) for _, s, _ in reads), default=1))
         cfg = self._step_for(L)
+        Bg = cfg.B * self.n_data
+        lo, hi = self._local_rows(Bg)
         prepped = []
-        for s in range(0, max(n_real, 1), cfg.B):
-            part = reads[s:s + cfg.B]
-            if part and all(len(p[1]) == len(part[0][1]) for p in part):
+        for s in range(0, max(n_real, 1), Bg):
+            part = reads[s + lo:s + hi]
+            if (self.mesh is None and part
+                    and all(len(p[1]) == len(part[0][1]) for p in part)):
                 prepped.append((part,) + self._pack_raw(part, L, cfg.B))
             else:
                 prepped.append((part,) + self._pack_reads(part, L, cfg.B))
@@ -286,7 +366,9 @@ class TorchMapper:
 
     def _run_step(self, cfg: MapperConfig, codes, codes_rc, lens, limits):
         """The step of one packed part; `codes_rc` None marks raw bytes
-        (_pack_raw), whose read length is known here on the host."""
+        (_pack_raw), whose read length is known here on the host.  Runs
+        map_step on the mapper's index: under a sharded mesh every rank
+        of the model group must make the same calls."""
         if codes_rc is None:
             draw, dl, dlim = self._h2d(codes, lens, limits)
             return raw_map_step(cfg, self.idx, draw, dl, dlim,
@@ -322,8 +404,15 @@ class TorchMapper:
                 self.raw_chunks += 1
             else:
                 self.host_chunks += 1
-            out = self._run_step(cfg, codes, codes_rc, lens, limits)
-            parts.append((cfg, part, lens, self._start_d2h(out)))
+            if self.mesh is None:
+                out = self._run_step(cfg, codes, codes_rc, lens, limits)
+                valid = None
+            else:
+                from ..parallel.dist import sharded_map_step
+                out, valid = sharded_map_step(cfg, self.mesh)(
+                    self.idx, *self._h2d(codes, codes_rc, lens, limits))
+            parts.append((cfg, part, lens,
+                          dict(self._start_d2h(out), valid=valid)))
         return parts
 
     def submit_chunk(self, reads: Sequence[Tuple[str, str, Optional[str]]]):
@@ -343,6 +432,8 @@ class TorchMapper:
         for cfg, reads, lens, out in pending:
             if out["event"] is not None:
                 out["event"].synchronize()
+            if out["valid"] is not None:
+                self.valid_global += int(out["valid"])
             meta, ops = self._split_blob(cfg, out["blob"].numpy())
             if _tail_needed(ops, cfg.tb_entry_bytes):
                 ops = np.concatenate(
@@ -366,7 +457,11 @@ class TorchMapper:
         ops/gact.gact_traceback_c) through the 4x-buffer tier.  The flag is
         chunk-wide (the clamped last buffer row may hold any lane's runs),
         so the whole chunk re-runs and its meta/ops are replaced; a flag
-        that survives even 4x shows in overflow_reads."""
+        that survives even 4x shows in overflow_reads.  Under a mesh a rank
+        re-runs its own rows (JAX's mesh mode leaves the flag unrecovered):
+        with a replicated index alone, with sharded tables together with
+        its model group, whose ranks hold the same rows and so the same
+        flag."""
         if not cfg.use_gact or not (
                 out["meta"][:len(reads), cfg.meta_words - 1] & 2).any():
             return out

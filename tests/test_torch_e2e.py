@@ -259,8 +259,9 @@ def test_outside_slice_raises(pipe, tmp_path, monkeypatch):
         pipe["params"], replace(pipe["tmeta"], slim=True,
                                 pos_dtype="int64"), 16, 256)
     assert (cfg.slim, cfg.pos64, cfg.meta_words) == (True, True, 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
-        tcli.main(["warmup", "ref.fa"])
+    # `warmup` is in the slice (A11)
+    assert tcli.main(["warmup", pipe["fa"], "--lengths", "256",
+                      "--chunk-b", "16", "--device", "cpu", "--quiet"]) == 0
     # `index --ram-gb` is in the slice: it reaches the external build with
     # the budget in bytes (tests/test_torch_sa.py checks what it builds)
     class Reached(Exception):
@@ -276,3 +277,41 @@ def test_outside_slice_raises(pipe, tmp_path, monkeypatch):
         tcli.main(["index", fa, "--ram-gb", "0.00001", "--device", "cpu",
                    "--quiet"])
     assert hit.value.args == (fa + ".cat", int(0.00001 * (1 << 30)))
+
+
+def test_warmup_runs_every_step_variant(pipe, monkeypatch):
+    """warmup([256]) runs bucket 256's host-encoded, raw and exact-slots
+    retry variants once each (tests/test_cli.py's JAX counterpart checks
+    that they were compiled), moves no counter, and a later map gives the
+    SAM of a mapper that never warmed up."""
+    from longreadmapper_tpu_torch.models import mapper as tmapper
+    seen = []
+    host_step, raw_step = tmapper.map_step, tmapper.raw_map_step
+
+    def host(cfg, *a, **k):
+        seen.append(("host", cfg))
+        return host_step(cfg, *a, **k)
+
+    def raw(cfg, *a, **k):
+        seen.append(("raw", cfg))
+        return raw_step(cfg, *a, **k)
+
+    monkeypatch.setattr(tmapper, "map_step", host)
+    monkeypatch.setattr(tmapper, "raw_map_step", raw)
+    new = lambda: TorchMapper(pipe["tidx"], pipe["tmeta"], pipe["mta"],
+                              pipe["params"], chunk_b=8, device="cpu")
+    tm = new()
+    assert tm.warmup([200, 256]) > 0
+    cfg, retry = tm._step_for(256), tm._retry_step_for(256)
+    assert retry.exact_slots and not cfg.exact_slots
+    assert seen == [("host", cfg), ("raw", cfg), ("host", retry)]
+    assert list(tm._cfgs) == list(tm._retry_cfgs) == [256]
+    assert (tm.raw_chunks, tm.host_chunks, tm.retried_reads,
+            tm.overflow_reads, tm.retried_sat_chunks) == (0, 0, 0, 0, 0)
+    assert set(tm.phase_s.values()) == {0.0}
+    reads = _fqreads(sample_reads(np.random.default_rng(3), pipe["chrA"],
+                                  12, 200, error_rate=0.02))
+    chunks = [reads[:8], reads[8:]]
+    got = list(tm.map_stream_sam(iter(chunks)))
+    want = list(new().map_stream_sam(iter(chunks)))
+    assert got == want and sum(v for _, _, v in got) >= 10

@@ -4,7 +4,8 @@ the source to it, and a fresh process that refuses both packages at import
 indexes a genome (the lchash by the device build, on the CPU) and maps
 reads through the port's CLI in the full and the slim layout; each SAM
 equals the SAM of the JAX package's TPUMapper (through the JAX CLI) in
-this process.  The same process indexes a copy of the genome with
+this process; so does the part file of `cli mapdist` at world 1, and
+`cli warmup` runs.  The same process indexes a copy of the genome with
 `--ram-gb` (the external suffix-array build and its native merge), whose
 artifacts equal the in-RAM build's.
 The host suffix-array build fails loudly, with g++'s message, when its
@@ -99,6 +100,15 @@ for layout in ([], ["--slim-index"]):
     assert cli.main(["map", sys.argv[1], sys.argv[2], "1000", "20", "300",
                      "--chunk-b", "8", "--rg-id", "0", "--device", "cpu",
                      "--quiet"] + layout) == 0
+# mapdist at world 1 (a Gloo group over an in-process store) writes the
+# first map's SAM to its part file; warmup runs the 1024 bucket's variants
+assert cli.main(["mapdist", sys.argv[1], sys.argv[2], "1000", "20", "300",
+                 "--chunk-b", "8", "--out-prefix", "dist.sam", "--device",
+                 "cpu", "--quiet"]) == 0
+with open("dist.sam.part0") as f:
+    sys.stdout.write(f.read())
+assert cli.main(["warmup", sys.argv[1], "--lengths", "1000", "--chunk-b",
+                 "8", "--device", "cpu", "--quiet"]) == 0
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("longreadmapper_tpu", "jax", "jaxlib")]
 assert not loaded, loaded
@@ -141,7 +151,7 @@ def test_cli_maps_with_jax_package_refused(tmp_path):
     want = buf.getvalue()
     assert want.count("\n") == 6 + 4         # @SQ x2, @RG, @PG + records
     assert "\t1000M\t" in want
-    assert got == want + want                # full, then slim
+    assert got == want + want + want         # full, slim, then mapdist
 
 
 def test_sais_build_failure_raises_with_compiler_message(tmp_path,
