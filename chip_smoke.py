@@ -5,8 +5,9 @@ PyTorch version, drives `cli index` + `cli map` on a bacterial-scale
 reference with 1 kb, 10 kb and 50 kb reads, checks the SAM, breaks the
 mapping step's time down by stage, maps the same reads in every index
 layout, builds the index's suffix array by blocks on disk and on the
-card, scores the reads with the affine aligner, and maps through `cli
-mapdist` (world 1) and after `cli warmup`.
+card, scores the reads with the affine aligner, maps through `cli
+mapdist` (world 1) and after `cli warmup`, and drives the host tools (the
+FM-index queries, `TorchMapper.map_stream`, the Myers aligners).
 
   python3 chip_smoke.py [--seed N]
 
@@ -15,7 +16,9 @@ Phases (each raises on failure; nothing is caught):
   2. build   — nvcc builds csrc/band_dp.cu and csrc/band_scores.cu for
                sm_90a and g++ the host code (the suffix-array build
                csrc/sais.cpp, the external build's merge csrc/samerge.cpp,
-               the affine traceback csrc/affine.cpp), from this checkout,
+               the affine traceback csrc/affine.cpp, the banded aligner
+               csrc/align.cpp, the Myers distance csrc/myers.cpp), from
+               this checkout,
                one compiler each, in parallel, and prints each kernel's
                registers, stack and spills
   3. kernel  — each kernel against its plain version on the card,
@@ -95,6 +98,19 @@ Phases (each raises on failure; nothing is caught):
                replicated tables; and the first chunk's dispatch seconds
                of `cli map` in a fresh process, cold and after `cli warmup
                --lengths 1024`, each SAM equal to phase 4's
+  11. tools  — on the phase-4 genome, index and reads: `sa_load` against
+               the FM-index's SA; `csa_access` against the SA on
+               N_TOOL_ROWS random rows; `fmi_aln` of N_TOOL_ROWS hlen-mers
+               of the genome and as many random ones against the .lch
+               that phase 4 built on the card; the lchash lookup plus
+               `fmi_aln` against `fmi_aln` alone on queries of 20-32
+               bases; `TorchMapper.map_stream` on the card, its records
+               equal to phase 4's SAM lines and its band_dp launches to
+               phase 4's, its reads/s beside `map_stream_sam`'s; every
+               valid record rescored by `native.myers_distance` (NW over
+               its reference span, at most its ED) and
+               `native.myers_align` (HW in a window 64 bases wider each
+               side, k = ED, its path checked as phase 4's CIGARs)
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that the kernels'
@@ -168,6 +184,7 @@ EXT_BLOCKS = 8                     # phase 9: blocks of the external build
 BIG_SA_GENOME = (1 << 26) - 1      # phase 9: a .cat of 2^27 - 1 codes
 N_AFFINE_ALIGN = 64                # phase 9: reads held to affine_align
 N_DIST_LONG = 200                  # phase 10: the first reads of the 10 kb set
+N_TOOL_ROWS = 4096                 # phase 11: SA rows and k-mers queried
 
 
 def log(msg: str) -> None:
@@ -1401,6 +1418,185 @@ def phase_dist(d: str, fa: str, fq: str, n_reads: int, pos, g, long10,
     return counts
 
 
+def phase_fmi(fa: str, seed: int) -> None:
+    """Phase 11a: the host FM-index queries against the suffix array and
+    the .lch that phase 4 built on the card."""
+    import numpy as np
+    from longreadmapper_tpu_torch.index.fmi import FMIndex, encode_bytes
+    from longreadmapper_tpu_torch.index.sa import sa_load
+    prefix = fa + ".cat"
+    rng = np.random.default_rng(seed + 11)
+    fmi = FMIndex.read(prefix)
+    checks = [(np.array_equal(sa_load(prefix), fmi.sa),
+               "sa_load equals FMIndex.read's SA")]
+    n = fmi.length
+    t0 = time.perf_counter()
+    fmi._full_rank()
+    log(f"[11 tools] _full_rank (n = {n}) in {time.perf_counter() - t0} s, "
+        f"{fmi._rank.nbytes} host bytes")
+    rows = rng.integers(0, n, N_TOOL_ROWS)
+    got = np.array([fmi.csa_access(int(i)) for i in rows])
+    bail = int(np.count_nonzero((got == 0) & (fmi.sa[rows] != 0)))
+    checks += [
+        (bool(np.all((got == fmi.sa[rows]) | (got == 0))),
+         f"csa_access(i) == SA[i] for {N_TOOL_ROWS} random rows, but for "
+         f"the walk's bail-outs to 0 after 5 * csa_ratio steps"),
+        (bail <= N_TOOL_ROWS // 100, f"bail-outs {bail} <= 1% of rows "
+                                     "((3/4)^21 = 0.24% expected)")]
+    # the .lch table (uint64 (k, l) pairs after a 12-byte header), read
+    # where the queries land
+    with open(prefix + ".lch", "rb") as f:
+        hlen = int(np.frombuffer(f.read(4), "<i4")[0])
+    lch = np.memmap(prefix + ".lch", dtype="<u8", mode="r", offset=12,
+                    shape=(1 << (2 * hlen), 2))
+    cat = encode_bytes(np.fromfile(prefix, dtype=np.uint8))
+    place = 4 ** np.arange(hlen - 1, -1, -1)      # a k-mer's id, base 4
+    starts = rng.integers(0, n - 1 - 32, 4 * N_TOOL_ROWS)
+    starts = starts[[bool((cat[s:s + 32] < 4).all()) for s in starts]]
+    kmers = np.concatenate([
+        cat[starts[:N_TOOL_ROWS, None] + np.arange(hlen)],
+        rng.integers(0, 4, (N_TOOL_ROWS, hlen)).astype(np.uint8)])
+    ids = kmers.astype(np.int64) @ place
+    t0 = time.perf_counter()
+    res = [fmi.fmi_aln(q) for q in kmers]
+    t_aln = time.perf_counter() - t0
+    want = np.array([(k, l) if h else (0, 0) for h, k, l in res])
+    found = sum(h > 0 for h, _, _ in res)
+    checks.append((np.array_equal(np.asarray(lch[ids]).astype(np.int64),
+                                  want),
+                   f"the card-built .lch entry equals fmi_aln's (k, l) for "
+                   f"{len(kmers)} {hlen}-mers ({N_TOOL_ROWS} from the "
+                   f"genome, {N_TOOL_ROWS} random; {found} found)"))
+    log(f"[11 tools] fmi_aln: {1e6 * t_aln / len(kmers)} us a {hlen}-mer "
+        "query")
+    # lc_aln: the last hlen bases by the table, the rest by fmi_aln
+    lens = rng.integers(20, 33, N_TOOL_ROWS // 2)
+    queries = [cat[s:s + m].copy() for s, m in zip(starts[N_TOOL_ROWS:],
+                                                    lens)]
+    for q in queries[::2]:
+        q[rng.integers(0, len(q))] ^= 1 + rng.integers(0, 3)
+    same = hits = 0
+    t0 = time.perf_counter()
+    for q in queries:
+        m = len(q)
+        k, l = (int(x) for x in lch[int(q[m - hlen:].astype(np.int64)
+                                        @ place)])
+        r1, k1, l1 = ((0, k, l) if (k, l) == (0, 0)
+                      else fmi.fmi_aln(q[:m - hlen], k, l))
+        r2, k2, l2 = fmi.fmi_aln(q)
+        same += r1 == r2 and (r1 == 0 or (k1, l1) == (k2, l2))
+        hits += r2 > 0
+    us = 1e6 * (time.perf_counter() - t0) / len(queries)
+    log(f"[11 tools] lc_aln + fmi_aln: {us} us a query pair of 20-32 bases")
+    checks.append((same == len(queries),
+                   f"lc_aln equals fmi_aln for {same} of {len(queries)} "
+                   f"queries of 20-32 bases ({hits} found)"))
+    for ok, what in checks:
+        log(f"[11 tools] check {'PASS' if ok else 'FAIL'}: {what}")
+    if not all(ok for ok, _ in checks):
+        raise AssertionError("phase 11 failed: the FM-index queries")
+
+
+def phase_tools(d: str, fa: str, fq: str, g, seed: int,
+                ref_launches: int) -> int:
+    """Phase 11: the FM-index queries (phase_fmi); TorchMapper.map_stream
+    on the card against phase 4's SAM (and its band_dp launches,
+    ref_launches) and beside map_stream_sam; the Myers aligners rescoring
+    its records.  Returns map_stream's band_dp launches."""
+    import numpy as np
+    import torch
+    from longreadmapper_tpu_torch import native
+    from longreadmapper_tpu_torch.index.device import load_device_index
+    from longreadmapper_tpu_torch.index.fmi import encode_bytes
+    from longreadmapper_tpu_torch.models.mapper import TorchMapper
+    from longreadmapper_tpu_torch.ops.band_dp import banded_nw_dirs
+    from longreadmapper_tpu_torch.runtime.reads import (chunks,
+                                                        load_read_batches)
+    from longreadmapper_tpu_torch.utils.config import Params
+    phase_fmi(fa, seed)
+
+    with open(os.path.join(d, "out.sam")) as f:
+        ref = [l for l in f.read().splitlines(True) if not l.startswith("@")]
+    reads = next(iter(load_read_batches(fq, N_READS, background=False)))
+    mapper = TorchMapper(*load_device_index(fa, "cuda", verbose=False),
+                         Params(batch_size=N_READS), chunk_b=2048,
+                         device="cuda")
+
+    def run(kind):
+        t0 = time.perf_counter()
+        if kind == "map_stream":
+            out = [r for c in mapper.map_stream(chunks(reads, mapper.B))
+                   for r in c]
+        else:
+            out = "".join(t for t, _, _ in mapper.map_stream_sam(
+                chunks(reads, mapper.B)))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    run("map_stream_sam")                  # the mapper's first chunks
+    reset_counts()
+    recs, t_stream = run("map_stream")
+    launches, plain = banded_nw_dirs.launches, plain_counts()
+    sam, t_sam = run("map_stream_sam")
+    log(f"[11 tools] map_stream {len(reads) / t_stream} reads/s, "
+        f"map_stream_sam {len(reads) / t_sam} reads/s ({len(reads)} 1 kb "
+        "reads, the stream alone, one process)")
+    checks = [
+        ([r.to_sam() for r in recs] == ref,
+         f"map_stream's {len(recs)} records spell phase 4's SAM lines, in "
+         "order"),
+        (sam == "".join(ref), "map_stream_sam's SAM equals phase 4's"),
+        (launches == ref_launches,
+         f"band_dp launches of map_stream {launches} == phase 4's "
+         f"{ref_launches}"),
+        (plain == 0, f"plain DP calls on CUDA {plain} == 0")]
+
+    # the Myers aligners over the card's alignments: the NW distance
+    # against the record's reference span, and the HW path in a window
+    # 64 bases wider each side, bounded by the record's ED
+    valid = [r for r in recs if r.valid]
+    pairs = []
+    for r in valid:
+        span = sum(int(c) for c, op in re.findall(r"(\d+)([MID])", r.cigar)
+                   if op in "MD")
+        pairs.append((encode_bytes(np.frombuffer(r.seq.encode(), np.uint8)),
+                      r.off, span, r.ed))
+    t0 = time.perf_counter()
+    nw = [native.myers_distance(q, g[off:off + span], "NW")[0]
+          for q, off, span, _ in pairs]
+    t_nw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hw = [native.myers_align(q, g[max(off - 64, 0):off + span + 64], "HW",
+                             k=ed) for q, off, span, ed in pairs]
+    t_hw = time.perf_counter() - t0
+    eds = np.array([p[3] for p in pairs])
+    nw = np.array(nw)
+    hw_ed = np.array([h[0] for h in hw])
+    as_recs = [[r.qname, "0", "chr1",
+                str(max(off - 64, 0) + h[1] + 1), "0",
+                "".join(f"{c}{op}" for c, op in h[3]), "*", "0", "0",
+                r.seq, "*", f"ED:I:{h[0]}"]
+               for r, (_, off, _, _), h in zip(valid, pairs, hw)]
+    bad = bad_alignments(as_recs, g)
+    log(f"[11 tools] myers_distance NW {len(pairs) / t_nw} pairs/s, "
+        f"myers_align HW (k = ED) {len(pairs) / t_hw} pairs/s; NW distance "
+        f"equal to ED {int((nw == eds).sum())}, lower "
+        f"{int((nw < eds).sum())} (the band bound the card's optimum); HW "
+        f"lower than ED {int((hw_ed < eds).sum())}")
+    checks += [
+        (bool((nw <= eds).all()) and bool((nw >= 0).all()),
+         f"myers_distance NW <= ED for all {len(pairs)} valid records"),
+        (bool((hw_ed >= 0).all()) and bool((hw_ed <= eds).all()),
+         "myers_align HW within k = ED for every record"),
+        (bad == 0, f"myers_align paths that miss the read's length or "
+                   f"the distance {bad} == 0")]
+    for ok, what in checks:
+        log(f"[11 tools] check {'PASS' if ok else 'FAIL'}: {what}")
+    if not all(ok for ok, _ in checks):
+        raise AssertionError("phase 11 failed")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1476,6 +1672,8 @@ def main(argv=None) -> int:
         dist_counts = phase_dist(d, fa, fq, N_READS, pos, g,
                                  (reads10, lpos10), stage_reads)
         done("10 dist")
+        launches += phase_tools(d, fa, fq, g, args.seed, launches)
+        done("11 tools")
     launches = dict(band_dp=launches, **counts)
     for k, v in dist_counts.items():
         launches[k] += v

@@ -1,9 +1,10 @@
-"""Host-side FM-index build and serialization (numpy).
+"""Host-side FM-index: build, serialization and exact-match queries
+(numpy).
 
-A copy of longreadmapper_tpu/index/fmi.py's FMIndex.build/read/write and
-encode_bytes: the original module cannot be imported without JAX (its
-package __init__ pulls in the device index).  Build semantics match the
-reference exactly, so `.mfi` files interoperate with the JAX package:
+A copy of longreadmapper_tpu/index/fmi.py's FMIndex and encode_bytes: the
+original module cannot be imported without JAX (its package __init__
+pulls in the device index).  Build semantics match the reference exactly,
+so `.mfi` files interoperate with the JAX package:
 
   C table   — char counts over text[0 .. n-2] (the final '$' is not
               counted), prefix-summed over all 256 byte values.
@@ -11,12 +12,20 @@ reference exactly, so `.mfi` files interoperate with the JAX package:
   O table   — per-base counts sampled every `o_ratio` positions, exclusive
               of the sample position; '$' not counted.
   CSA       — SA[i * csa_ratio].
+
+Queries (the reference's fmidx.c:277-331), on the host as in JAX:
+  occ_access(c, loc) — #c in bwt[0 .. loc], from a full (n+1, 4) rank
+                       table built at first use (32 bytes a position);
+  fmi_aln            — backward search k = C[c] + occ(c, k-1) + 1,
+                       l = C[c] + occ(c, l), stopping once k > l;
+  sa_access          — the RAM-resident SA;
+  csa_access         — the LF walk to a sampled row.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -39,6 +48,7 @@ class FMIndex:
     o: np.ndarray           # (4*(n/o_ratio+1),) uint64 interleaved
     csa_ratio: int
     csa: np.ndarray         # (n/csa_ratio+1,) uint64
+    _rank: Optional[np.ndarray] = field(default=None, repr=False)
 
     @property
     def length(self) -> int:
@@ -109,6 +119,68 @@ class FMIndex:
         """(4,) int64 — C table entries for 'A','C','G','T' raw chars."""
         return self.c[[ord("A"), ord("C"), ord("G"), ord("T")]].astype(
             np.int64)
+
+    def _full_rank(self) -> np.ndarray:
+        """(n+1, 4) int64 exclusive rank over the BWT ('$' not counted),
+        built at first use and kept."""
+        if self._rank is None:
+            codes = _CODE_LUT[self.bwt]
+            oh = np.zeros((self.length + 1, 4), dtype=np.int64)
+            valid = codes < 4
+            oh[1:][valid, codes[valid]] = 1
+            self._rank = np.cumsum(oh, axis=0)
+        return self._rank
+
+    def occ_access(self, code, loc):
+        """#occurrences of base `code` in bwt[0 .. loc] inclusive (loc = -1
+        reads 0), vectorized over arrays of (code, loc)."""
+        return self._full_rank()[np.asarray(loc) + 1, np.asarray(code)]
+
+    def fmi_aln(self, codes: np.ndarray, k: int = 1, l: Optional[int] = None
+                ) -> Tuple[int, int, int]:
+        """Backward search of `codes` (2-bit, leftmost first) from the
+        interval (k, l), (1, n - 1) by default.  Returns (hits, k, l),
+        hits = 0 when the interval empties; an N (code >= 4) in the query
+        is no hit (undefined in the reference)."""
+        kk = int(k)
+        ll = self.length - 1 if l is None else int(l)
+        c4 = self.c4()
+        for i in range(len(codes) - 1, -1, -1):
+            c = int(codes[i])
+            if c >= 4:
+                return 0, kk, ll
+            kk, ll = (int(c4[c]) + int(self.occ_access(c, kk - 1)) + 1,
+                      int(c4[c]) + int(self.occ_access(c, ll)))
+            if kk > ll:
+                break
+        return (0 if kk > ll else ll - kk + 1), kk, ll
+
+    def sa_access(self, loc):
+        return self.sa[loc]
+
+    def csa_access(self, loc: int) -> int:
+        """SA[loc] by the LF walk to a sampled row, with the reference's
+        '$' early return (the step count) and its bail-out to 0 after 5 *
+        csa_ratio steps.
+
+        The LF step is JAX's `c4[ch] + occ(ch, loc)`, not the reference's
+        `c[ch] + occ(ch, loc) - 1`: that is right only under its unit
+        test's '$'-inclusive C table, and off by one under the production
+        C table, which leaves the final '$' out.  So csa_access(i) ==
+        SA[i] wherever the walk ends on a sampled row, as in JAX."""
+        ratio = self.csa_ratio
+        counter = 0
+        c4 = self.c4()
+        while loc % ratio != 0:
+            ch = self.bwt[loc]
+            if ch == ord("$"):
+                return counter
+            code = int(_CODE_LUT[ch])
+            loc = int(c4[code]) + int(self.occ_access(code, loc))
+            counter += 1
+            if counter > 5 * ratio:
+                return 0
+        return int(self.csa[loc // ratio]) + counter
 
 
 def encode_bytes(raw: np.ndarray) -> np.ndarray:

@@ -1,8 +1,10 @@
 """lchash: precomputed SA intervals for all 4^hlen k-mers (port of
-longreadmapper_tpu/index/lchash.py), built either on the host straight
-from the suffix array (`lc_build_from_sa`, a copy) or on a torch device by
-a batched backward search of every k-mer (`lc_build_device`); the two are
-byte-identical.  K-mer numbering: the first character occupies the
+longreadmapper_tpu/index/lchash.py), built on the host straight from the
+suffix array (`lc_build_from_sa`, a copy), on the host by the reference's
+4^hlen backward searches over the FM-index's full rank table
+(`lc_build_host`, a copy, the build the others are held to), or on a
+torch device by a batched backward search of every k-mer
+(`lc_build_device`); the three are byte-identical.  K-mer numbering: the first character occupies the
 most-significant 2 bits; absent k-mers store (0, 0)."""
 
 from __future__ import annotations
@@ -11,11 +13,36 @@ import numpy as np
 import torch
 
 from ..ops.rank import backward_step
+from .fmi import FMIndex
 
 # k-mers a batch of the device build: hlen 14 (4^14 k-mers) in 64
 # batches.  On an H100 (700 W) 2^22 built hlen 14 in 3.60-3.90 s against
 # 6.06-8.20 at 2^20 and 4.06-4.47 at 2^24 and 2^26 (chip_smoke.py phase 4)
 DEVICE_CHUNK = 1 << 22
+
+
+def lc_build_host(fmi: FMIndex, hlen: int) -> np.ndarray:
+    """The reference's lchash build, vectorized over all 4^hlen k-mers:
+    step j consumes bits (id >> 2j) & 3 of every k-mer still alive (k <=
+    l), from (k, l) = (1, n - 1).  Returns (4^hlen, 2) uint64, (0, 0) for
+    absent k-mers."""
+    upper = 1 << (2 * hlen)
+    ids = np.arange(upper, dtype=np.int64)
+    c4 = fmi.c4()
+    rank = fmi._full_rank()
+    k = np.ones(upper, dtype=np.int64)
+    l = np.full(upper, fmi.length - 1, dtype=np.int64)
+    for j in range(hlen):
+        c = (ids >> (2 * j)) & 3
+        active = k <= l
+        # occ(c, k - 1) = rank[k]; fmi_aln's step, JAX's expression
+        k_new = c4[c] + rank[np.maximum(k, 1) - 1 + 1, c] + 1
+        l_new = c4[c] + rank[l + 1, c]
+        k = np.where(active, k_new, k)
+        l = np.where(active, l_new, l)
+    absent = k > l
+    out = np.stack([np.where(absent, 0, k), np.where(absent, 0, l)], axis=1)
+    return out.astype(np.uint64)
 
 
 def lc_build_from_sa(sa: np.ndarray, cat_codes: np.ndarray, hlen: int

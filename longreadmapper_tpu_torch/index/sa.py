@@ -6,7 +6,8 @@
 a RAM budget is given and the in-RAM build would pass it, by the blocked
 external-memory build (index/sa_external.py).  A failed build raises with
 g++'s message; there is no slower fallback.  `sa_build_device` is the
-card-side prefix-doubling build (JAX `sa_build_xla`)."""
+card-side prefix-doubling build (JAX `sa_build_xla`); `sa_load` reads a
+`.sa5` whole."""
 
 from __future__ import annotations
 
@@ -58,6 +59,11 @@ def sa_build(prefix: str, ram_use: int = 0, log=None) -> np.ndarray:
     sa = suffix_array(text)
     write_sa5(sa, prefix + ".sa5")
     return sa
+
+
+def sa_load(prefix: str) -> np.ndarray:
+    """Load `<prefix>.sa5` whole (the reference's alnmain.c:242-252)."""
+    return read_sa5(prefix + ".sa5")
 
 
 def sa_build_device(codes: np.ndarray,

@@ -6,6 +6,8 @@ per read-length bucket) and the host post-processing (CIGAR decode + SAM).
 A chunk part whose reads all have one length ships as raw ASCII and is
 encoded on the device (pipeline.raw_map_step, the JAX mapper's raw
 variant); ragged parts and every retry tier are encoded on the host.
+`map_stream` yields each chunk's MapRecords, `map_stream_sam` its SAM
+text, both through one depth-3 submit/collect queue.
 
 Under a ('data', 'model') mesh (parallel/) the mapper is one rank of ONE
 logical mapper: chunks are GLOBAL batches, each rank maps its own rows of
@@ -539,16 +541,25 @@ class TorchMapper:
         self.phase_s["assemble"] += time.perf_counter() - t1
         return "".join(text), total, valid
 
-    def map_stream_sam(self, chunk_iter):
-        """SAM text per chunk, (sam_text, n_records, n_valid), with a
-        depth-3 submit/collect queue."""
+    def _stream(self, chunk_iter, collect):
+        """collect(pending) per chunk, in order, with a depth-3
+        submit/collect queue: each chunk's D2H copy, queued by
+        submit_chunk, lands while the next chunks' steps run."""
         queue = deque()
         for chunk in chunk_iter:
             queue.append(self.submit_chunk(chunk))
             if len(queue) > 2:
-                yield self.collect_chunk_sam(queue.popleft())
+                yield collect(queue.popleft())
         while queue:
-            yield self.collect_chunk_sam(queue.popleft())
+            yield collect(queue.popleft())
+
+    def map_stream(self, chunk_iter):
+        """List[MapRecord] per chunk of an iterator of read chunks."""
+        return self._stream(chunk_iter, self.collect_chunk)
+
+    def map_stream_sam(self, chunk_iter):
+        """SAM text per chunk, (sam_text, n_records, n_valid)."""
+        return self._stream(chunk_iter, self.collect_chunk_sam)
 
     _COMP = bytes.maketrans(b"ACGTacgt", b"TGCATGCA")
 

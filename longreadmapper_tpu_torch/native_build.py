@@ -1,6 +1,7 @@
 """Build and load the port's native code: the hand-written CUDA kernels and
-the host code of the index build and the aligner (the suffix-array build,
-the external build's merge, the affine traceback).
+the host code of the index build and the aligners (the suffix-array build,
+the external build's merge, the affine traceback, the banded unit-cost
+aligner and the Myers edit distance).
 
 Each source of `SOURCES` in `csrc/` is compiled by its compiler (nvcc for
 sm_90a for the kernels, g++ for the host code) into a shared library with
@@ -54,6 +55,8 @@ SOURCES = {
     "sais": ("sais.cpp", _gxx, None),
     "samerge": ("samerge.cpp", _gxx, None),
     "affine": ("affine.cpp", _gxx, None),
+    "align": ("align.cpp", _gxx, None),
+    "myers": ("myers.cpp", _gxx, None),
 }
 
 

@@ -4,7 +4,8 @@ device read encode, the forced pos64 and slim layouts, the vote-overflow
 tier (bit 0: reads inside a tandem repeat overflow the compact vote
 slots) and the gact saturation tier (bit 1, forced on a submitted chunk
 as tests/test_torch_long.py forces it on the CPU); and, off the map path,
-the card-side suffix-array build and the affine scorer.  Every SAM is
+the card-side suffix-array build and the affine scorer; and map_stream
+against map_stream_sam.  Every SAM is
 byte-identical between the devices and every CIGAR is checked against the
 genome.
 
@@ -269,3 +270,27 @@ def test_banded_sw_affine_card_matches_cpu(B, L, W, band):
         score, span, _ = affine_align(q[b], t[b], W)
         assert (sc[b], ei[b], ej[b]) == ((score, span[1], span[3])
                                          if score else (0, 0, 0)), b
+
+
+@pytest.mark.cuda
+def test_map_stream_card_matches_sam_and_cpu(tmp_path):
+    """map_stream on the card: its records, chunk by chunk (3 chunks and a
+    ragged 4th, so the depth-3 queue fills and drains), spell the SAM of
+    map_stream_sam on the card, and both equal the CPU port's."""
+    _card()
+    genome = _genome(12, 100000)
+    fa = _index(tmp_path, genome, 9)
+    params = Params(hlen=9)
+    reads = _reads(13, genome, 100, 600, 0.03)
+    chunks = [reads[s:s + 32] for s in range(0, len(reads), 32)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        idx, meta, mta = load_device_index(fa, dev, verbose=False)
+        tm = TorchMapper(idx, meta, mta, params, chunk_b=32, device=dev)
+        recs = [[r.to_sam() for r in c] for c in tm.map_stream(iter(chunks))]
+        sam = [t for t, _, _ in tm.map_stream_sam(iter(chunks))]
+        assert [len(c) for c in recs] == [32, 32, 32, 4]
+        assert ["".join(c) for c in recs] == sam
+        out[dev] = sam
+    assert out["cuda"] == out["cpu"]
+    _check_records("".join(out["cuda"]), genome, 100, 97)

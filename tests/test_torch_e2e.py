@@ -91,6 +91,32 @@ def test_torch_sam_matches_tpu_mapper(pipe):
                                                      jm.overflow_reads)
 
 
+def test_torch_map_stream_matches_tpu_mapper(pipe):
+    """map_stream yields each chunk's MapRecords: field for field JAX's,
+    chunk by chunk (4 chunks, so the depth-3 queue fills and drains), and
+    the same records as map_stream_sam's text."""
+    from dataclasses import astuple
+    rng = np.random.default_rng(45)
+    reads = _fqreads(
+        sample_reads(rng, pipe["chrA"], 24, 200, error_rate=0.04)
+        + sample_reads(rng, pipe["chrB"], 12, 140, error_rate=0.02)
+        + [(f"junk{i}", "".join("ACGT"[c] for c in rng.integers(0, 4, 150)),
+            None, 0) for i in range(4)])
+    chunks = [reads[s:s + 12] for s in range(0, len(reads), 12)]
+    jm = TPUMapper(pipe["idx"], pipe["meta"], pipe["mta"], pipe["params"],
+                   chunk_b=12)
+    tm = TorchMapper(pipe["tidx"], pipe["tmeta"], pipe["mta"],
+                     pipe["params"], chunk_b=12, device="cpu")
+    want = [[astuple(r) for r in c] for c in jm.map_stream(iter(chunks))]
+    got = [[astuple(r) for r in c] for c in tm.map_stream(iter(chunks))]
+    assert [len(c) for c in got] == [12, 12, 12, 4]
+    assert got == want
+    assert sum(r[-1] for c in got for r in c) >= 32
+    sam = "".join(t for t, _, _ in tm.map_stream_sam(iter(chunks)))
+    recs = [r for c in tm.map_stream(iter(chunks)) for r in c]
+    assert sam == "".join(r.to_sam() for r in recs)
+
+
 def test_torch_sam_matches_tpu_mapper_retry_tier(tmp_path):
     """Reads inside a tandem repeat overflow the compact vote slots: both
     mappers re-run them through the exact-slots tier, identically."""

@@ -5,7 +5,8 @@ indexes a genome (the lchash by the device build, on the CPU) and maps
 reads through the port's CLI in the full and the slim layout; each SAM
 equals the SAM of the JAX package's TPUMapper (through the JAX CLI) in
 this process; so does the part file of `cli mapdist` at world 1, and
-`cli warmup` runs.  The same process indexes a copy of the genome with
+`cli warmup` runs, and so do the host tools (fmi_aln, lc_build_host,
+native.myers_align).  The same process indexes a copy of the genome with
 `--ram-gb` (the external suffix-array build and its native merge), whose
 artifacts equal the in-RAM build's.
 The host suffix-array build fails loudly, with g++'s message, when its
@@ -67,7 +68,8 @@ def test_port_sources_import_no_jax_package():
     rel = {os.path.relpath(p, REPO) for p in files}
     assert {"longreadmapper_tpu_torch/index/sa.py",
             "longreadmapper_tpu_torch/index/sa_external.py",
-            "longreadmapper_tpu_torch/ops/affine.py"} <= rel
+            "longreadmapper_tpu_torch/ops/affine.py",
+            "longreadmapper_tpu_torch/native.py"} <= rel
     bad = {}
     for path in files:
         with open(path) as f:
@@ -109,6 +111,18 @@ with open("dist.sam.part0") as f:
     sys.stdout.write(f.read())
 assert cli.main(["warmup", sys.argv[1], "--lengths", "1000", "--chunk-b",
                  "8", "--device", "cpu", "--quiet"]) == 0
+# the host tools: FM-index queries, the host lchash build, the aligners
+import numpy as np
+from longreadmapper_tpu_torch import native
+from longreadmapper_tpu_torch.formats.lch import read_lch
+from longreadmapper_tpu_torch.index.fmi import FMIndex, encode_bytes
+from longreadmapper_tpu_torch.index.lchash import lc_build_host
+fmi = FMIndex.read(sys.argv[1] + ".cat")
+cat = encode_bytes(np.fromfile(sys.argv[1] + ".cat", np.uint8))
+assert fmi.fmi_aln(cat[500:530])[0] >= 1
+hlen, kl = read_lch(sys.argv[1] + ".cat.lch")
+assert np.array_equal(lc_build_host(fmi, hlen), kl)
+assert native.myers_align(cat[1000:1100], cat, "HW")[:3] == (0, 1000, 1100)
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("longreadmapper_tpu", "jax", "jaxlib")]
 assert not loaded, loaded
