@@ -13,9 +13,10 @@ FM-index queries, `TorchMapper.map_stream`, the Myers aligners).
 
 Phases (each raises on failure; nothing is caught):
   1. device  — requires CUDA; prints the card's name and power limit
-  2. build   — nvcc builds csrc/band_dp.cu and csrc/band_scores.cu for
-               sm_90a and g++ the host code (the suffix-array build
-               csrc/sais.cpp, the external build's merge csrc/samerge.cpp,
+  2. build   — nvcc builds csrc/band_dp.cu, csrc/band_scores.cu and
+               csrc/walk.cu for sm_90a and g++ the host code (the
+               suffix-array build csrc/sais.cpp, the external build's
+               merge csrc/samerge.cpp,
                the affine traceback csrc/affine.cpp, the banded aligner
                csrc/align.cpp, the Myers distance csrc/myers.cpp), from
                this checkout,
@@ -37,7 +38,15 @@ Phases (each raises on failure; nothing is caught):
                tiles in the walk's groups against single-tile launches,
                its checkpoints at each C (the card's choice,
                ops/band_scores.cluster_ctas, beside C = 1), and the 10 kb
-               resident pass
+               resident pass; then the walks, each bit-equal to its plain
+               walk (runs and the saturated flag): walk_c on band_dp's
+               words at the 1 kb main shape and on band_dp_wide's at the
+               10 kb resident shape (int32 entries), and on random words;
+               gact_walk over every tile group of the 50 kb pass at band
+               5120 and of the 10 kb retry at band 2176, and on a weave
+               that saturates its buffer at scale 1; CUDA-event medians
+               of kernel and plain walk, the longest lane's iterations and
+               the kernel's ns an iteration
   4. map     — a 4 Mb single-contig genome and 16384 1 kb reads (3%
                substitutions, both strands, planted positions), all made
                from --seed; `cli index` (the lchash built on the card, held
@@ -47,7 +56,8 @@ Phases (each raises on failure; nothing is caught):
                placement, that every CIGAR consumes its read and spells its
                ED against the genome, that every chunk was encoded on the
                card (raw bytes in), and that the main path went through
-               the kernel and never through a plain version
+               the kernels (the DP and the walk) and never through a plain
+               version, with no walk host sync
   5. cpu     — `cli map --device cpu` (plain versions, in subprocesses
                that run beside phases 6 and 7 and are checked after them)
                and `--device cuda` give byte-identical SAM, both through
@@ -62,8 +72,8 @@ Phases (each raises on failure; nothing is caught):
                through `cli map --device cuda --chunk-b 2048`; checks as
                phase 4 plus the bucket configs, the bit-2 retries and the
                long-read kernels' launches (at 50 kb, fewer multi-tile
-               launches a gact pass than its 98 tiles); then per-stage
-               times
+               launches a gact pass than its 98 tiles; the walk kernels,
+               no plain walk, no walk host sync); then per-stage times
   8. layouts — the phase-4 reads (16384 1 kb, and phase 5's 10 kb and 50
                kb reads) in the slim layout through `cli map --slim-index`
                (served by deriving from the full cache) and in every layout
@@ -115,11 +125,15 @@ Phases (each raises on failure; nothing is caught):
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that the kernels'
 JSON record: per kernel its main-path launches, its largest |diff| against
-the plain version, its time, the plain version's, and the bound (the
-larger of its bytes at 3.35 TB/s and its int32 operations, INT_OPS_CELL a
-cell, at INT32_OPS_S; library_ms null: no PyTorch call computes a banded
-NW DP).  Exits non-zero, printing no result, when CUDA is unavailable
-or the port's package is not beside this file.
+the plain version, its time, the plain version's, and the bound (for a
+DP the larger of its bytes at 3.35 TB/s and its int32 operations,
+INT_OPS_CELL a cell, at INT32_OPS_S; for a walk the words it gathers,
+WALK_WORD_BYTES a lane-iteration, and its entries, at 3.35 TB/s;
+library_ms null: no PyTorch call computes a banded NW DP or its walk).
+Phases 4, 7, 10 and 11 check on each map that the walks launched their
+kernels, called no plain walk on the card and made no walk host sync.
+Exits non-zero, printing no result, when CUDA is unavailable or the
+port's package is not beside this file.
 """
 
 from __future__ import annotations
@@ -156,6 +170,16 @@ HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 132 * 64 * 1.98e9
 INT_OPS_CELL = 12
 SCORES_1KB = (128, 1024, 102, 256)             # wavefront_pallas.py:6-8
+# the walks: the column walk at the 1 kb main shape (int16 entries) and at
+# the 10 kb resident shape (int32), the gact walk over every group of the
+# 50 kb pass at band 5120 and of the 10 kb retry at 2176 (PASS_SHAPES), on
+# reads with make_long_reads' indel share; a weave whose run buffer
+# saturates at scale 1 (B, L, T, W, band, C: C bases inserted at every
+# even tile start, C deleted at every odd one); walk_c on random words
+WALK_INDEL = 0.01
+WALK_SATURATE = (40, 8192, 512, 64, 256, 48)
+WALK_RANDOM = (2048, 1024, 102, 256)
+WALK_WORD_BYTES = 12               # current, bitmap, target word a step
 SCORES_SHAPES = (SCORES_1KB, (40, 4096, 2508, 5120))
 N_READS = 16384                                # phase 4: 8 chunks of 2048
 N_CPU_READS = 256                              # phase 5, 1 kb reads
@@ -221,9 +245,10 @@ def phase_build():
                 log(f"[2 build]   {kernel}: {line.strip()}")
 
 
-def dp_inputs(rng, B: int, L: int):
+def dp_inputs(rng, B: int, L: int, indel: float = 0.0):
     """Reads mutated from seeded targets (3% substitutions, a few 1-base
-    indels, ragged ends), plus all-pad rows; as CUDA tensors."""
+    indels, or a share `indel` of the bases when given, ragged ends), plus
+    all-pad rows; as CUDA tensors."""
     import numpy as np
     import torch
     t = rng.integers(0, 4, (B, L)).astype(np.int8)
@@ -233,7 +258,8 @@ def dp_inputs(rng, B: int, L: int):
         m = rng.random(L) < 0.03
         s[m] = (s[m] + 1 + rng.integers(0, 3, int(m.sum()))) % 4
         s = list(s)
-        for _ in range(int(rng.integers(0, 4))):
+        for _ in range(int(rng.binomial(L, indel)) if indel
+                       else int(rng.integers(0, 4))):
             p = int(rng.integers(1, len(s) - 1))
             if rng.random() < 0.5:
                 del s[p]
@@ -364,7 +390,8 @@ def phase_kernel(seed: int) -> dict:
         f"(cudaOccupancyMaxActiveClusters): {json.dumps(resident)}")
     res = {k: dict(err=0, ms=None, plain_ms=None, bound_ms=None,
                    bound_by=None)
-           for k in ("band_dp", "band_dp_wide", "band_scores")}
+           for k in ("band_dp", "band_dp_wide", "band_scores", "walk_c",
+                     "gact_walk")}
 
     def note(kernel, where, ms, plain_ms, bnd=None):
         """Log a kernel's time; with its bound, it is the kernels line's."""
@@ -548,7 +575,189 @@ def phase_kernel(seed: int) -> dict:
             bnd = bound(B * L * band, 2 * B * L + 2 * (L + 1) * B * band)
             log(f"[3 kernel] band_scores {where} bound {bnd[0]} ms by "
                 f"{bnd[1]} ({bnd[0] / ms:.4f} of it reached)")
+    phase_walks(rng, res)
     return res
+
+
+def walk_stats(runs, B: int) -> tuple:
+    """(lane-iterations, the longest lane's iterations, the block's
+    iterations) of a walk's runs: an iteration of a live lane writes at
+    least one entry that is not a pad."""
+    live = ((runs.reshape(B, -1, 2) & 3) != 3).any(dim=2)
+    return (int(live.sum()), int(live.sum(dim=1).max()),
+            int(live.any(dim=0).sum()))
+
+
+def walk_bound(lane_iters: int, runs):
+    """(bound_ms, "bytes"): the words the walk must gather (WALK_WORD_BYTES
+    a lane-iteration) and its entries written once, at HBM_BYTES_S."""
+    nbytes = lane_iters * WALK_WORD_BYTES + runs.numel() * runs.element_size()
+    return nbytes / HBM_BYTES_S * 1e3, "bytes"
+
+
+def gact_walk_ms(fn, q, t, ckpt, lens, T, W, band, scale, group):
+    """(runs, saturated, ms): one call of gact_traceback_c or its plain
+    version with a CUDA event at each mark; ms sums each group's span from
+    its rematerialized words ("dirs") to the end of its walk ("walk")."""
+    import torch
+    evs = []
+
+    def mark(stage):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        evs.append(e)
+
+    runs, sat = fn(q, t, ckpt, lens, T, W, band, scale, group, mark)
+    torch.cuda.synchronize()
+    return runs, sat, sum(a.elapsed_time(b)
+                          for a, b in zip(evs[::2], evs[1::2]))
+
+
+def weave_inputs(B: int, L: int, T: int, C: int, rng):
+    """The saturation weave of tests/test_torch_gact.py: C random bases
+    inserted at every even tile start and C deleted at every odd one, so
+    the path pays about C indel rows in every tile; as CUDA tensors."""
+    import numpy as np
+    import torch
+    qs = rng.integers(0, 4, 2 * L).astype(np.int8)
+    parts, i = [], 0
+    for k in range(L // T):
+        if k % 2 == 0:
+            parts.append(rng.integers(0, 4, C).astype(np.int8))
+            parts.append(qs[i:i + T - C])
+            i += T - C
+        else:
+            i += C
+            parts.append(qs[i:i + T])
+            i += T
+    q = np.broadcast_to(qs[:L], (B, L)).copy()
+    t = np.broadcast_to(np.concatenate(parts)[:L], (B, L)).copy()
+    return torch.from_numpy(q).cuda(), torch.from_numpy(t).cuda()
+
+
+def walk_lens(q, wcol, W: int):
+    """Each read's length (its non-pad query codes), 0 where the DP's
+    distance reaches W: the step walks no such lane."""
+    import torch
+    lens = (q != 4).sum(dim=1).to(torch.int32)
+    ed = wcol[lens.long(), torch.arange(q.shape[0], device=q.device)]
+    return torch.where(ed.to(torch.int32) < W, lens, 0)
+
+
+def phase_walks(rng, res: dict) -> None:
+    """Phase 3, the walks: walk_c and gact_walk bit-equal to their plain
+    walks (same runs, same saturated flag) on the DP kernels' words at the
+    main path's shapes, their CUDA-event medians beside the plain walks',
+    the longest lane's iterations and the kernel's ns an iteration."""
+    import numpy as np
+    import torch
+    from longreadmapper_tpu_torch.ops.band_dp import banded_nw_dirs
+    from longreadmapper_tpu_torch.ops.band_scores import band_checkpoints
+    from longreadmapper_tpu_torch.ops.gact import (gact_group_tiles,
+                                                   gact_traceback_c,
+                                                   gact_traceback_c_plain)
+    from longreadmapper_tpu_torch.ops.traceback import (
+        device_traceback_c, device_traceback_c_plain)
+
+    def timing(kernel, where, ms, plain_ms, runs, B, lane_iters, longest,
+               iters, main):
+        if not iters:
+            raise AssertionError(f"{kernel} {where}: no lane walked")
+        bnd = walk_bound(lane_iters, runs)
+        log(f"[3 kernel] {kernel} {where} median: kernel {ms} ms, plain "
+            f"PyTorch {plain_ms} ms ({plain_ms / ms}x); {lane_iters} "
+            f"lane-iterations, the longest lane {longest}, the block "
+            f"{iters}: {ms * 1e6 / iters} ns an iteration; bound "
+            f"{bnd[0]} ms by bytes ({bnd[0] / ms:.4f} of it reached)")
+        if main:
+            res[kernel].update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                               bound_by=bnd[1])
+
+    # walk_c on band_dp's words (1 kb) and band_dp_wide's (10 kb resident)
+    for (B, L, W, band), indel, main in ((MAIN_SHAPE, 0.0, True),
+                                         (WIDE_MAIN, WALK_INDEL, False)):
+        dt = torch.int16 if max(L, band - W) < 8192 else torch.int32
+        q, t = dp_inputs(rng, B, L, indel)
+        v, wcol, nm = banded_nw_dirs(q, t, W, band)
+        lens = walk_lens(q, wcol, W)
+        where = (f"B={B} L={L} W={W} band={band} {str(dt)[6:]} entries, "
+                 f"{int((lens > 0).sum())} lanes walked")
+        n0 = device_traceback_c.launches
+        got = device_traceback_c(v, lens, L, W, nm, dt)
+        assert device_traceback_c.launches == n0 + 1
+        want = device_traceback_c_plain(v, lens, L, W, nm, dt)
+        res["walk_c"]["err"] = max(res["walk_c"]["err"], check_equal(
+            "walk_c", where, [got], [want]))
+        lane_iters, longest, _ = walk_stats(got, B)
+        ms = cuda_ms(lambda: device_traceback_c(v, lens, L, W, nm, dt), 20)
+        plain_ms = cuda_ms(
+            lambda: device_traceback_c_plain(v, lens, L, W, nm, dt), 2)
+        timing("walk_c", where, ms, plain_ms, got, B, lane_iters, longest,
+               longest, main)
+        del v, nm, got, want
+
+    # walk_c on random words: every lane to its bound, every clamp
+    B, L, W, band = WALK_RANDOM
+    G = L // 16
+
+    def words(*shape):
+        return torch.from_numpy(rng.integers(
+            -2**31, 2**31, shape, dtype=np.int64).astype(np.int32)).cuda()
+
+    v, nm = words(G, B, band), words(-(-G // 32), B, band)
+    lens = torch.from_numpy(rng.integers(-3, L + 40, B).astype(
+        np.int32)).cuda()
+    for dt in (torch.int16, torch.int32):
+        res["walk_c"]["err"] = max(res["walk_c"]["err"], check_equal(
+            "walk_c", f"random words B={B} G={G} band={band} {dt}",
+            [device_traceback_c(v, lens, L, W, nm, dt)],
+            [device_traceback_c_plain(v, lens, L, W, nm, dt)]))
+    del v, nm
+
+    # gact_walk over every group of a pass, entered from band_scores's
+    # checkpoints, and on the weave that saturates its buffer
+    T = 512
+    B, L, T2, W, band, C = WALK_SATURATE
+    q, t = weave_inputs(B, L, T2, C, rng)
+    cases = [(PASS_SHAPES[0], T, 1, True, None), (PASS_SHAPES[2], T, 1,
+                                                   False, None),
+             ((B, L, W, band), T2, 1, False, (q, t))]
+    for (B, L, W, band), T, scale, main, qt in cases:
+        q, t = qt or dp_inputs(rng, B, L, WALK_INDEL)
+        ckpt, wcol = band_checkpoints(q, t, T, W, band)
+        # the weave's distance passes W (C indels a tile): walk it whole
+        lens = (walk_lens(q, wcol, W) if qt is None else
+                torch.full((B,), L, dtype=torch.int32, device=q.device))
+        group = gact_group_tiles(B, L, T, band, DIRS_BUDGET)
+        where = (f"B={B} L={L} W={W} band={band} T={T} in groups of "
+                 f"{group}, {int((lens > 0).sum())} lanes walked")
+        n0 = gact_traceback_c.launches
+        got, sat, _ = gact_walk_ms(gact_traceback_c, q, t, ckpt, lens, T, W,
+                                   band, scale, group)
+        assert gact_traceback_c.launches == n0 + -(-(L // T) // group)
+        want, sat_p, _ = gact_walk_ms(gact_traceback_c_plain, q, t, ckpt,
+                                      lens, T, W, band, scale, group)
+        if sat.dtype != torch.bool or sat.device.type != "cuda" or bool(
+                sat) != bool(sat_p):
+            raise AssertionError(f"gact_walk saturated {sat} against the "
+                                 f"plain walk's {sat_p} at {where}")
+        res["gact_walk"]["err"] = max(res["gact_walk"]["err"], check_equal(
+            "gact_walk", where + f", saturated {bool(sat)}", [got], [want]))
+        if qt is not None:
+            if not bool(sat):
+                raise AssertionError("the weave did not saturate the gact "
+                                     "walk's buffer at scale 1")
+            continue
+        lane_iters, longest, iters = walk_stats(got, B)
+        ms = statistics.median(gact_walk_ms(
+            gact_traceback_c, q, t, ckpt, lens, T, W, band, scale, group)[2]
+            for _ in range(5))
+        plain_ms = statistics.median(gact_walk_ms(
+            gact_traceback_c_plain, q, t, ckpt, lens, T, W, band, scale,
+            group)[2] for _ in range(2))
+        timing("gact_walk", where, ms, plain_ms, got, B, lane_iters, longest,
+               iters, main)
+        del ckpt, got, want
 
 
 def make_data(d: str, seed: int, genome_len: int, n_reads: int,
@@ -717,13 +926,17 @@ def reset_counts():
                                                       banded_nw_dirs)
     from longreadmapper_tpu_torch.ops.band_scores import band_scores
     from longreadmapper_tpu_torch.ops.gact import (gact_forward,
-                                                   gact_traceback_c)
-    from longreadmapper_tpu_torch.ops.traceback import device_traceback_c
+                                                   gact_traceback_c,
+                                                   gact_traceback_c_plain)
+    from longreadmapper_tpu_torch.ops.traceback import (
+        device_traceback_c, device_traceback_c_plain)
     from longreadmapper_tpu_torch.ops.wavefront import (banded_nw_dirs_v,
                                                         banded_nw_scores)
-    for fn in (banded_nw_dirs, band_dp_tiles, band_scores):
+    for fn in (banded_nw_dirs, band_dp_tiles, band_scores,
+               device_traceback_c, gact_traceback_c):
         fn.launches = 0
-    for fn in (banded_nw_dirs_v, banded_nw_scores, gact_forward):
+    for fn in (banded_nw_dirs_v, banded_nw_scores, gact_forward,
+               device_traceback_c_plain, gact_traceback_c_plain):
         fn.cuda_calls = 0
     device_traceback_c.host_syncs = gact_traceback_c.host_syncs = 0
     torch.cuda.synchronize()
@@ -734,6 +947,39 @@ def walk_syncs() -> int:
     from longreadmapper_tpu_torch.ops.gact import gact_traceback_c
     from longreadmapper_tpu_torch.ops.traceback import device_traceback_c
     return device_traceback_c.host_syncs + gact_traceback_c.host_syncs
+
+
+# the walk kernels' launches over the main path's runs (phases 4, 7, 10, 11)
+MAIN_WALKS = {"walk_c": 0, "gact_walk": 0}
+
+
+def walk_checks(need) -> list:
+    """(ok, what) checks of a map run on the card since reset_counts():
+    each walk kernel of `need` launched, no plain walk called on CUDA, no
+    walk host sync.  Adds the run's launches to MAIN_WALKS."""
+    from longreadmapper_tpu_torch.ops.gact import (gact_traceback_c,
+                                                   gact_traceback_c_plain)
+    from longreadmapper_tpu_torch.ops.traceback import (
+        device_traceback_c, device_traceback_c_plain)
+    run = {"walk_c": device_traceback_c.launches,
+           "gact_walk": gact_traceback_c.launches}
+    plain = (device_traceback_c_plain.cuda_calls
+             + gact_traceback_c_plain.cuda_calls)
+    syncs = walk_syncs()
+    for k, v in run.items():
+        MAIN_WALKS[k] += v
+    return [(all(run[k] > 0 for k in need),
+             f"walk kernel launches {json.dumps(run)}: {', '.join(need)} > "
+             "0"),
+            (plain == 0 and syncs == 0,
+             f"plain walk calls on CUDA {plain} == 0, walk host syncs "
+             f"{syncs} == 0")]
+
+
+def as_extra(checks) -> list:
+    """check_map extras of (ok, what) checks."""
+    return [lambda b, r, c, ok=ok, what=what: (ok, what)
+            for ok, what in checks]
 
 
 def phase_lch(fa: str) -> None:
@@ -810,6 +1056,7 @@ def phase_map(d: str, seed: int, n_reads: int, genome_len: int = 4_000_000):
     torch.cuda.synchronize()
     t_map = time.perf_counter() - t0
     launches, plain = banded_nw_dirs.launches, plain_counts()
+    walks = walk_checks(("walk_c",))
     log(f"[4 map] cli map in {t_map} s = {n_reads / t_map} reads/s "
         "end to end (index load included)")
     log(f"[4 map] walk host syncs {walk_syncs()}, peak device memory "
@@ -821,7 +1068,8 @@ def phase_map(d: str, seed: int, n_reads: int, genome_len: int = 4_000_000):
         lambda b, r, c: (plain == 0, f"plain DP calls on CUDA {plain} == 0"),
         lambda b, r, c: (c == (n_chunks, 0), f"chunks (raw-encoded on the "
                                              f"card, host-encoded) {c} == "
-                                             f"({n_chunks}, 0)")])
+                                             f"({n_chunks}, 0)")]
+              + as_extra(walks))
     return fa, fq, pos, g, launches
 
 
@@ -929,6 +1177,10 @@ def phase_long(d: str, fa: str, g, name: str, reads, pos, hi) -> dict:
                   band_scores=band_scores.launches)
     tiles_a_pass = want_cfg["L"] // 512          # MapperConfig.gact_tile
     plain = plain_counts()
+    # 10 kb: the resident first pass walks by walk_c, the full-band retry
+    # by gact_walk; 50 kb: every pass by gact_walk
+    walks = walk_checks(("walk_c", "gact_walk") if want_cfg["path"]
+                        == "resident" else ("gact_walk",))
     n_hi = int(hi.sum())
     log(f"[{tag}] cli map of {n} reads of {read_len} bp in {t_map} s = "
         f"{n / t_map} reads/s, {n * read_len / t_map / 1e6} Mb/s end to end "
@@ -958,7 +1210,7 @@ def phase_long(d: str, fa: str, g, name: str, reads, pos, hi) -> dict:
                                      f"calls on CUDA {plain} == 0"),
         lambda b, r, c: (c is not None and c[0] > 0 and c[1] == 0,
                          f"chunks (raw-encoded on the card, host-encoded) "
-                         f"{c}: all raw")])
+                         f"{c}: all raw")] + as_extra(walks))
     phase_stages(tag, fa, [(nm, s, None) for nm, s in reads], 1)
     return counts
 
@@ -1323,6 +1575,7 @@ def phase_dist(d: str, fa: str, fq: str, n_reads: int, pos, g, long10,
         t_map = time.perf_counter() - t0
         run = dist_launches()
         plain = plain_counts()
+        walks = walk_checks(("walk_c",))
         for k, v in run.items():
             counts[k] += v
         log(f"[{tag}] cli mapdist (world 1, NCCL) of {n_reads} reads in "
@@ -1339,7 +1592,8 @@ def phase_dist(d: str, fa: str, fq: str, n_reads: int, pos, g, long10,
                              f"phase 4's {(ref_valid, n_reads)}"),
             lambda b, r, c: (run["band_dp"] > 0 and plain == 0,
                              f"band_dp launches {run['band_dp']} > 0, plain "
-                             f"DP calls on CUDA {plain} == 0")])
+                             f"DP calls on CUDA {plain} == 0")]
+                  + as_extra(walks))
 
     # the first N_DIST_LONG 10 kb reads: the mesh's full-band first pass
     # takes gact (band_scores, then band_dp_wide in groups of tiles)
@@ -1356,6 +1610,7 @@ def phase_dist(d: str, fa: str, fq: str, n_reads: int, pos, g, long10,
     t_map = time.perf_counter() - t0
     run = dist_launches()
     plain = plain_counts()
+    walks = walk_checks(("gact_walk",))
     for k, v in run.items():
         counts[k] += v
     log(f"[{tag}] cli mapdist (world 1) of {n} reads of 10 kb in {t_map} s "
@@ -1377,7 +1632,7 @@ def phase_dist(d: str, fa: str, fq: str, n_reads: int, pos, g, long10,
         lambda b, r, c: (valid == sum(x[1] in ("0", "16") for x in recs)
                          and total == n,
                          f"global (valid, total) {(valid, total)} counts "
-                         "the part's mapped records")])
+                         "the part's mapped records")] + as_extra(walks))
 
     # the seed vote's cost over ShardedRows (masked gather + all_reduce a
     # table) against the replicated tables, one world-1 group
@@ -1537,6 +1792,7 @@ def phase_tools(d: str, fa: str, fq: str, g, seed: int,
     reset_counts()
     recs, t_stream = run("map_stream")
     launches, plain = banded_nw_dirs.launches, plain_counts()
+    walks = walk_checks(("walk_c",))
     sam, t_sam = run("map_stream_sam")
     log(f"[11 tools] map_stream {len(reads) / t_stream} reads/s, "
         f"map_stream_sam {len(reads) / t_sam} reads/s ({len(reads)} 1 kb "
@@ -1549,7 +1805,7 @@ def phase_tools(d: str, fa: str, fq: str, g, seed: int,
         (launches == ref_launches,
          f"band_dp launches of map_stream {launches} == phase 4's "
          f"{ref_launches}"),
-        (plain == 0, f"plain DP calls on CUDA {plain} == 0")]
+        (plain == 0, f"plain DP calls on CUDA {plain} == 0")] + walks
 
     # the Myers aligners over the card's alignments: the NW distance
     # against the record's reference span, and the HW path in a window
@@ -1674,15 +1930,21 @@ def main(argv=None) -> int:
         done("10 dist")
         launches += phase_tools(d, fa, fq, g, args.seed, launches)
         done("11 tools")
-    launches = dict(band_dp=launches, **counts)
+    launches = dict(band_dp=launches, **counts, **MAIN_WALKS)
     for k, v in dist_counts.items():
         launches[k] += v
     src = {"band_dp": "band_dp.cu", "band_dp_wide": "band_dp.cu",
-           "band_scores": "band_scores.cu"}
+           "band_scores": "band_scores.cu", "walk_c": "walk.cu",
+           "gact_walk": "walk.cu"}
+    # the walks replace XLA loops, not pallas_calls
     replaces = {"band_dp": "longreadmapper_tpu/ops/band_pallas.py:102",
                 "band_dp_wide": "longreadmapper_tpu/ops/band_pallas.py:102",
                 "band_scores":
-                    "longreadmapper_tpu/ops/wavefront_pallas.py:95"}
+                    "longreadmapper_tpu/ops/wavefront_pallas.py:95",
+                "walk_c": "longreadmapper_tpu/ops/traceback.py:73 (an XLA "
+                          "while_loop, not a pallas_call)",
+                "gact_walk": "longreadmapper_tpu/ops/gact.py:276 (an XLA "
+                             "while_loop in a scan, not a pallas_call)"}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
         "source": f"longreadmapper_tpu_torch/csrc/{src[k]}",

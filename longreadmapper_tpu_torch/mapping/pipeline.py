@@ -39,7 +39,10 @@ Align has two branches, chosen per length bucket by MapperConfig.use_gact:
 Long buckets run a narrow first pass (short_W_override / half_band) and
 flag reads whose ed reaches it (overflow bit 2) for the full-band retry.
 
-The column traceback is the port's only walk.
+The column traceback is the port's only walk.  On the card both walks are
+CUDA kernels (csrc/walk.cu: one launch a resident pass, one a gact tile
+group), so the step reads nothing back on the host but the seed vote's
+wide-seed test (_narrow_wide_seeds).
 """
 
 from __future__ import annotations
@@ -549,9 +552,9 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
                                    cfg.mid_dirs_budget))
         mark("gact_walk")
         # a saturated shared run buffer can corrupt any lane's CIGAR: bit 1
-        # sends the chunk to the mapper's saturation tier
-        if saturated:
-            overflow = overflow | 2
+        # sends the chunk to the mapper's saturation tier (a device-side
+        # select: the host reads the flag with the blob)
+        overflow = overflow | torch.where(saturated, 2, 0).to(I32)
     else:
         run_units = device_traceback_c(
             vdirs, lens_tb, L, Wp, nm,

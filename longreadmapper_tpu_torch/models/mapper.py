@@ -182,8 +182,9 @@ class TorchMapper:
         # mapped reads of all ranks, from the mesh's collective counter
         self.valid_global = 0
         # wall-clock seconds per host phase: prepare = read packing,
-        # dispatch = H2D + step (the step syncs the host on the walk),
-        # fetch = waiting for the D2H copies, assemble = SAM building
+        # dispatch = H2D + step (enqueued; the step waits on the device only
+        # at the seed vote's wide-seed test), fetch = waiting for the D2H
+        # copies, assemble = SAM building
         self.phase_s = {"prepare": 0.0, "dispatch": 0.0, "fetch": 0.0,
                         "assemble": 0.0}
 
@@ -268,7 +269,7 @@ class TorchMapper:
         elapsed seconds."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
-            native_build.build(names=("band_dp", "band_scores"))
+            native_build.build(names=("band_dp", "band_scores", "walk"))
         for L in sorted({_bucket_len(int(n)) for n in lengths}):
             cfg = self._step_for(L)
             variants = [(cfg, False)]

@@ -18,17 +18,23 @@ traceback pass — tiles replay newest first, in groups: each group's
                  order.
 
 `gact_forward` here is the plain version; on the card the step calls
-ops/band_scores.band_checkpoints, whose kernel has the same contract.  The
-walk stays eager PyTorch with one host sync per iteration (the JAX
-while_loop's `any(alive)`).
+ops/band_scores.band_checkpoints, whose kernel has the same contract.
+`gact_traceback_c` walks each group in one launch of the hand-written CUDA
+kernel csrc/walk.cu::gact_walk_kernel on CUDA tensors (counted in
+`gact_traceback_c.launches`), right after the group's direction kernel,
+with no host sync; on CPU tensors it runs the plain version
+`gact_traceback_c_plain`, eager PyTorch with one host sync per iteration
+(the JAX while_loop's `any(alive)`, counted in
+`gact_traceback_c.host_syncs`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import native_build
 from .band_dp import banded_nw_dirs_tiles
-from .traceback import OP_PAD, group_below, msb32
+from .traceback import OP_PAD, WALK_FUNCS, group_below, msb32
 from .wavefront import dp_rows, row0
 
 _MASK32 = 0xFFFFFFFF
@@ -75,26 +81,108 @@ def gact_group_tiles(B: int, L: int, T: int, band: int, budget: int) -> int:
     return max(1, min(L // T, budget // tile_bytes))
 
 
-def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
-                     scale: int = 1, group: int = 1):
-    """Column-consuming rematerialized walk.  lens (B,) with dead lanes
-    (unmapped / over-limit) masked to 0 by the caller; `group` tiles are
-    rematerialized at a time (gact_group_tiles).
-
-    Returns (runs (B, gact_runs_cols_c(L, T, W, scale)) int16 entries
-    (count << 2 | op) in reverse path order with pad gaps between tiles,
-    saturated): all lanes share one write pointer that clamps at the last
-    buffer row; `saturated` is True when that row took two or more writes
-    (every lane's runs are then suspect)."""
-    B, L = q.shape
-    K = L // T
-    G = T // 16
+def _check_counts(T: int, W: int, band: int) -> None:
     if T > 8191 or band - W > 8191:
         # the reference's own bound (JAX ops/gact.py:310; ROADMAP.md C):
         # (count << 2) of an int16 entry holds counts < 8192
         raise ValueError(f"gact run counts overflow int16 entries: T={T}, "
                          f"band - W = {band - W} (both must be <= 8191; "
                          "reads past ~80 kb, ROADMAP.md C)")
+
+
+def _for_each_group(q, t, ckpt, T: int, W: int, band: int, group: int,
+                    walk, mark):
+    """Rematerialize the tiles newest first, `group` at a time, and call
+    walk(k_lo, k_hi, vg, nmg) on each group's direction words and bitmaps;
+    mark("dirs") after each group's rematerialization and mark("walk")
+    after its walk, when `mark` is given."""
+    K = q.shape[1] // T
+    k_hi = K - 1
+    while k_hi >= 0:
+        k_lo = max(0, k_hi - group + 1)
+        vg, _, nmg = banded_nw_dirs_tiles(q, t, W, band, ckpt, T, k_lo,
+                                          k_hi - k_lo + 1)
+        if mark:
+            mark("dirs")
+        walk(k_lo, k_hi, vg, nmg)
+        if mark:
+            mark("walk")
+        # free the group before the next one is allocated: two would not
+        # fit the budget
+        del vg, nmg
+        k_hi = k_lo - 1
+
+
+def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
+                     scale: int = 1, group: int = 1, mark=None):
+    """Column-consuming rematerialized walk.  lens (B,) with dead lanes
+    (unmapped / over-limit) masked to 0 by the caller; `group` tiles are
+    rematerialized at a time (gact_group_tiles); `mark` as
+    _for_each_group's.
+
+    Returns (runs (B, gact_runs_cols_c(L, T, W, scale)) int16 entries
+    (count << 2 | op) in reverse path order with pad gaps between tiles,
+    saturated): all lanes share one write pointer that clamps at the last
+    buffer row; `saturated`, a 0-dim bool tensor on the input's device, is
+    True when that row took two or more writes (every lane's runs are then
+    suspect).  On CUDA tensors one launch of gact_walk_kernel a group
+    (raises for what it does not take); on CPU tensors the plain
+    version."""
+    _check_counts(T, W, band)
+    if q.device.type == "cpu":
+        return gact_traceback_c_plain(q, t, ckpt, lens, T, W, band, scale,
+                                      group, mark)
+    B, L = q.shape
+    dev = q.device
+    if lens.device != dev or tuple(lens.shape) != (B,):
+        raise ValueError(f"lens {tuple(lens.shape)} on {lens.device}: (B,) "
+                         f"on {dev}")
+    if 12 * B > 227 * 1024:
+        raise ValueError(f"gact_walk holds 12 bytes a lane in shared "
+                         f"memory: B = {B} does not fit")
+    n_rows = gact_runs_cols_c(L, T, W, scale) // 2
+    buf = torch.full((B, n_rows, 2), OP_PAD, dtype=torch.int16, device=dev)
+    l32 = lens.to(torch.int32)
+    # per lane (i, j, done), then the shared (ptr, nsat)
+    st = torch.cat([l32, l32, (l32 <= 0).to(torch.int32),
+                    torch.zeros(2, dtype=torch.int32, device=dev)])
+    lib = native_build.load("walk", WALK_FUNCS)
+
+    def walk(k_lo, k_hi, vg, nmg):
+        tiles, G = k_hi - k_lo + 1, T // 16
+        if (vg.dtype != torch.int32 or nmg.dtype != torch.int32
+                or tuple(vg.shape) != (tiles, G, B, band)
+                or tuple(nmg.shape) != (tiles, -(-G // 32), B, band)
+                or not (vg.is_contiguous() and nmg.is_contiguous())):
+            raise ValueError(f"gact_walk takes contiguous int32 words "
+                             f"{(tiles, G, B, band)} and bitmaps; got "
+                             f"{tuple(vg.shape)}, {tuple(nmg.shape)}")
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.lrm_gact_walk(vg.data_ptr(), nmg.data_ptr(),
+                                    st.data_ptr(), buf.data_ptr(), B, T, W,
+                                    band, k_lo, k_hi, n_rows, stream)
+        if err != 0:
+            raise RuntimeError(f"gact_walk kernel launch failed: error {err}")
+        gact_traceback_c.launches += 1
+
+    _for_each_group(q, t, ckpt, T, W, band, group, walk, mark)
+    return buf.reshape(B, -1), st[3 * B + 1] >= 2
+
+
+gact_traceback_c.launches = 0
+gact_traceback_c.host_syncs = 0       # the plain version's, on any device
+
+
+def gact_traceback_c_plain(q, t, ckpt, lens, T: int, W: int, band: int,
+                           scale: int = 1, group: int = 1, mark=None):
+    """Plain version of gact_traceback_c: eager PyTorch, one host sync per
+    iteration of each tile's loop."""
+    if q.device.type == "cuda":
+        gact_traceback_c_plain.cuda_calls += 1
+    _check_counts(T, W, band)
+    B, L = q.shape
+    G = T // 16
     dev = q.device
     i64 = torch.int64
     bidx = torch.arange(B, dtype=i64, device=dev)
@@ -105,11 +193,9 @@ def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
     done = i <= 0
     buf = torch.full((n_rows, B, 2), OP_PAD, dtype=torch.int16, device=dev)
     ptr = nsat = syncs = 0
-    k_hi = K - 1
-    while k_hi >= 0:
-        k_lo = max(0, k_hi - group + 1)
-        vg, _, nmg = banded_nw_dirs_tiles(q, t, W, band, ckpt, T, k_lo,
-                                          k_hi - k_lo + 1)
+
+    def walk(k_lo, k_hi, vg, nmg):
+        nonlocal i, j, done, ptr, nsat, syncs
         for k in range(k_hi, k_lo - 1, -1):
             lo = k * T
             Vf = vg[k - k_lo].reshape(-1)
@@ -174,12 +260,11 @@ def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
                 ptr = min(ptr + 1, n_rows - 1)
                 i, j = i3, j4
                 it += 1
-        # free the group (and the views of it) before the next one is
-        # allocated: two would not fit the budget
-        del vg, nmg, Vf, nmf
-        k_hi = k_lo - 1
+
+    _for_each_group(q, t, ckpt, T, W, band, group, walk, mark)
     gact_traceback_c.host_syncs += syncs
-    return buf.permute(1, 0, 2).reshape(B, -1), nsat >= 2
+    return (buf.permute(1, 0, 2).reshape(B, -1),
+            torch.tensor(nsat >= 2, device=dev))
 
 
-gact_traceback_c.host_syncs = 0
+gact_traceback_c_plain.cuda_calls = 0

@@ -9,17 +9,36 @@ non-M pair) finds that group without touching every word; one iteration
 consumes a whole M-run plus one indel, so iterations = #indels + 2.
 
 Emits (count << 2) | op entries (ops 0=M 1=I 2=D, pad 3) in reverse path
-order.  torch has no unsigned 32-bit logical shifts, clz or popcount, so
-words are widened to int64 and masked to 32 bits, and the highest set bit
-is found by an exact binary search.
+order.
+
+`device_traceback_c` launches the hand-written CUDA kernel
+csrc/walk.cu::walk_c_kernel (one thread a lane, the whole walk in one
+launch, no host sync; counted in `device_traceback_c.launches`) on a CUDA
+tensor, and runs the plain version `device_traceback_c_plain` on a CPU
+tensor.  The plain version is eager PyTorch: torch has no unsigned 32-bit
+logical shifts, clz or popcount, so words are widened to int64 and masked
+to 32 bits, and the highest set bit is found by an exact binary search; it
+reads the loop's `any(~done)` on the host every iteration (counted in
+`device_traceback_c.host_syncs`).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from .. import native_build
 
 OP_M, OP_I, OP_D, OP_PAD = 0, 1, 2, 3
 _MASK32 = 0xFFFFFFFF
+
+# the C entries of csrc/walk.cu (the gact walk's wrapper is ops/gact.py's)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+WALK_FUNCS = {
+    "lrm_walk_c": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "lrm_gact_walk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+}
 
 
 def traceback_c_iters(L: int, W: int) -> int:
@@ -54,16 +73,67 @@ def group_below(nmf, bmidx, g_cur):
     return g2
 
 
+def _check_entry_bits(L: int, W: int, band: int, entry_dtype) -> None:
+    # count field = entry bits - 2: mrun <= L and the row-0 D-run < band - W
+    if max(L, band - W) >= (1 << (torch.iinfo(entry_dtype).bits - 3)):
+        raise ValueError(f"run counts up to max(L, band - W) = "
+                         f"{max(L, band - W)} overflow {entry_dtype} entries")
+
+
 def device_traceback_c(vdirs, lens, L: int, W: int, nm,
                        entry_dtype=torch.int16):
     """vdirs (G, B, band) int32 direction words, lens (B,) (0 = skip the
     lane), nm (ceil(G/32), B, band) int32 group bitmap.
 
-    Returns runs (B, 2 * traceback_c_iters(L, W)) of `entry_dtype`.  The
-    loop stops early once every lane is done: one host sync per
-    iteration (the JAX while_loop's `any(~done)` condition)."""
+    Returns runs (B, 2 * traceback_c_iters(L, W)) of `entry_dtype`: one
+    launch of csrc/walk.cu::walk_c_kernel on CUDA tensors (raises for what
+    it does not take), the plain version on CPU tensors."""
+    if vdirs.device.type == "cpu":
+        return device_traceback_c_plain(vdirs, lens, L, W, nm, entry_dtype)
     G, B, band = vdirs.shape
-    assert max(L, band - W) < (1 << (torch.iinfo(entry_dtype).bits - 3))
+    _check_entry_bits(L, W, band, entry_dtype)
+    if entry_dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"run entries are int16 or int32, not {entry_dtype}")
+    if vdirs.dtype != torch.int32 or nm.dtype != torch.int32:
+        raise TypeError(f"vdirs and nm must be int32, got {vdirs.dtype}, "
+                        f"{nm.dtype}")
+    if nm.device != vdirs.device or lens.device != vdirs.device:
+        raise ValueError(f"vdirs on {vdirs.device}, nm on {nm.device}, lens "
+                         f"on {lens.device}: one CUDA device")
+    if (tuple(nm.shape) != (-(-G // 32), B, band) or tuple(lens.shape) != (B,)
+            or not (vdirs.is_contiguous() and nm.is_contiguous())):
+        raise ValueError(f"walk_c takes contiguous vdirs (G, B, band), nm "
+                         f"(ceil(G/32), B, band), lens (B,); got "
+                         f"{tuple(vdirs.shape)}, {tuple(nm.shape)}, "
+                         f"{tuple(lens.shape)}")
+    n_iter = traceback_c_iters(L, W)
+    runs = torch.full((B, 2 * n_iter), OP_PAD, dtype=entry_dtype,
+                      device=vdirs.device)
+    lens32 = lens.to(torch.int32).contiguous()
+    lib = native_build.load("walk", WALK_FUNCS)
+    with torch.cuda.device(vdirs.device):
+        stream = torch.cuda.current_stream(vdirs.device).cuda_stream
+        err = lib.lrm_walk_c(vdirs.data_ptr(), nm.data_ptr(),
+                             lens32.data_ptr(), G, B, band, W, n_iter,
+                             runs.data_ptr(), runs.element_size(), stream)
+    if err != 0:
+        raise RuntimeError(f"walk_c kernel launch failed: error {err}")
+    device_traceback_c.launches += 1
+    return runs
+
+
+device_traceback_c.launches = 0
+device_traceback_c.host_syncs = 0     # the plain version's, on any device
+
+def device_traceback_c_plain(vdirs, lens, L: int, W: int, nm,
+                             entry_dtype=torch.int16):
+    """Plain version of device_traceback_c.  The loop stops early once
+    every lane is done: one host sync per iteration (the JAX while_loop's
+    `any(~done)` condition)."""
+    if vdirs.device.type == "cuda":
+        device_traceback_c_plain.cuda_calls += 1
+    G, B, band = vdirs.shape
+    _check_entry_bits(L, W, band, entry_dtype)
     dev = vdirs.device
     i64 = torch.int64
     Vf = vdirs.reshape(-1)
@@ -124,4 +194,4 @@ def device_traceback_c(vdirs, lens, L: int, W: int, nm,
     return buf.permute(1, 0, 2).reshape(B, -1)
 
 
-device_traceback_c.host_syncs = 0
+device_traceback_c_plain.cuda_calls = 0

@@ -2,7 +2,9 @@
 on CUDA, a `torch.profiler` trace of the device kernels.  The stages are
 those of the branch the bucket takes (resident: band_dp, walk; gact:
 gact_forward, gact_walk), after `encode` where the chunk ships raw bytes
-(pipeline.raw_map_step).
+(pipeline.raw_map_step).  On CUDA `walk` is one launch of the column-walk
+kernel and `gact_walk` the tile groups' direction kernel and walk kernel,
+one launch each a group (csrc/band_dp.cu, csrc/walk.cu).
 
 Each read chunk runs through `map_step` twice: once with a device sync
 after every stage (host clock, so a stage's time includes its launches)

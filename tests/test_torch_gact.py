@@ -59,8 +59,10 @@ def _both(q, t, lens, T, W, band, scale=1, group=1):
     ck, wc = tg.gact_forward(tq, tt, T, W, band)
     runs, sat = tg.gact_traceback_c(tq, tt, ck, torch.from_numpy(lens), T, W,
                                     band, scale=scale, group=group)
+    # the port's flag is a 0-dim bool tensor on the input's device
+    assert sat.dtype == torch.bool and sat.shape == ()
     return ((np.asarray(ck_w), np.asarray(wc_w), np.asarray(runs_w),
-             bool(sat_w)), (ck.numpy(), wc.numpy(), runs.numpy(), sat))
+             bool(sat_w)), (ck.numpy(), wc.numpy(), runs.numpy(), bool(sat)))
 
 
 def _assert_equal(want, got):
