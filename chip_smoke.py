@@ -13,8 +13,9 @@ FM-index queries, `TorchMapper.map_stream`, the Myers aligners).
 
 Phases (each raises on failure; nothing is caught):
   1. device  — requires CUDA; prints the card's name and power limit
-  2. build   — nvcc builds csrc/band_dp.cu, csrc/band_scores.cu and
-               csrc/walk.cu for sm_90a and g++ the host code (the
+  2. build   — nvcc builds csrc/band_dp.cu, csrc/band_scores.cu,
+               csrc/walk.cu and csrc/vote.cu for sm_90a and g++ the host
+               code (the
                suffix-array build csrc/sais.cpp, the external build's
                merge csrc/samerge.cpp,
                the affine traceback csrc/affine.cpp, the banded aligner
@@ -47,6 +48,16 @@ Phases (each raises on failure; nothing is caught):
                that saturates its buffer at scale 1; CUDA-event medians
                of kernel and plain walk, the longest lane's iterations and
                the kernel's ns an iteration
+  3b. vote   — after phase 4, whose index and reads it takes: the seed
+               vote's kernels (seed_tables, vote_rows, and top2_votes on
+               the rows' votes) each bit-equal to its plain version at the
+               1 kb, 10 kb and 50 kb buckets (B 2048, 200, 40), in the four
+               index layouts, in the compact and exact tiers; rows of C
+               20096 in global scratch at 50 kb; on a repeat genome whose
+               seeds are
+               wide and whose rows pass C; CUDA-event medians of kernel and
+               plain version at each bucket (full int32 layout) beside the
+               bound
   4. map     — a 4 Mb single-contig genome and 16384 1 kb reads (3%
                substitutions, both strands, planted positions), all made
                from --seed; `cli index` (the lchash built on the card, held
@@ -56,8 +67,9 @@ Phases (each raises on failure; nothing is caught):
                placement, that every CIGAR consumes its read and spells its
                ED against the genome, that every chunk was encoded on the
                card (raw bytes in), and that the main path went through
-               the kernels (the DP and the walk) and never through a plain
-               version, with no walk host sync
+               the kernels (the seed vote's two, the DP and the walk) and
+               never through a plain version, with no walk host sync; the
+               dispatch and fetch seconds a chunk
   5. cpu     — `cli map --device cpu` (plain versions, in subprocesses
                that run beside phases 6 and 7 and are checked after them)
                and `--device cuda` give byte-identical SAM, both through
@@ -65,15 +77,21 @@ Phases (each raises on failure; nothing is caught):
                of the 10 kb set (2 high-error, so the full-band retry runs
                through gact at band 2176) and 2 reads of the 50 kb set
   6. stages  — per-stage times of the mapping step on the 1 kb reads and
-               a torch.profiler trace of its device kernels
+               a torch.profiler trace of its device kernels, with the seed
+               vote by its kernels and by its plain versions; then one
+               step under torch.cuda.set_sync_debug_mode("error"), which
+               raises at any op that waits for the card
   7. long    — 800 reads of 10 kb and 160 of 50 kb on the phase-4 genome
                (3% substitutions + 0.5% 1-base insertions + 0.5% deletions;
                2% of the reads at 7% + 1%, past the half band), each set
                through `cli map --device cuda --chunk-b 2048`; checks as
                phase 4 plus the bucket configs, the bit-2 retries and the
                long-read kernels' launches (at 50 kb, fewer multi-tile
-               launches a gact pass than its 98 tiles; the walk kernels,
-               no plain walk, no walk host sync); then per-stage times
+               launches a gact pass than its 98 tiles; the seed vote's
+               and the walks' kernels, no plain seed vote or walk, no walk
+               host sync); then per-stage times as phase 6, the 10 kb step
+               under the sync debug mode "error", the 50 kb step under
+               "warn" (each sync it makes is logged)
   8. layouts — the phase-4 reads (16384 1 kb, and phase 5's 10 kb and 50
                kb reads) in the slim layout through `cli map --slim-index`
                (served by deriving from the full cache) and in every layout
@@ -129,9 +147,12 @@ the plain version, its time, the plain version's, and the bound (for a
 DP the larger of its bytes at 3.35 TB/s and its int32 operations,
 INT_OPS_CELL a cell, at INT32_OPS_S; for a walk the words it gathers,
 WALK_WORD_BYTES a lane-iteration, and its entries, at 3.35 TB/s;
-library_ms null: no PyTorch call computes a banded NW DP or its walk).
-Phases 4, 7, 10 and 11 check on each map that the walks launched their
-kernels, called no plain walk on the card and made no walk host sync.
+for the seed vote the larger of its bytes (each gathered row once) and
+its int32 operations, vote_bounds; library_ms null: no PyTorch call
+computes a banded NW DP, its walk or the seed vote).
+Phases 4, 7, 10 and 11 check on each map that the seed vote and the
+walks launched their kernels, called no plain seed vote and no plain walk
+on the card and made no walk host sync.
 Exits non-zero, printing no result, when CUDA is unavailable or the
 port's package is not beside this file.
 """
@@ -196,6 +217,9 @@ LONG_SETS = {
 }
 HI_EVERY = 50
 CPU_LONG = {"10kb": [0, HI_EVERY] + list(range(1, 15)), "50kb": [1, 2]}
+# each CPU map's threads per 8 cores: the 50 kb set's plain gact DP is the
+# longest, the 1 kb set ends in seconds; a core stays with the card's work
+CPU_THREADS = {"1kb": 1, "10kb": 2, "50kb": 4}
 # phase 8: the index layouts, their load_device_index arguments and the
 # device bytes a position each should take without the lchash (counted
 # from the tables: sa_ctx 8 or 4, sa_hi 1, packed + text_packed 0.5,
@@ -209,6 +233,16 @@ BIG_SA_GENOME = (1 << 26) - 1      # phase 9: a .cat of 2^27 - 1 codes
 N_AFFINE_ALIGN = 64                # phase 9: reads held to affine_align
 N_DIST_LONG = 200                  # phase 10: the first reads of the 10 kb set
 N_TOOL_ROWS = 4096                 # phase 11: SA rows and k-mers queried
+# phase 3b: the seed vote's kernels at each set's bucket (L; B follows
+# from --chunk-b 2048), in every layout (LAYOUTS) and tier; a repeat genome
+# (random bases, then motif A of REPEAT_A[0] bases REPEAT_A[1] times, whose
+# seeds are wide, then motif B likewise, whose seeds are not wide but vote
+# ~150 times each, so rows pass C) and its 1 kb reads, a quarter from
+# each motif run
+VOTE_SETS = {"1kb": 1024, "10kb": 10240, "50kb": 50176}
+REPEAT_GENOME, REPEAT_A, REPEAT_B = 600_000, (60, 400), (64, 150)
+VOTE_TURNS = 20                    # timed calls of each kernel
+VOTE_GLOBAL_C = 20000              # a budget whose rows pass 227 KB
 
 
 def log(msg: str) -> None:
@@ -350,7 +384,8 @@ def timed_once(fn):
     return out, a.elapsed_time(b)
 
 
-def check_equal(kernel: str, where: str, got, want) -> int:
+def check_equal(kernel: str, where: str, got, want,
+                tag: str = "3 kernel") -> int:
     """Raise unless every output is bit-equal; returns the max |diff|."""
     import torch
     torch.cuda.synchronize()
@@ -365,7 +400,7 @@ def check_equal(kernel: str, where: str, got, want) -> int:
             raise AssertionError(f"{kernel} output {i} differs from the "
                                  f"plain version at {where} (max |diff| "
                                  f"{diff})")
-    log(f"[3 kernel] {kernel} {where}: bit-equal to the plain version")
+    log(f"[{tag}] {kernel} {where}: bit-equal to the plain version")
     return err
 
 
@@ -760,6 +795,219 @@ def phase_walks(rng, res: dict) -> None:
         del ckpt, got, want
 
 
+def vote_chunk(index, reads, L: int, exact: bool = False,
+               budget: int = 0):
+    """(cfg, codes, lens) of the first chunk of `reads` at bucket L, host
+    encoded, on the card; the exact tier's config with `exact`, its slots
+    at least `budget` with a budget."""
+    import torch
+    from dataclasses import replace
+    from longreadmapper_tpu_torch.models.mapper import TorchMapper
+    from longreadmapper_tpu_torch.utils.config import Params
+    idx, meta, mta = index
+    mapper = TorchMapper(idx, meta, mta, Params(), chunk_b=2048,
+                         device="cuda")
+    cfg = mapper._step_for(L)
+    if exact:
+        cfg = replace(cfg, exact_slots=True)
+    if budget:
+        cfg = replace(cfg, vote_budget=budget)
+    codes, _, lens, _ = mapper._pack_reads(
+        [(n, s, None) for n, s, *_ in reads[:cfg.B]], L, cfg.B)
+    return cfg, torch.from_numpy(codes).cuda(), torch.from_numpy(lens).cuda()
+
+
+def vote_bounds(cfg, tabs, rows_out, keys):
+    """(bound_ms, bound_by) of seed_tables, vote_rows and top2_votes on
+    this run's data: the larger of the bytes each must move (inputs read
+    once, each gathered row once, outputs written once) at HBM_BYTES_S and
+    its int32 operations at INT32_OPS_S.  seed_tables: the codes, an lch
+    row a seed (and its high bytes), 2 x left occ lookups (a packed word
+    and an occ_samp row) a wide seed, its six tables; ~5 ops a code.
+    vote_rows: the row's per-seed tables, an sa_ctx row (and high byte; a
+    text pair under slim) a vote, four outputs; a sort's C log2 C
+    compare-and-selects (4 ops) a row.  top2_votes: a key and a flag a
+    vote, three outputs, the same sort."""
+    import math
+    import torch
+    qw, k12, cnt12, wide, kw, cw = tabs
+    B, L = cfg.B, cfg.L
+    N, BP, C = qw.numel(), qw.shape[0], cfg.vote_slots
+    pb = 8 if cfg.pos64 else 4
+    hi = 2 if cfg.pos64 else 0
+    n_wide = int(wide.sum())
+    t_bytes = (B * L + 4 * B + N * (8 + hi) + n_wide * 2 * cfg.left * 20
+               + N * (4 + pb + 4 + 1 + pb + 4))
+    t_ops = N * (5 * cfg.seed_len + 30)
+    votes = int(rows_out[3].clamp(max=C).sum())
+    row = (4 if cfg.slim else 8) + (1 if cfg.pos64 else 0) + (
+        8 if cfg.slim and cfg.left else 0)
+    r_bytes = N * (4 + pb + 4 + 1) + votes * row + BP * (12 + pb)
+    sort_ops = BP * C * max(1.0, math.log2(C)) * 4
+    k_bytes = keys.numel() * (keys.element_size() + 1) + BP * (8 + pb)
+    out = []
+    for nbytes, ops in ((t_bytes, t_ops), (r_bytes, sort_ops),
+                        (k_bytes, sort_ops)):
+        b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, ops / INT32_OPS_S * 1e3
+        out.append((b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations"))
+    return out
+
+
+def vote_case(tag: str, where: str, cfg, idx, codes, lens,
+              res=None) -> dict:
+    """seed_tables, vote_rows and top2_votes on one chunk, each bit-equal
+    to its plain version; with `res`, CUDA-event medians of kernel and
+    plain version beside the bound, into res.  Returns the chunk's counts
+    (wide seeds, rows past C, votes)."""
+    import torch
+    from longreadmapper_tpu_torch.mapping.pipeline import _pick_wide_seeds
+    from longreadmapper_tpu_torch.ops.seed_vote import (
+        seed_tables, seed_tables_plain, slot_votes, vote_rows,
+        vote_rows_plain)
+    from longreadmapper_tpu_torch.ops.vote import (top2_votes,
+                                                   top2_votes_plain)
+    errs = {}
+    tabs = seed_tables(cfg, idx, codes, lens)
+    want = seed_tables_plain(cfg, idx, codes, lens)
+    errs["seed_tables"] = check_equal("seed_tables", where, tabs, want, tag)
+    qw, k12, cnt12, wide, kw, cw = want
+    pick = _pick_wide_seeds(cfg, wide, k12, cnt12, kw, cw)
+    args = (cfg, idx, pick[0], pick[1], qw, wide)
+    rows_p = vote_rows_plain(*args)
+    errs["vote_rows"] = check_equal("vote_rows", where, vote_rows(*args),
+                                    rows_p, tag)
+    keys, verified, total = slot_votes(*args)
+    top_p = top2_votes_plain(keys, verified)
+    errs["top2_votes"] = check_equal("top2_votes", where,
+                                     top2_votes(keys, verified), top_p, tag)
+    stats = dict(seeds=qw.numel(), rows=qw.shape[0], C=cfg.vote_slots,
+                 wide=int(wide.sum()), wide_dropped=int(pick[2].sum()),
+                 rows_past_C=int((total > cfg.vote_slots).sum()),
+                 votes=int(total.clamp(max=cfg.vote_slots).sum()),
+                 verified=int(verified.sum()))
+    log(f"[{tag}] {where}: {json.dumps(stats)}")
+    if res is not None:
+        bounds = vote_bounds(cfg, want, rows_p, keys)
+        fns = {"seed_tables": (lambda: seed_tables(cfg, idx, codes, lens),
+                               lambda: seed_tables_plain(cfg, idx, codes,
+                                                         lens)),
+               "vote_rows": (lambda: vote_rows(*args),
+                             lambda: vote_rows_plain(*args)),
+               "top2_votes": (lambda: top2_votes(keys, verified),
+                              lambda: top2_votes_plain(keys, verified))}
+        for (name, (kern, plain)), bnd in zip(fns.items(), bounds):
+            ms = cuda_ms(kern, VOTE_TURNS)
+            plain_ms = cuda_ms(plain, 3)
+            log(f"[{tag}] {name} {where} median: kernel {ms} ms, plain "
+                f"PyTorch {plain_ms} ms ({plain_ms / ms}x); bound {bnd[0]} "
+                f"ms by {bnd[1]} ({bnd[0] / ms:.4f} of it reached)")
+            res.setdefault(name, {}).update(
+                err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                bound_by=bnd[1])
+    return stats
+
+
+def repeat_genome(d: str, seed: int):
+    """Phase 3b's repeat genome, indexed by `cli index` on the card, and
+    2048 reads of 1 kb at 3%: a quarter inside each motif run, the rest
+    anywhere.  Returns (fa, reads)."""
+    import numpy as np
+    from longreadmapper_tpu_torch import cli
+    rng = np.random.default_rng(seed + 7)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    parts = [rng.integers(0, 4, REPEAT_GENOME).astype(np.uint8)]
+    runs = []
+    for m, copies in (REPEAT_A, REPEAT_B):
+        lo = sum(len(p) for p in parts)
+        parts.append(np.tile(rng.integers(0, 4, m).astype(np.uint8), copies))
+        runs.append((lo, lo + m * copies))
+    g = np.concatenate(parts)
+    fa = os.path.join(d, "repeat.fa")
+    with open(fa, "w") as f:
+        s = acgt[g].tobytes().decode()
+        f.write(">rep\n" + "\n".join(s[i:i + 70] for i in range(0, len(s),
+                                                                   70)) + "\n")
+    with open(fa + ".index.log", "w") as e, contextlib.redirect_stderr(e):
+        cli.main(["index", fa])
+    reads = []
+    for i in range(2048):
+        lo, hi = (runs[i % 4] if i % 4 < 2 else (0, len(g)))
+        p = int(rng.integers(lo, max(lo + 1, hi - 1000)))
+        c = g[p:p + 1000].copy()
+        m = rng.random(c.shape[0]) < 0.03
+        c[m] = (c[m] + 1 + rng.integers(0, 3, int(m.sum()))) % 4
+        reads.append((f"q{i}", acgt[c].tobytes().decode()))
+    return fa, reads
+
+
+def phase_vote(d: str, fa: str, fq: str, long_data: dict, seed: int) -> dict:
+    """Phase 3b (after phase 4, whose index it reads): the seed vote's
+    kernels bit-equal to their plain versions at each set's bucket, in
+    every layout and in the compact and exact tiers, on the phase-4 genome
+    and on a repeat genome whose rows pass C and whose seeds are wide;
+    rows of C 20096 (global scratch) at the 50 kb bucket; CUDA-event
+    medians at each bucket in the full int32 layout.  Returns the 1 kb bucket's
+    numbers, the kernels line's."""
+    import gc
+    import torch
+    from longreadmapper_tpu_torch.index.device import load_device_index
+    from longreadmapper_tpu_torch.ops.vote import ROW_SMEM, pow2_at_least
+    from longreadmapper_tpu_torch.runtime.reads import load_read_batches
+    tag = "3b vote"
+    sets = {"1kb": next(iter(load_read_batches(fq, 2048, background=False)))}
+    for name, (reads, _, _) in long_data.items():
+        sets[name] = reads
+    timed = {}
+    for lname, (load, _) in LAYOUTS.items():
+        index = load_device_index(fa, "cuda", verbose=False, **load)
+        for name, reads in sets.items():
+            for exact in (False, True):
+                cfg, codes, lens = vote_chunk(index, reads, VOTE_SETS[name],
+                                              exact)
+                where = (f"{name} B={cfg.B} L={cfg.L} S={cfg.max_seeds} "
+                         f"C={cfg.vote_slots} {lname}"
+                         f"{' exact tier' if exact else ''}")
+                main = lname == "full int32" and not exact
+                out = {} if main else None
+                vote_case(tag, where, cfg, index[0], codes, lens, out)
+                if main:
+                    timed[name] = out
+        if lname == "full int32":
+            # rows past the shared-memory limit sort in global scratch, as
+            # hg19's exact tier at 10 and 50 kb would (C to 114,176)
+            cfg, codes, lens = vote_chunk(index, sets["50kb"], 50176, True,
+                                          VOTE_GLOBAL_C)
+            if 12 * pow2_at_least(cfg.vote_slots) + 4 * cfg.max_seeds <= \
+                    ROW_SMEM:
+                raise AssertionError("phase 3b: the global-scratch case "
+                                     "fits shared memory")
+            vote_case(tag, f"50kb B={cfg.B} C={cfg.vote_slots} (rows in "
+                      "global scratch) full int32", cfg, index[0], codes,
+                      lens)
+        del index
+        gc.collect()
+        torch.cuda.empty_cache()
+    rfa, rreads = repeat_genome(d, seed)
+    index = load_device_index(rfa, "cuda", verbose=False)
+    for exact in (False, True):
+        cfg, codes, lens = vote_chunk(index, rreads, 1024, exact)
+        st = vote_case(tag, f"repeat genome 1kb B={cfg.B} C="
+                       f"{cfg.vote_slots}{' exact tier' if exact else ''}",
+                       cfg, index[0], codes, lens)
+        if not (st["wide"] > 0 and st["rows_past_C"] > 0):
+            raise AssertionError(f"phase 3b: the repeat genome's chunk has "
+                                 f"{st['wide']} wide seeds and "
+                                 f"{st['rows_past_C']} rows past C")
+    log(f"[{tag}] check PASS: the repeat genome's rows pass C and its "
+        "seeds are wide, every kernel bit-equal")
+    del index
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, out in timed.items():
+        log(f"[{tag}] {name} bucket, full int32: " + json.dumps(out))
+    return timed["1kb"]
+
+
 def make_data(d: str, seed: int, genome_len: int, n_reads: int,
               read_len: int, err: float):
     """A single-contig FASTA and a FASTQ of reads from both strands with
@@ -920,7 +1168,8 @@ def plain_counts():
 
 def reset_counts():
     """Every kernel's launch count, every plain version's CUDA call count
-    and the walks' host syncs to 0; the peak memory statistic too."""
+    (the seed vote's and top2_votes' too) and the walks' host syncs to 0;
+    the peak memory statistic too."""
     import torch
     from longreadmapper_tpu_torch.ops.band_dp import (band_dp_tiles,
                                                       banded_nw_dirs)
@@ -932,11 +1181,15 @@ def reset_counts():
         device_traceback_c, device_traceback_c_plain)
     from longreadmapper_tpu_torch.ops.wavefront import (banded_nw_dirs_v,
                                                         banded_nw_scores)
+    from longreadmapper_tpu_torch.ops import seed_vote, vote
     for fn in (banded_nw_dirs, band_dp_tiles, band_scores,
-               device_traceback_c, gact_traceback_c):
+               device_traceback_c, gact_traceback_c, seed_vote.seed_tables,
+               seed_vote.vote_rows, vote.top2_votes):
         fn.launches = 0
     for fn in (banded_nw_dirs_v, banded_nw_scores, gact_forward,
-               device_traceback_c_plain, gact_traceback_c_plain):
+               device_traceback_c_plain, gact_traceback_c_plain,
+               seed_vote.seed_tables_plain, seed_vote.vote_rows_plain,
+               vote.top2_votes_plain):
         fn.cuda_calls = 0
     device_traceback_c.host_syncs = gact_traceback_c.host_syncs = 0
     torch.cuda.synchronize()
@@ -949,31 +1202,44 @@ def walk_syncs() -> int:
     return device_traceback_c.host_syncs + gact_traceback_c.host_syncs
 
 
-# the walk kernels' launches over the main path's runs (phases 4, 7, 10, 11)
-MAIN_WALKS = {"walk_c": 0, "gact_walk": 0}
+# the walk and seed-vote kernels' launches over the main path's runs
+# (phases 4, 7, 10, 11)
+MAIN_LAUNCHES = {"walk_c": 0, "gact_walk": 0, "seed_tables": 0,
+                 "vote_rows": 0}
 
 
-def walk_checks(need) -> list:
+def path_checks(need) -> list:
     """(ok, what) checks of a map run on the card since reset_counts():
-    each walk kernel of `need` launched, no plain walk called on CUDA, no
-    walk host sync.  Adds the run's launches to MAIN_WALKS."""
+    the seed vote's two kernels and each walk kernel of `need` launched,
+    no plain walk and no plain seed vote called on CUDA, no walk host
+    sync.  Adds the run's launches to MAIN_LAUNCHES."""
+    from longreadmapper_tpu_torch.ops import seed_vote, vote
     from longreadmapper_tpu_torch.ops.gact import (gact_traceback_c,
                                                    gact_traceback_c_plain)
     from longreadmapper_tpu_torch.ops.traceback import (
         device_traceback_c, device_traceback_c_plain)
     run = {"walk_c": device_traceback_c.launches,
-           "gact_walk": gact_traceback_c.launches}
+           "gact_walk": gact_traceback_c.launches,
+           "seed_tables": seed_vote.seed_tables.launches,
+           "vote_rows": seed_vote.vote_rows.launches}
     plain = (device_traceback_c_plain.cuda_calls
              + gact_traceback_c_plain.cuda_calls)
+    plain_vote = (seed_vote.seed_tables_plain.cuda_calls
+                  + seed_vote.vote_rows_plain.cuda_calls
+                  + vote.top2_votes_plain.cuda_calls)
     syncs = walk_syncs()
     for k, v in run.items():
-        MAIN_WALKS[k] += v
+        MAIN_LAUNCHES[k] += v
+    need = tuple(need) + ("seed_tables", "vote_rows")
     return [(all(run[k] > 0 for k in need),
-             f"walk kernel launches {json.dumps(run)}: {', '.join(need)} > "
-             "0"),
+             f"walk and seed-vote kernel launches {json.dumps(run)}: "
+             f"{', '.join(need)} > 0"),
             (plain == 0 and syncs == 0,
              f"plain walk calls on CUDA {plain} == 0, walk host syncs "
-             f"{syncs} == 0")]
+             f"{syncs} == 0"),
+            (plain_vote == 0,
+             f"plain seed-vote calls on CUDA (seed_tables, vote_rows, "
+             f"top2_votes) {plain_vote} == 0")]
 
 
 def as_extra(checks) -> list:
@@ -1056,12 +1322,17 @@ def phase_map(d: str, seed: int, n_reads: int, genome_len: int = 4_000_000):
     torch.cuda.synchronize()
     t_map = time.perf_counter() - t0
     launches, plain = banded_nw_dirs.launches, plain_counts()
-    walks = walk_checks(("walk_c",))
+    walks = path_checks(("walk_c",))
     log(f"[4 map] cli map in {t_map} s = {n_reads / t_map} reads/s "
         "end to end (index load included)")
+    with open(map_log) as f:
+        phase_s = json.loads(re.search(r"phase_s (\{.*\})", f.read())[1])
+    n_chunks = -(-n_reads // 2048)
+    log(f"[4 map] a chunk: dispatch {phase_s['dispatch'] / n_chunks * 1e3} "
+        f"ms, fetch {phase_s['fetch'] / n_chunks * 1e3} ms ({n_chunks} "
+        "chunks; phase 6 times the step)")
     log(f"[4 map] walk host syncs {walk_syncs()}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30} GiB")
-    n_chunks = -(-n_reads // 2048)
     check_map("4 map", sam, map_log, n_reads, pos, g, 16, [
         lambda b, r, c: (launches > 0, f"band_dp kernel launches "
                                        f"{launches} > 0"),
@@ -1080,14 +1351,16 @@ def cpu_maps(d: str, fa: str, sets):
     the card's SAM texts).  The CPU maps take minutes: the caller runs its
     other phases beside them, then check_cpu_maps, and stop() in any case."""
     import torch
-    threads = max(1, len(os.sched_getaffinity(0)) // 4)
-    env = dict(os.environ, OMP_NUM_THREADS=str(threads),
+    cores = len(os.sched_getaffinity(0))
+    env = dict(os.environ,
                PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
     procs = []
     try:
         for name, fq, n, cb in sets:
             sam = os.path.join(d, f"{name}.cpu.sam")
+            threads = max(1, cores * CPU_THREADS[name] // 8)
+            env["OMP_NUM_THREADS"] = str(threads)
             with open(sam, "w") as f, open(sam + ".log", "w") as e:
                 procs.append((sam, threads, time.perf_counter(),
                               subprocess.Popen(
@@ -1145,16 +1418,83 @@ def stop(procs) -> None:
             p.wait()
 
 
-def phase_stages(tag: str, fa: str, reads, traced_steps: int = 3):
+@contextlib.contextmanager
+def plain_seed_vote():
+    """The mapping step's seed vote through the plain versions (the split
+    before the kernels), for the `with` block."""
+    from longreadmapper_tpu_torch.mapping import pipeline
+    from longreadmapper_tpu_torch.ops import seed_vote
+    saved = pipeline.seed_tables, pipeline.vote_rows
+    pipeline.seed_tables = seed_vote.seed_tables_plain
+    pipeline.vote_rows = seed_vote.vote_rows_plain
+    try:
+        yield
+    finally:
+        pipeline.seed_tables, pipeline.vote_rows = saved
+
+
+def step_syncs(tag: str, index, reads, mode: str) -> list:
+    """One chunk's map_step (its first part, as the mapper packs it) run
+    once to warm up, then again under torch.cuda.set_sync_debug_mode(mode):
+    "error" raises at the first op that waits for the card; "warn" records
+    each such op.  Raises unless the bytes equal the warm-up's; returns the
+    recorded syncs as "file:line: message"."""
+    import warnings
+    import torch
+    from longreadmapper_tpu_torch.models.mapper import TorchMapper
+    from longreadmapper_tpu_torch.runtime.stages import _step
+    from longreadmapper_tpu_torch.utils.config import Params
+    idx, meta, mta = index
+    mapper = TorchMapper(idx, meta, mta, Params(), chunk_b=2048,
+                         device="cuda")
+    L, prepped = mapper._prepare_chunk(reads[:mapper.B])
+    cfg = mapper._step_for(L)
+    step = _step(cfg, idx, *prepped[0][1:], mapper.device)
+    want = step()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            got = step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}: {w.message}"
+             for w in caught if "ynchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    same = all(torch.equal(got[k], want[k]) for k in want)
+    log(f"[{tag}] map_step of B={cfg.B} L={cfg.L} under "
+        f"set_sync_debug_mode({mode!r}): {len(syncs)} host syncs"
+        + "".join(f"\n[{tag}]   sync at {x}" for x in syncs))
+    if not same:
+        raise AssertionError(f"{tag}: the step's bytes changed under the "
+                             "sync debug mode")
+    return syncs
+
+
+def phase_stages(tag: str, fa: str, reads, traced_steps: int = 3,
+                 sync_mode: str = "error"):
+    """Per-stage times of the mapping step on `reads` with the seed vote's
+    kernels and with its plain versions, each with a device trace; then
+    the step under set_sync_debug_mode(sync_mode) (step_syncs).  Returns
+    the recorded syncs."""
+    from longreadmapper_tpu_torch.index.device import load_device_index
     from longreadmapper_tpu_torch.runtime.stages import stage_times
 
-    st = stage_times(fa, reads, chunk_b=2048, device="cuda",
-                     traced_steps=traced_steps)
-    trace = st.pop("trace")
-    log(f"[{tag}] " + json.dumps(st))
-    log(f"[{tag}] trace " + (json.dumps(trace) if trace else
-                             "not measured: the profiler saw no device "
-                             "kernels"))
+    index = load_device_index(fa, "cuda", verbose=False)
+    for kind in ("kernels", "plain"):
+        with (plain_seed_vote() if kind == "plain"
+              else contextlib.nullcontext()):
+            st = stage_times(fa, reads, chunk_b=2048, device="cuda",
+                             traced_steps=traced_steps, index=index)
+        trace = st.pop("trace")
+        label = f"{tag}, seed vote by its {kind}"
+        log(f"[{label}] " + json.dumps(st))
+        log(f"[{label}] trace " + (json.dumps(trace) if trace else
+                                   "not measured: the profiler saw no "
+                                   "device kernels"))
+    return step_syncs(tag, index, reads, sync_mode)
 
 
 def phase_long(d: str, fa: str, g, name: str, reads, pos, hi) -> dict:
@@ -1179,7 +1519,7 @@ def phase_long(d: str, fa: str, g, name: str, reads, pos, hi) -> dict:
     plain = plain_counts()
     # 10 kb: the resident first pass walks by walk_c, the full-band retry
     # by gact_walk; 50 kb: every pass by gact_walk
-    walks = walk_checks(("walk_c", "gact_walk") if want_cfg["path"]
+    walks = path_checks(("walk_c", "gact_walk") if want_cfg["path"]
                         == "resident" else ("gact_walk",))
     n_hi = int(hi.sum())
     log(f"[{tag}] cli map of {n} reads of {read_len} bp in {t_map} s = "
@@ -1211,7 +1551,8 @@ def phase_long(d: str, fa: str, g, name: str, reads, pos, hi) -> dict:
         lambda b, r, c: (c is not None and c[0] > 0 and c[1] == 0,
                          f"chunks (raw-encoded on the card, host-encoded) "
                          f"{c}: all raw")] + as_extra(walks))
-    phase_stages(tag, fa, [(nm, s, None) for nm, s in reads], 1)
+    phase_stages(tag, fa, [(nm, s, None) for nm, s in reads], 1,
+                 "error" if want_cfg["path"] == "resident" else "warn")
     return counts
 
 
@@ -1575,7 +1916,7 @@ def phase_dist(d: str, fa: str, fq: str, n_reads: int, pos, g, long10,
         t_map = time.perf_counter() - t0
         run = dist_launches()
         plain = plain_counts()
-        walks = walk_checks(("walk_c",))
+        walks = path_checks(("walk_c",))
         for k, v in run.items():
             counts[k] += v
         log(f"[{tag}] cli mapdist (world 1, NCCL) of {n_reads} reads in "
@@ -1610,7 +1951,7 @@ def phase_dist(d: str, fa: str, fq: str, n_reads: int, pos, g, long10,
     t_map = time.perf_counter() - t0
     run = dist_launches()
     plain = plain_counts()
-    walks = walk_checks(("gact_walk",))
+    walks = path_checks(("gact_walk",))
     for k, v in run.items():
         counts[k] += v
     log(f"[{tag}] cli mapdist (world 1) of {n} reads of 10 kb in {t_map} s "
@@ -1792,7 +2133,7 @@ def phase_tools(d: str, fa: str, fq: str, g, seed: int,
     reset_counts()
     recs, t_stream = run("map_stream")
     launches, plain = banded_nw_dirs.launches, plain_counts()
-    walks = walk_checks(("walk_c",))
+    walks = path_checks(("walk_c",))
     sam, t_sam = run("map_stream_sam")
     log(f"[11 tools] map_stream {len(reads) / t_stream} reads/s, "
         f"map_stream_sam {len(reads) / t_sam} reads/s ({len(reads)} 1 kb "
@@ -1891,6 +2232,8 @@ def main(argv=None) -> int:
             write_fastq(os.path.join(d, f"{name}.cpu.fq"),
                         [reads[i] for i in CPU_LONG[name]])
             long_data[name] = (reads, lpos, hi)
+        kres.update(phase_vote(d, fa, fq, long_data, args.seed))
+        done("3b vote")
         fq_short = os.path.join(d, "short.cpu.fq")
         with open(fq) as f, open(fq_short, "w") as o:
             for _ in range(4 * N_CPU_READS):
@@ -1930,13 +2273,15 @@ def main(argv=None) -> int:
         done("10 dist")
         launches += phase_tools(d, fa, fq, g, args.seed, launches)
         done("11 tools")
-    launches = dict(band_dp=launches, **counts, **MAIN_WALKS)
+    launches = dict(band_dp=launches, **counts, **MAIN_LAUNCHES)
     for k, v in dist_counts.items():
         launches[k] += v
     src = {"band_dp": "band_dp.cu", "band_dp_wide": "band_dp.cu",
            "band_scores": "band_scores.cu", "walk_c": "walk.cu",
-           "gact_walk": "walk.cu"}
-    # the walks replace XLA loops, not pallas_calls
+           "gact_walk": "walk.cu", "seed_tables": "vote.cu",
+           "vote_rows": "vote.cu"}
+    # the walks and the seed vote replace XLA loops, gathers and sorts,
+    # not pallas_calls
     replaces = {"band_dp": "longreadmapper_tpu/ops/band_pallas.py:102",
                 "band_dp_wide": "longreadmapper_tpu/ops/band_pallas.py:102",
                 "band_scores":
@@ -1944,7 +2289,14 @@ def main(argv=None) -> int:
                 "walk_c": "longreadmapper_tpu/ops/traceback.py:73 (an XLA "
                           "while_loop, not a pallas_call)",
                 "gact_walk": "longreadmapper_tpu/ops/gact.py:276 (an XLA "
-                             "while_loop in a scan, not a pallas_call)"}
+                             "while_loop in a scan, not a pallas_call)",
+                "seed_tables": "longreadmapper_tpu/mapping/pipeline.py:362 "
+                               "_position_tables and the lchash gather of "
+                               ":581 (an XLA gather, not a pallas_call)",
+                "vote_rows": "longreadmapper_tpu/mapping/pipeline.py:690 "
+                             "and longreadmapper_tpu/ops/vote.py:56 "
+                             "top2_votes (an XLA gather/sort, not a "
+                             "pallas_call)"}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
         "source": f"longreadmapper_tpu_torch/csrc/{src[k]}",

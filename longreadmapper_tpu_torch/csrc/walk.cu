@@ -39,9 +39,10 @@
 // lane-iteration and the entries) take a few microseconds at 3.35 TB/s.
 // Design, a simple kernel that is right first: one thread a lane keeps its
 // (i, j, done) in registers (walk_c_kernel) or shared memory
-// (gact_walk_kernel), so nothing of the walk's state goes through device
-// memory, and the host is not asked anything until the walk ends.  Staging
-// the next words or splitting a lane's search over a warp is later work.
+// (gact_walk_kernel, up to kGactSmemLanes lanes), so nothing of the walk's
+// state goes through device memory, and the host is not asked anything
+// until the walk ends.  Staging the next words or splitting a lane's
+// search over a warp is later work.
 // Measured (chip_smoke.py phase 3; PERF.md; NVIDIA H100 80GB HBM3, 700 W):
 // 1.01 us an iteration of the longest lane at the 10 kb resident shape
 // (0.149 ms for 147 iterations), 1.30 us a block iteration over a 50 kb
@@ -55,6 +56,9 @@ namespace {
 constexpr int kPad = 3;
 constexpr int kWalkThreads = 128;     // walk_c_kernel's block
 constexpr int kGactMaxThreads = 1024;  // gact_walk_kernel's one block
+// lanes whose state (12 bytes each) fits the card's 227 KB of shared memory
+// a block; more lanes keep it in global memory
+constexpr int kGactSmemLanes = 227 * 1024 / 12;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -181,7 +185,9 @@ walk_c_kernel(const uint32_t* __restrict__ vdirs,
 // more: the buffer saturated).  Thread x walks lanes x, x + blockDim, ...;
 // their (i, j, done) live in shared memory for the launch and in st
 // (3B + 2 int32: i, j, done, then ptr and nsat) between the group's
-// launches.
+// launches; past kGactSmemLanes lanes (12 bytes a lane) the launch works
+// on st in global memory itself (use_global), the same code over another
+// pointer: each lane's state is touched only by its own thread.
 // Time: about the tiles' longest-lane iterations, each a chain of two DRAM
 // round trips and one block barrier, on one SM: the step makes one launch
 // a group after the group's direction kernel, and no host sync.
@@ -189,12 +195,12 @@ __global__ void __launch_bounds__(kGactMaxThreads)
 gact_walk_kernel(const uint32_t* __restrict__ vg,
                  const uint32_t* __restrict__ nmg, int32_t* __restrict__ st,
                  int16_t* __restrict__ buf, int B, int T, int W, int band,
-                 int k_lo, int k_hi, int n_rows) {
+                 int k_lo, int k_hi, int n_rows, int use_global) {
   extern __shared__ int32_t s_state[];
-  int32_t* si = s_state;
-  int32_t* sj = s_state + B;
-  int32_t* sd = s_state + 2 * B;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+  int32_t* si = use_global ? st : s_state;
+  int32_t* sj = si + B;
+  int32_t* sd = si + 2 * B;
+  for (int b = threadIdx.x; b < B && !use_global; b += blockDim.x) {
     si[b] = st[b];
     sj[b] = st[B + b];
     sd[b] = st[2 * B + b];
@@ -284,7 +290,7 @@ gact_walk_kernel(const uint32_t* __restrict__ vg,
       ptr = min(ptr + 1, n_rows - 1);
     }
   }
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+  for (int b = threadIdx.x; b < B && !use_global; b += blockDim.x) {
     st[b] = si[b];
     st[B + b] = sj[b];
     st[2 * B + b] = sd[b];
@@ -342,7 +348,9 @@ extern "C" int lrm_gact_walk(const void* vg, const void* nmg, void* st,
     return -1;
   }
   if (static_cast<long long>(B) * band > 0x7FFFFFFFLL) return -1;
-  const size_t smem = static_cast<size_t>(3) * B * sizeof(int32_t);
+  const int use_global = B > kGactSmemLanes;
+  const size_t smem =
+      use_global ? 0 : static_cast<size_t>(3) * B * sizeof(int32_t);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         gact_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -353,6 +361,6 @@ extern "C" int lrm_gact_walk(const void* vg, const void* nmg, void* st,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(vg), static_cast<const uint32_t*>(nmg),
       static_cast<int32_t*>(st), static_cast<int16_t*>(buf), B, T, W, band,
-      k_lo, k_hi, n_rows);
+      k_lo, k_hi, n_rows, use_global);
   return cudaGetLastError();
 }

@@ -26,7 +26,7 @@ and encodes and reverse-complements it on the device.
 Index layouts (index/device.py): positions are int32, or int64 joined
 from split-hi tables after each gather (pos64); the full layout gathers
 each vote's verify window with its SA value, the slim one rebuilds it from
-one text_pair gather (`_ctx_window`).
+one text_pair gather (ops/seed_vote.py).
 
 Align has two branches, chosen per length bucket by MapperConfig.use_gact:
   * resident dirs (L <= gact_threshold, or a direction volume within
@@ -39,10 +39,12 @@ Align has two branches, chosen per length bucket by MapperConfig.use_gact:
 Long buckets run a narrow first pass (short_W_override / half_band) and
 flag reads whose ed reaches it (overflow bit 2) for the full-band retry.
 
-The column traceback is the port's only walk.  On the card both walks are
-CUDA kernels (csrc/walk.cu: one launch a resident pass, one a gact tile
-group), so the step reads nothing back on the host but the seed vote's
-wide-seed test (_narrow_wide_seeds).
+The column traceback is the port's only walk.  On the card the seed vote
+is two CUDA kernels (csrc/vote.cu through ops/seed_vote.py: the per-seed
+tables, a CTA a vote row) and both walks are CUDA kernels (csrc/walk.cu:
+one launch a resident pass, one a gact tile group), and the wide seeds are
+picked by a rank, not a branch, so the step reads nothing back on the
+host.
 """
 
 from __future__ import annotations
@@ -57,9 +59,9 @@ from ..index.device import DeviceIndex, IndexMeta
 from ..ops.band_dp import banded_nw_dirs
 from ..ops.band_scores import band_checkpoints
 from ..ops.gact import gact_group_tiles, gact_traceback_c
-from ..ops.rank import backward_step
+from ..ops.seed_vote import seed_tables, vote_rows
 from ..ops.traceback import device_traceback_c
-from ..ops.vote import top2_small_histo, top2_votes
+from ..ops.vote import top2_small_histo
 from ..utils.config import Params
 
 I32 = torch.int32
@@ -217,206 +219,42 @@ class MapperConfig:
             pos64=meta.pos_dtype == "int64", slim=meta.slim)
 
 
-def _position_tables(cfg: MapperConfig, codes):
-    """Per start position j in [0, npos): qw = 2-bit pack of
-    codes[j .. j+left) (verify pattern), num = lchash key of
-    codes[j+left .. j+seed_len) (first char most significant), ok = all
-    seed_len codes < 4."""
-    B, L = codes.shape
-    sl, hlen, left, NP = cfg.seed_len, cfg.hlen, cfg.left, cfg.npos
-    need = NP + sl
-    c32 = codes.to(I32)
-    if need > L:
-        c32 = torch.cat([c32, torch.full((B, need - L), 4, dtype=I32,
-                                         device=codes.device)], dim=1)
-    qw = torch.zeros((B, NP), dtype=I32, device=codes.device)
-    for t in range(left):
-        qw |= c32[:, t:t + NP] << (2 * t)
-    num = torch.zeros((B, NP), dtype=I32, device=codes.device)
-    for t in range(hlen):
-        num |= c32[:, left + t:left + t + NP] << (2 * (hlen - 1 - t))
-    ok = torch.ones((B, NP), dtype=torch.bool, device=codes.device)
-    for t in range(sl):
-        ok &= c32[:, t:t + NP] < 4
-    return qw, num, ok
+def _pick_wide_seeds(cfg: MapperConfig, wide, k12, cnt12, kw, cw):
+    """The narrowed wide seeds JAX keeps: its _narrow_wide_seeds compacts
+    the first cfg.wide_lanes wide seeds of the chunk in flat order onto
+    its lanes (a stable sort), LF-narrows them and scatters them back; the
+    rest vote nothing and flag their row.  seed_tables has narrowed every
+    wide seed already (kw, cw), so picking is a rank: a wide seed is kept
+    when at most wide_lanes wide seeds come before it and itself.  No
+    branch and no host sync: with no wide seed it returns (k12, cnt12,
+    no overflow), JAX's lax.cond's other branch.
+
+    Returns (k_seed, cnt, row_overflow)."""
+    flat = wide.reshape(-1)
+    rank = torch.cumsum(flat, 0, dtype=I32)
+    picked = (flat & (rank <= min(cfg.wide_lanes, flat.shape[0]))
+              ).reshape(wide.shape)
+    k_seed = torch.where(picked, kw, k12)
+    cnt = torch.where(wide, torch.where(picked, cw, 0), cnt12)
+    return k_seed, cnt, (wide & ~picked).any(dim=1)
 
 
-def _by_phase(cfg: MapperConfig, a):
-    """(B, npos) position-major -> (B*phases, max_seeds): j = it + s*step."""
-    B = a.shape[0]
-    return (a.reshape(B, cfg.max_seeds, cfg.phases).permute(0, 2, 1)
-            .reshape(B * cfg.phases, cfg.max_seeds))
-
-
-def _narrow_wide_seeds(cfg: MapperConfig, idx: DeviceIndex, wide,
-                       k12, l12, cnt12, qw):
-    """LF-narrow repeat-heavy seeds (hlen-mer interval >= thres) to their
-    exact seed_len-mer intervals on at most cfg.wide_lanes compacted lanes,
-    informative-filter them and scatter back.
-
-    Returns (k_seed, cnt, row_overflow).  Batches with no wide seed skip
-    the branch: one host sync (the JAX lax.cond)."""
-    if not bool(wide.any()):
-        return k12, cnt12, torch.zeros(wide.shape[0], dtype=torch.bool,
-                                       device=wide.device)
-    BP, S = wide.shape
-    N = BP * S
-    dev = wide.device
-    flat_w = wide.reshape(-1)
-    key = torch.where(flat_w, 0, 1).to(I32)
-    key_s, sel = torch.sort(key, stable=True)
-    sel = sel[:cfg.wide_lanes]
-    sel_valid = key_s[:cfg.wide_lanes] == 0
-    sel_safe = torch.where(sel_valid, sel, 0)
-    k = k12.reshape(-1)[sel_safe]
-    l = l12.reshape(-1)[sel_safe]
-    qws = qw.reshape(-1)[sel_safe]
-    for t in range(cfg.left - 1, -1, -1):
-        c = (qws >> (2 * t)) & 3
-        k, l = backward_step(idx.c4, idx.packed, idx.occ_samp,
-                             cfg.dollar_pos, k, l, c, sel_valid & (k <= l))
-    hits = torch.where(sel_valid & (k <= l), l - k + 1, 0)
-    informative = (hits > 0) & (hits < cfg.thres)
-    cnt_w = torch.where(informative, hits, 0).to(I32)
-
-    # scatter back via a one-slot dump for unselected lanes
-    tgt = torch.where(sel_valid, sel, N)
-
-    def scat(base_flat, vals):
-        padded = torch.cat([base_flat,
-                            torch.zeros(1, dtype=base_flat.dtype,
-                                        device=dev)])
-        padded[tgt] = vals.to(base_flat.dtype)
-        return padded[:N]
-
-    cnt_base = torch.where(wide, 0, cnt12).reshape(-1)
-    cnt = scat(cnt_base, cnt_w).reshape(BP, S)
-    k_seed = scat(k12.reshape(-1), k).reshape(BP, S)
-    picked = scat(torch.zeros(N, dtype=I32, device=dev),
-                  sel_valid.to(I32)).reshape(BP, S) > 0
-    row_overflow = (wide & ~picked).any(dim=1)
-    return k_seed, cnt, row_overflow
-
-
-def _join_hi(lo, hi):
-    """(int32 low word, uint8 high byte) -> int64 position; the int32 word
-    holds an unsigned value, so its sign is masked off."""
-    return (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
-
-
-def _ctx_window(cfg: MapperConfig, idx: DeviceIndex, sa12):
-    """Slim-layout verify window: the ctx word _pack_ctx_words would have
-    stored, rebuilt from one gather of the padded text pairs (rows
-    [padded[w], padded[w+1]]; w0's +1 is the pad offset), shifted down to
-    its top `left` bases.  start is in [-16, n-17]: >> and & 15 on int64
-    give the floor semantics of the negative sub-word offsets, and the
-    words are taken unsigned before they shift."""
-    start = sa12.to(torch.int64) - 16
-    w0 = (start >> 4) + 1
-    o = start & 15
-    pair = idx.text_pair[w0.clamp(0, idx.text_pair.shape[0] - 1)]
-    lo = (pair[..., 0].to(torch.int64) & 0xFFFFFFFF) >> (2 * o)
-    # o == 0 shifts the whole word out (JAX masks that lane to 0)
-    hi = ((pair[..., 1].to(torch.int64) & 0xFFFFFFFF) << (32 - 2 * o)
-          ) & 0xFFFFFFFF
-    return (lo | hi) >> (2 * (16 - cfg.left))
-
-
-def _slots_by_owner(C: int, cnt, k_seed, qw, j_ps, wide):
-    """Slot -> seed assignment, seed-major / interval-rank-minor, for C
-    slots per (read, phase) row: (p_rank, qw_slot, wide_slot, j_slot,
-    total), with j_slot = -1 on empty slots.
-
-    The seeds' slot ranges [cum - cnt, cum) are disjoint, so each occupied
-    slot has exactly one owner, found by a binary search over `cum`; the
-    JAX package reaches the same per-slot values through the (BP, S, C)
-    owns-matrix reduce or, for long reads, a merge sort (_slots_by_sort).
-    The search makes only (BP, C) temporaries, so it serves every size."""
-    S = cnt.shape[1]
-    dev = cnt.device
-    cum = torch.cumsum(cnt, dim=1, dtype=I32)
-    starts = cum - cnt
-    slots = torch.arange(C, dtype=I32, device=dev)[None, :].expand(
-        cum.shape[0], C).contiguous()
-    owner = torch.searchsorted(cum, slots, right=True)    # (BP, C) int64
-    occupied = owner < S
-    own = owner.clamp(max=S - 1)
-
-    def from_owner(x):
-        return torch.where(occupied, x.gather(1, own), 0)
-
-    p_rank = from_owner(k_seed - starts) + slots
-    qw_slot = from_owner(qw)
-    wide_slot = from_owner(wide.to(I32)) > 0
-    j_slot = from_owner(j_ps + 1) - 1
-    return p_rank, qw_slot, wide_slot, j_slot, cum[:, -1]
-
-
-def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens):
-    """All seeding phases in one batched pass; returns (best, overflow)."""
-    B, P, S = cfg.B, cfg.phases, cfg.max_seeds
-    left = cfg.left
+def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens,
+               mark=None):
+    """All seeding phases in one batched pass; returns (best, overflow).
+    `mark(stage)`, when given, follows seed_tables, narrow, vote_rows and
+    accept."""
+    mark = mark or (lambda stage: None)
+    B, P = cfg.B, cfg.phases
     dev = codes.device
-
-    qw_p, num_p, ok_p = _position_tables(cfg, codes)
-    qw = _by_phase(cfg, qw_p)                          # (BP, S)
-    num = _by_phase(cfg, num_p)
-    ok = _by_phase(cfg, ok_p)
-
-    # seed start offsets j = it + s*step
-    j_ps = (torch.arange(P, dtype=I32, device=dev)[:, None]
-            + cfg.step * torch.arange(S, dtype=I32, device=dev)[None, :]
-            ).repeat(B, 1)
-    lens_bp = lens.to(I32).repeat_interleave(P)        # (BP,)
-    seed_ok = j_ps < (lens_bp[:, None] - cfg.seed_len)
-
-    # lchash row gather; (0, 0) rows are absent k-mers.  pos64: (k, l)
-    # ride as int32 low words beside uint8 high bytes
-    safe_num = num.clamp(0, idx.lch.shape[0] - 1).long()
-    kl = idx.lch[safe_num]
-    if cfg.pos64:
-        klh = idx.lch_hi[safe_num]
-        k12 = _join_hi(kl[..., 0], klh[..., 0])
-        l12 = _join_hi(kl[..., 1], klh[..., 1])
-    else:
-        k12 = kl[..., 0]
-        l12 = kl[..., 1]
-    present = ok & seed_ok & ~((k12 == 0) & (l12 == 0))
-    cnt12 = torch.where(present, torch.clamp(l12 - k12 + 1, max=cfg.thres),
-                        0).to(I32)
-    wide = present & (cnt12 >= cfg.thres)
-    k_seed, cnt, wide_overflow = _narrow_wide_seeds(
-        cfg, idx, wide, k12, l12, cnt12, qw)
-
+    qw, k12, cnt12, wide, kw, cw = seed_tables(cfg, idx, codes, lens)
+    mark("seed_tables")
+    k_seed, cnt, wide_overflow = _pick_wide_seeds(cfg, wide, k12, cnt12,
+                                                  kw, cw)
+    mark("narrow")
     CS = cfg.vote_slots
-    p_rank, qw_slot, wide_slot, j_slot, total = _slots_by_owner(
-        CS, cnt, k_seed, qw, j_ps, wide)
-    valid = j_slot >= 0
-
-    # one fused gather per vote: (SA value, packed 16-base left context);
-    # the slim layout gathers the SA value alone
-    p_safe = p_rank.clamp(0, cfg.n - 1).long()
-    if cfg.slim:
-        sa_low = idx.sa_ctx[p_safe]                          # (BP, C)
-        sa12 = _join_hi(sa_low, idx.sa_hi[p_safe]) if cfg.pos64 else sa_low
-    else:
-        row = idx.sa_ctx[p_safe]                             # (BP, C, 2)
-        sa12 = (_join_hi(row[..., 0], idx.sa_hi[p_safe]) if cfg.pos64
-                else row[..., 0])
-    if left > 0:
-        if cfg.slim:
-            win = _ctx_window(cfg, idx, sa12)
-        else:
-            win = ((row[..., 1].to(torch.int64) & 0xFFFFFFFF)
-                   >> (2 * (16 - left)))
-        qwu = qw_slot.to(torch.int64) & 0xFFFFFFFF
-        verified = valid & (wide_slot | ((sa12 >= left) & (win == qwu)))
-    else:
-        verified = valid
-    # int64 under pos64
-    keys = sa12 - torch.where(wide_slot, 0, left).to(I32) - j_slot
-
-    v1, key1, v2 = top2_votes(keys, verified)
+    v1, key1, v2, total = vote_rows(cfg, idx, k_seed, cnt, qw, wide)
+    mark("vote_rows")
     v1 = v1.reshape(B, P)
     key1 = key1.reshape(B, P)
     v2 = v2.reshape(B, P)
@@ -441,6 +279,7 @@ def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens):
     executed = pidx <= torch.where(any_acc, it_star, P - 1)[:, None]
     per_phase_ovf = ((total > CS) | wide_overflow).reshape(B, P)
     overflow = (per_phase_ovf & executed).any(dim=1)
+    mark("accept")
     return best, overflow
 
 
@@ -499,7 +338,8 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
     device.  Returns dict(blob (B, 32 + head) int8, ops_tail (B, K - head)
     int8), byte-identical to the JAX make_map_step.  `mark(stage)`, when
     given, is called as each stage has been issued (runtime/stages.py
-    times them): seed_vote, locate_window, then band_dp + walk on the
+    times them): seed_tables, narrow, vote_rows and accept (the seed
+    vote, _seed_vote), locate_window, then band_dp + walk on the
     resident path or gact_forward + gact_walk on the gact path, then
     pack."""
     mark = mark or (lambda stage: None)
@@ -507,8 +347,7 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
     dev = codes.device
     lens = lens.to(I32)
     limit = limits.to(I32)
-    best, overflow = _seed_vote(cfg, idx, codes, lens)
-    mark("seed_vote")
+    best, overflow = _seed_vote(cfg, idx, codes, lens, mark)
 
     found, gi, strand, off, loc_fwd = _seq_lookup(idx, best, lens)
     safe_loc = torch.where(found, loc_fwd, 0).clamp(0, cfg.n - 1)

@@ -1,8 +1,8 @@
 """Build and load the port's native code: the hand-written CUDA kernels (the
-banded DPs and the CIGAR walks) and the host code of the index build and
-the aligners (the suffix-array build, the external build's merge, the
-affine traceback, the banded unit-cost aligner and the Myers edit
-distance).
+banded DPs, the CIGAR walks and the seed vote) and the host code of the
+index build and the aligners (the suffix-array build, the external
+build's merge, the affine traceback, the banded unit-cost aligner and the
+Myers edit distance).
 
 Each source of `SOURCES` in `csrc/` is compiled by its compiler (nvcc for
 sm_90a for the kernels, g++ for the host code) into a shared library with
@@ -54,6 +54,7 @@ SOURCES = {
     "band_dp": ("band_dp.cu", _nvcc, "*.cuh"),
     "band_scores": ("band_scores.cu", _nvcc, "*.cuh"),
     "walk": ("walk.cu", _nvcc, "*.cuh"),
+    "vote": ("vote.cu", _nvcc, None),
     "sais": ("sais.cpp", _gxx, None),
     "samerge": ("samerge.cpp", _gxx, None),
     "affine": ("affine.cpp", _gxx, None),

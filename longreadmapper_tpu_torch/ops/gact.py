@@ -137,9 +137,6 @@ def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
     if lens.device != dev or tuple(lens.shape) != (B,):
         raise ValueError(f"lens {tuple(lens.shape)} on {lens.device}: (B,) "
                          f"on {dev}")
-    if 12 * B > 227 * 1024:
-        raise ValueError(f"gact_walk holds 12 bytes a lane in shared "
-                         f"memory: B = {B} does not fit")
     n_rows = gact_runs_cols_c(L, T, W, scale) // 2
     buf = torch.full((B, n_rows, 2), OP_PAD, dtype=torch.int16, device=dev)
     l32 = lens.to(torch.int32)

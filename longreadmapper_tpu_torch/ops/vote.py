@@ -14,11 +14,23 @@ Keys are int32, or int64 on the pos64 path.  JAX sorts an int64 bucket as
 a (hi, lo ^ sign) int32 pair with a (max, max) sentinel; that order is
 the signed int64 order and the sentinel is the int64 maximum, so the port
 sorts the int64 bucket itself.
+
+`top2_votes` launches the hand-written CUDA kernel
+csrc/vote.cu::top2_votes_kernel on a CUDA tensor (one CTA a row sorts its
+(bucket, column) pairs in shared memory, or in a global scratch row past
+the shared-memory limit; counted in `top2_votes.launches`), and runs the
+plain version `top2_votes_plain` on a CPU tensor.  The mapping step votes
+through csrc/vote.cu::vote_rows_kernel (ops/seed_vote.py), which ends in
+the same code.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from .. import native_build
 
 _ORD_BITS = 27
 _SENT = 0x7FFFFFFF
@@ -37,10 +49,87 @@ def _top1(count, first_occ, eligible):
     return idx, cnt
 
 
+# the C entries of csrc/vote.cu: each takes its argument struct and the
+# stream
+_P = ctypes.c_void_p
+VOTE_FUNCS = {"lrm_seed_tables": [_P, _P], "lrm_vote_rows": [_P, _P],
+              "lrm_top2_votes": [_P, _P]}
+# dynamic shared memory a row's CTA may take: the card's 227 KB a block
+# less room for the kernels' static arrays; a row that needs more sorts in
+# a global scratch row
+ROW_SMEM = 227 * 1024 - 8 * 1024
+
+
+class Top2Args(ctypes.Structure):
+    """csrc/vote.cu::Top2Args: every field 8 bytes."""
+    _fields_ = [(k, ctypes.c_void_p) for k in
+                ("keys", "valid", "v1", "key1", "v2", "scratch")] + [
+        (k, ctypes.c_int64) for k in
+        ("B", "V", "Vpad", "k64", "use_global", "row_bytes")]
+
+
+def pow2_at_least(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def row_scratch(rows: int, row_bytes: int, dev):
+    """(use_global, row_bytes, scratch tensor or None) of a row kernel whose
+    rows need `row_bytes` each: shared memory up to ROW_SMEM, else a global
+    scratch row each (16-byte aligned)."""
+    if row_bytes <= ROW_SMEM:
+        return 0, row_bytes, None
+    row_bytes = -(-row_bytes // 16) * 16
+    return 1, row_bytes, torch.empty(rows * row_bytes, dtype=torch.uint8,
+                                     device=dev)
+
+
 def top2_votes(keys, valid):
     """keys: (B, V) int32 diagonals, or int64 (pos64); valid: (B, V)
     bool.  Insertion order is the column index (callers lay votes out
-    seed-major, SA-hit-minor)."""
+    seed-major, SA-hit-minor).  One launch of top2_votes_kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if keys.device.type == "cpu":
+        return top2_votes_plain(keys, valid)
+    if keys.dtype not in (torch.int32, torch.int64):
+        keys = keys.to(torch.int32)
+    B, V = keys.shape
+    if valid.shape != keys.shape or valid.device != keys.device:
+        raise ValueError(f"keys {tuple(keys.shape)} on {keys.device}, valid "
+                         f"{tuple(valid.shape)} on {valid.device}")
+    if V >= (1 << (_ORD_BITS - 4)):
+        raise ValueError(f"top2_votes takes rows of < 2^23 votes, not {V}")
+    k64 = keys.dtype == torch.int64
+    keys = keys.contiguous()
+    valid = valid.to(torch.uint8).contiguous()
+    v1 = torch.empty(B, dtype=torch.int32, device=keys.device)
+    key1 = torch.empty(B, dtype=keys.dtype, device=keys.device)
+    v2 = torch.empty(B, dtype=torch.int32, device=keys.device)
+    if B == 0:
+        return v1, key1, v2
+    Vpad = pow2_at_least(V)
+    use_global, row_bytes, scratch = row_scratch(B, 12 * Vpad, keys.device)
+    args = Top2Args(keys.data_ptr(), valid.data_ptr(), v1.data_ptr(),
+                    key1.data_ptr(), v2.data_ptr(),
+                    scratch.data_ptr() if scratch is not None else None,
+                    B, V, Vpad, int(k64), use_global, row_bytes)
+    lib = native_build.load("vote", VOTE_FUNCS)
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        err = lib.lrm_top2_votes(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"top2_votes kernel launch failed: error {err}")
+    top2_votes.launches += 1
+    return v1, key1, v2
+
+
+top2_votes.launches = 0
+
+
+def top2_votes_plain(keys, valid):
+    """Plain version of top2_votes: the stable sort and the run analysis
+    in PyTorch ops."""
+    if keys.device.type == "cuda":
+        top2_votes_plain.cuda_calls += 1
     wide = keys.dtype == torch.int64
     if not wide:
         keys = keys.to(torch.int32)
@@ -93,6 +182,9 @@ def top2_votes(keys, valid):
     eligible2 = eligible & (idx != top1[:, None])
     _, v2 = _top1(count, pos_s, eligible2)
     return v1, key1, v2
+
+
+top2_votes_plain.cuda_calls = 0
 
 
 def top2_small_histo(keys, valid):

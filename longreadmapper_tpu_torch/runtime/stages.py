@@ -1,10 +1,15 @@
 """Where the mapping step's time goes: per-stage times of `map_step` and,
 on CUDA, a `torch.profiler` trace of the device kernels.  The stages are
-those of the branch the bucket takes (resident: band_dp, walk; gact:
-gact_forward, gact_walk), after `encode` where the chunk ships raw bytes
-(pipeline.raw_map_step).  On CUDA `walk` is one launch of the column-walk
-kernel and `gact_walk` the tile groups' direction kernel and walk kernel,
-one launch each a group (csrc/band_dp.cu, csrc/walk.cu).
+the seed vote's four (SEED_VOTE_STAGES: seed_tables, the per-seed tables
+and lchash gather, one kernel on CUDA; narrow, the pick of the narrowed
+wide seeds; vote_rows, a CTA a (read, phase) row on CUDA; accept, the
+per-read accept and the cross-phase histogram; `seed_vote_ms` is their
+sum), locate_window, then those of the branch the bucket takes (resident:
+band_dp, walk; gact: gact_forward, gact_walk), after `encode` where the
+chunk ships raw bytes (pipeline.raw_map_step).  On CUDA `walk` is one
+launch of the column-walk kernel and `gact_walk` the tile groups'
+direction kernel and walk kernel, one launch each a group
+(csrc/band_dp.cu, csrc/walk.cu).
 
 Each read chunk runs through `map_step` twice: once with a device sync
 after every stage (host clock, so a stage's time includes its launches)
@@ -32,6 +37,7 @@ from ..utils.config import Params
 from .reads import chunks
 
 TRACED_STEPS = 3
+SEED_VOTE_STAGES = ("seed_tables", "narrow", "vote_rows", "accept")
 
 
 def _step(cfg, idx, codes, codes_rc, lens, limits, dev):
@@ -93,10 +99,12 @@ def stage_times(genome_path: str, reads, chunk_b: int = 2048,
     # the first pass's band: half band on long buckets, gact or resident
     W, band = ((cfg.gact_W, cfg.gact_band) if cfg.use_gact
                else (cfg.short_W, cfg.short_band))
+    stage_ms = {k: v / n * 1e3 for k, v in stage_s.items()}
     out = dict(timed_chunks=n, B=cfg.B, L=cfg.L,
                path="gact" if cfg.use_gact else "resident", W=W, band=band,
                vote_slots=cfg.vote_slots, max_seeds=cfg.max_seeds,
-               stage_ms={k: v / n * 1e3 for k, v in stage_s.items()},
+               stage_ms=stage_ms,
+               seed_vote_ms=sum(stage_ms[k] for k in SEED_VOTE_STAGES),
                step_ms=step_s / n * 1e3, trace=None)
     if dev.type == "cuda" and traced_steps:
         out["trace"] = _trace(steps[1][1], traced_steps)

@@ -228,8 +228,11 @@ def test_stage_times_cover_every_stage(cli_dirs):
                                         background=False)))
     st = stage_times(cli_dirs["torch"], reads, chunk_b=8, device="cpu")
     assert st["timed_chunks"] == 1 and (st["B"], st["L"]) == (8, 256)
-    assert list(st["stage_ms"]) == ["seed_vote", "locate_window", "band_dp",
+    assert list(st["stage_ms"]) == ["seed_tables", "narrow", "vote_rows",
+                                    "accept", "locate_window", "band_dp",
                                     "walk", "pack"]
+    assert st["seed_vote_ms"] == sum(st["stage_ms"][k] for k in (
+        "seed_tables", "narrow", "vote_rows", "accept"))
     assert all(v >= 0 for v in st["stage_ms"].values()) and st["step_ms"] > 0
     assert st["trace"] is None                # traced on CUDA only
     with pytest.raises(ValueError):

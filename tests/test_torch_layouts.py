@@ -37,6 +37,7 @@ from longreadmapper_tpu_torch.formats.sam import sam_header
 from longreadmapper_tpu_torch.index import device as tdevice
 from longreadmapper_tpu_torch.mapping import pipeline as tpipe
 from longreadmapper_tpu_torch.models.mapper import TorchMapper
+from longreadmapper_tpu_torch.ops import seed_vote as tsv
 from longreadmapper_tpu_torch.ops import vote as tvote
 from longreadmapper_tpu_torch.runtime.accidx import build_index
 from longreadmapper_tpu_torch.runtime.reads import chunks, load_read_batches
@@ -379,11 +380,11 @@ def test_ctx_window_matches_pack_ctx_words(g24, seed_len):
             >> (2 * (16 - left)))
     real = sa >= left                 # the step verifies only these rows
     for dt in (torch.int32, torch.int64):
-        got = tpipe._ctx_window(cfg, sidx, torch.from_numpy(sa).to(dt))
+        got = tsv._ctx_window(cfg, sidx, torch.from_numpy(sa).to(dt))
         np.testing.assert_array_equal(got.numpy()[real], want[real])
     jidx, jmeta = jdevice.build_device_index(*args, slim=True)
     jcfg = jpipe.MapperConfig.from_params(params, jmeta, 8, 256)
     jwin = np.asarray(jpipe._ctx_window(jcfg, jidx, jnp.asarray(sa)))
     np.testing.assert_array_equal(
-        tpipe._ctx_window(cfg, sidx, torch.from_numpy(sa)).numpy(),
+        tsv._ctx_window(cfg, sidx, torch.from_numpy(sa)).numpy(),
         jwin.astype(np.int64))

@@ -23,6 +23,7 @@ from longreadmapper_tpu.mapping import pipeline as jpipe
 from longreadmapper_tpu.models.mapper import TPUMapper
 from longreadmapper_tpu.utils.config import Params
 from longreadmapper_tpu_torch.mapping import pipeline as tpipe
+from longreadmapper_tpu_torch.ops import seed_vote as tsv
 from longreadmapper_tpu_torch.models.mapper import TorchMapper
 
 torch.set_num_threads(1)
@@ -136,7 +137,7 @@ def test_slots_by_owner_match_jax_slots_by_sort(g60, BP, S, C):
                                         4096)
     want = jax.jit(lambda *a: jpipe._slots_by_sort(jc, *a, n_slots=C))(
         *(jnp.asarray(a) for a in args))
-    got = tpipe._slots_by_owner(C, *(torch.from_numpy(a) for a in args))
+    got = tsv._slots_by_owner(C, *(torch.from_numpy(a) for a in args))
     p_w, qw_w, wide_w, j_w, tot_w = (np.asarray(a) for a in want[:5])
     p_g, qw_g, wide_g, j_g, tot_g = (a.numpy() for a in got)
     np.testing.assert_array_equal(tot_g, tot_w)
@@ -157,7 +158,7 @@ def test_slots_by_owner_memory_at_50kb_shape():
     args = _slot_inputs(np.random.default_rng(0), BP, S, C)
     with profile(activities=[ProfilerActivity.CPU],
                  profile_memory=True) as prof:
-        tpipe._slots_by_owner(C, *(torch.from_numpy(a) for a in args))
+        tsv._slots_by_owner(C, *(torch.from_numpy(a) for a in args))
     ev = prof.events()
     assert max(e.cpu_memory_usage for e in ev) <= BP * C * 8
     assert sum(max(e.self_cpu_memory_usage, 0) for e in ev) <= 16 * BP * C * 8

@@ -23,6 +23,7 @@ from longreadmapper_tpu.utils.config import Params
 from longreadmapper_tpu_torch.mapping import pipeline as tpipe
 from longreadmapper_tpu_torch.models.mapper import TorchMapper
 from longreadmapper_tpu_torch.ops import rank as trank
+from longreadmapper_tpu_torch.ops import seed_vote as tsv
 
 torch.set_num_threads(1)
 
@@ -107,10 +108,10 @@ def test_seed_vote_wide_seeds_match_jax(rep):
                      chunk_b=8, device="cpu")
     codes, _, lens, _ = tm._pack_reads(rep["reads"], 256, 8)
     # the fixture must exercise the LF-narrowing branch
-    qw, num, ok = tpipe._position_tables(cfg, torch.from_numpy(codes))
-    kl = rep["tidx"].lch[tpipe._by_phase(cfg, num).clamp(0, 4095).long()]
+    qw, num, ok = tsv._position_tables(cfg, torch.from_numpy(codes))
+    kl = rep["tidx"].lch[tsv._by_phase(cfg, num).clamp(0, 4095).long()]
     assert ((kl[..., 1] - kl[..., 0] + 1 >= cfg.thres)
-            & tpipe._by_phase(cfg, ok)).any()
+            & tsv._by_phase(cfg, ok)).any()
     want, got = _seed_vote_both(rep, params, rep["reads"], 8, 256)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)

@@ -93,6 +93,7 @@ def test_step_marks_stages_in_order_without_changing_bytes(e2e):
     stages = []
     got = tpipe.map_step(cfg, e2e["tidx"], *args, mark=stages.append)
     want = tpipe.map_step(cfg, e2e["tidx"], *args)
-    assert stages == ["seed_vote", "locate_window", "band_dp", "walk", "pack"]
+    assert stages == ["seed_tables", "narrow", "vote_rows", "accept",
+                      "locate_window", "band_dp", "walk", "pack"]
     for k in ("blob", "ops_tail"):
         assert torch.equal(got[k], want[k]), k

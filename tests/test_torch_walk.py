@@ -496,3 +496,33 @@ def test_gact_walk_kernel_matches_plain_on_card(B, L, T, W, band, scale,
     assert torch.equal(got, want)
     assert sat.dtype == torch.bool and sat.device.type == "cuda"
     assert bool(sat) == bool(sat_p) == weave
+
+
+@pytest.mark.cuda
+def test_gact_walk_kernel_keeps_lanes_past_shared_memory_on_card():
+    """20,000 lanes: 12 bytes a lane pass the card's 227 KB a block, so
+    the kernel keeps the lanes' state in global memory; runs and the
+    saturated flag equal the plain walk's (a bound JAX does not have,
+    ROADMAP.md C2)."""
+    _card()
+    from _torch_parity import mutate_rows
+    B, L, T, W, band = 20000, 256, 64, 20, 128
+    assert 12 * B > 227 * 1024
+    rng = np.random.default_rng(20000)
+    q = rng.integers(0, 4, (B, L)).astype(np.int8)
+    t = mutate_rows(rng, q, 4, pad=16)
+    lens = np.full(B, L - 16, np.int32)
+    lens[::9] = 0
+    qd, td, ld = (torch.from_numpy(a).cuda() for a in (q, t, lens))
+    ckpt, wcol = tg.gact_forward(qd, td, T, W, band)
+    ed = wcol[ld.long(), torch.arange(B, device="cuda")].int()
+    ld = torch.where(ed < W, ld, 0)
+    n0 = tg.gact_traceback_c.launches
+    got, sat = tg.gact_traceback_c(qd, td, ckpt, ld, T, W, band, 1, 2)
+    want, sat_p = tg.gact_traceback_c_plain(qd, td, ckpt, ld, T, W, band, 1,
+                                            2)
+    torch.cuda.synchronize()
+    assert tg.gact_traceback_c.launches == n0 + 2
+    assert torch.equal(got, want)
+    assert sat.dtype == torch.bool and bool(sat) == bool(sat_p)
+    assert int((ld > 0).sum()) > B // 2
