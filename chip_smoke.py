@@ -49,15 +49,17 @@ Phases (each raises on failure; nothing is caught):
                of kernel and plain walk, the longest lane's iterations and
                the kernel's ns an iteration
   3b. vote   — after phase 4, whose index and reads it takes: the seed
-               vote's kernels (seed_tables, vote_rows, and top2_votes on
-               the rows' votes) each bit-equal to its plain version at the
-               1 kb, 10 kb and 50 kb buckets (B 2048, 200, 40), in the four
-               index layouts, in the compact and exact tiers; rows of C
-               20096 in global scratch at 50 kb; on a repeat genome whose
-               seeds are
-               wide and whose rows pass C; CUDA-event medians of kernel and
-               plain version at each bucket (full int32 layout) beside the
-               bound
+               vote's kernels (seed_tables; vote_rows, the wide seeds'
+               pick, the vote rows and each read's accept in one launch,
+               its (best, overflow) and every row's outputs; and
+               top2_votes on the rows' votes) each bit-equal to its plain
+               version at the 1 kb, 10 kb and 50 kb buckets (B 2048, 200,
+               40), in the four index layouts, in the compact and exact
+               tiers; rows of C 20096 in global scratch at 50 kb; on a
+               repeat genome whose seeds are wide and whose rows pass C;
+               CUDA-event medians of vote_rows and its plain versions in
+               every case, of each kernel at each bucket (full int32
+               layout), beside the bound
   4. map     — a 4 Mb single-contig genome and 16384 1 kb reads (3%
                substitutions, both strands, planted positions), all made
                from --seed; `cli index` (the lchash built on the card, held
@@ -824,12 +826,13 @@ def vote_bounds(cfg, tabs, rows_out, keys):
     its int32 operations at INT32_OPS_S.  seed_tables: the codes, an lch
     row a seed (and its high bytes), 2 x left occ lookups (a packed word
     and an occ_samp row) a wide seed, its six tables; ~5 ops a code.
-    vote_rows: the row's per-seed tables, an sa_ctx row (and high byte; a
-    text pair under slim) a vote, four outputs; a sort's C log2 C
-    compare-and-selects (4 ops) a row.  top2_votes: a key and a flag a
-    vote, three outputs, the same sort."""
+    vote_rows: a seed's wide flag, qw and one (k, count) pair, and a wide
+    seed's kw, cw and rank besides (the pick needs them for wide seeds
+    only); an sa_ctx row (and high byte; a text pair under slim) a vote; a
+    row's five outputs and its accept's reads of them, a read's length and
+    (best, overflow); a sort's C log2 C compare-and-selects (4 ops) a row.
+    top2_votes: a key and a flag a vote, three outputs, the same sort."""
     import math
-    import torch
     qw, k12, cnt12, wide, kw, cw = tabs
     B, L = cfg.B, cfg.L
     N, BP, C = qw.numel(), qw.shape[0], cfg.vote_slots
@@ -842,7 +845,8 @@ def vote_bounds(cfg, tabs, rows_out, keys):
     votes = int(rows_out[3].clamp(max=C).sum())
     row = (4 if cfg.slim else 8) + (1 if cfg.pos64 else 0) + (
         8 if cfg.slim and cfg.left else 0)
-    r_bytes = N * (4 + pb + 4 + 1) + votes * row + BP * (12 + pb)
+    r_bytes = (N * (1 + 4 + pb + 4) + n_wide * (pb + 4 + 4) + votes * row
+               + 2 * BP * (13 + pb) + B * (4 + pb + 1))
     sort_ops = BP * C * max(1.0, math.log2(C)) * 4
     k_bytes = keys.numel() * (keys.element_size() + 1) + BP * (8 + pb)
     out = []
@@ -855,15 +859,16 @@ def vote_bounds(cfg, tabs, rows_out, keys):
 
 def vote_case(tag: str, where: str, cfg, idx, codes, lens,
               res=None) -> dict:
-    """seed_tables, vote_rows and top2_votes on one chunk, each bit-equal
-    to its plain version; with `res`, CUDA-event medians of kernel and
-    plain version beside the bound, into res.  Returns the chunk's counts
-    (wide seeds, rows past C, votes)."""
-    import torch
-    from longreadmapper_tpu_torch.mapping.pipeline import _pick_wide_seeds
+    """seed_tables, vote_rows (the pick, the vote and the accept, one
+    launch) and top2_votes on one chunk, each bit-equal to its plain
+    version (vote_rows: (best, overflow) and every row's outputs against
+    pick_wide_seeds + vote_rows_plain + seed_accept_plain); CUDA-event
+    medians of vote_rows and its plain versions beside the bound, and with
+    `res` of all three, into res.  Returns the chunk's counts (wide seeds,
+    rows past C, votes) and vote_rows' times."""
     from longreadmapper_tpu_torch.ops.seed_vote import (
-        seed_tables, seed_tables_plain, slot_votes, vote_rows,
-        vote_rows_plain)
+        _TICKETS, pick_wide_seeds, seed_tables, seed_tables_plain,
+        slot_votes, vote_accept_plain, vote_rows, wide_rank)
     from longreadmapper_tpu_torch.ops.vote import (top2_votes,
                                                    top2_votes_plain)
     errs = {}
@@ -871,11 +876,18 @@ def vote_case(tag: str, where: str, cfg, idx, codes, lens,
     want = seed_tables_plain(cfg, idx, codes, lens)
     errs["seed_tables"] = check_equal("seed_tables", where, tabs, want, tag)
     qw, k12, cnt12, wide, kw, cw = want
-    pick = _pick_wide_seeds(cfg, wide, k12, cnt12, kw, cw)
+    rank = wide_rank(wide)
+    fused = vote_accept_plain(cfg, idx, lens, want, rank)
+    best, overflow, rows_p = fused
+    got = vote_rows(cfg, idx, lens, want, rank)
+    errs["vote_rows"] = max(
+        check_equal("vote_rows", where + " (best, overflow)", got[:2],
+                    fused[:2], tag),
+        check_equal("vote_rows", where + " (rows)", got[2], rows_p, tag))
+    if _TICKETS[codes.device].any():
+        raise AssertionError(f"{tag}: vote_rows left a read counter set")
+    pick = pick_wide_seeds(cfg, wide, k12, cnt12, kw, cw, rank)
     args = (cfg, idx, pick[0], pick[1], qw, wide)
-    rows_p = vote_rows_plain(*args)
-    errs["vote_rows"] = check_equal("vote_rows", where, vote_rows(*args),
-                                    rows_p, tag)
     keys, verified, total = slot_votes(*args)
     top_p = top2_votes_plain(keys, verified)
     errs["top2_votes"] = check_equal("top2_votes", where,
@@ -884,26 +896,33 @@ def vote_case(tag: str, where: str, cfg, idx, codes, lens,
                  wide=int(wide.sum()), wide_dropped=int(pick[2].sum()),
                  rows_past_C=int((total > cfg.vote_slots).sum()),
                  votes=int(total.clamp(max=cfg.vote_slots).sum()),
-                 verified=int(verified.sum()))
-    log(f"[{tag}] {where}: {json.dumps(stats)}")
-    if res is not None:
-        bounds = vote_bounds(cfg, want, rows_p, keys)
-        fns = {"seed_tables": (lambda: seed_tables(cfg, idx, codes, lens),
-                               lambda: seed_tables_plain(cfg, idx, codes,
-                                                         lens)),
-               "vote_rows": (lambda: vote_rows(*args),
-                             lambda: vote_rows_plain(*args)),
-               "top2_votes": (lambda: top2_votes(keys, verified),
-                              lambda: top2_votes_plain(keys, verified))}
-        for (name, (kern, plain)), bnd in zip(fns.items(), bounds):
-            ms = cuda_ms(kern, VOTE_TURNS)
-            plain_ms = cuda_ms(plain, 3)
+                 verified=int(verified.sum()),
+                 overflow_reads=int(overflow.sum()))
+    bounds = vote_bounds(cfg, want, rows_p, keys)
+    fns = {"seed_tables": (lambda: seed_tables(cfg, idx, codes, lens),
+                           lambda: seed_tables_plain(cfg, idx, codes,
+                                                     lens)),
+           "vote_rows": (lambda: vote_rows(cfg, idx, lens, want, rank),
+                         lambda: vote_accept_plain(cfg, idx, lens, want,
+                                                   rank)),
+           "top2_votes": (lambda: top2_votes(keys, verified),
+                          lambda: top2_votes_plain(keys, verified))}
+    for (name, (kern, plain)), bnd in zip(fns.items(), bounds):
+        if res is None and name != "vote_rows":
+            continue
+        ms = cuda_ms(kern, VOTE_TURNS)
+        plain_ms = cuda_ms(plain, 3)
+        if name == "vote_rows":
+            stats.update(vote_rows_ms=ms, plain_ms=plain_ms,
+                         bound_ms=bnd[0])
+        if res is not None:
             log(f"[{tag}] {name} {where} median: kernel {ms} ms, plain "
                 f"PyTorch {plain_ms} ms ({plain_ms / ms}x); bound {bnd[0]} "
                 f"ms by {bnd[1]} ({bnd[0] / ms:.4f} of it reached)")
             res.setdefault(name, {}).update(
                 err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
                 bound_by=bnd[1])
+    log(f"[{tag}] {where}: {json.dumps(stats)}")
     return stats
 
 
@@ -946,18 +965,21 @@ def phase_vote(d: str, fa: str, fq: str, long_data: dict, seed: int) -> dict:
     every layout and in the compact and exact tiers, on the phase-4 genome
     and on a repeat genome whose rows pass C and whose seeds are wide;
     rows of C 20096 (global scratch) at the 50 kb bucket; CUDA-event
-    medians at each bucket in the full int32 layout.  Returns the 1 kb bucket's
-    numbers, the kernels line's."""
+    medians of vote_rows and its plain versions in every case, of all
+    three kernels at each bucket in the full int32 layout.  Returns the 1
+    kb bucket's numbers, the kernels line's."""
     import gc
     import torch
     from longreadmapper_tpu_torch.index.device import load_device_index
-    from longreadmapper_tpu_torch.ops.vote import ROW_SMEM, pow2_at_least
+    from longreadmapper_tpu_torch import native_build
+    from longreadmapper_tpu_torch.ops.vote import VOTE_FUNCS, pow2_at_least
     from longreadmapper_tpu_torch.runtime.reads import load_read_batches
     tag = "3b vote"
     sets = {"1kb": next(iter(load_read_batches(fq, 2048, background=False)))}
     for name, (reads, _, _) in long_data.items():
         sets[name] = reads
     timed = {}
+    vote_ms = {}
     for lname, (load, _) in LAYOUTS.items():
         index = load_device_index(fa, "cuda", verbose=False, **load)
         for name, reads in sets.items():
@@ -969,7 +991,9 @@ def phase_vote(d: str, fa: str, fq: str, long_data: dict, seed: int) -> dict:
                          f"{' exact tier' if exact else ''}")
                 main = lname == "full int32" and not exact
                 out = {} if main else None
-                vote_case(tag, where, cfg, index[0], codes, lens, out)
+                st = vote_case(tag, where, cfg, index[0], codes, lens, out)
+                vote_ms[where] = [st["vote_rows_ms"], st["plain_ms"],
+                                  st["bound_ms"]]
                 if main:
                     timed[name] = out
         if lname == "full int32":
@@ -977,13 +1001,16 @@ def phase_vote(d: str, fa: str, fq: str, long_data: dict, seed: int) -> dict:
             # hg19's exact tier at 10 and 50 kb would (C to 114,176)
             cfg, codes, lens = vote_chunk(index, sets["50kb"], 50176, True,
                                           VOTE_GLOBAL_C)
-            if 12 * pow2_at_least(cfg.vote_slots) + 4 * cfg.max_seeds <= \
-                    ROW_SMEM:
+            lib = native_build.load("vote", VOTE_FUNCS)
+            if not lib.lrm_vote_scratch_bytes(
+                    pow2_at_least(cfg.vote_slots), cfg.max_seeds, 0):
                 raise AssertionError("phase 3b: the global-scratch case "
                                      "fits shared memory")
-            vote_case(tag, f"50kb B={cfg.B} C={cfg.vote_slots} (rows in "
-                      "global scratch) full int32", cfg, index[0], codes,
-                      lens)
+            where = (f"50kb B={cfg.B} C={cfg.vote_slots} (rows in global "
+                     "scratch) full int32")
+            st = vote_case(tag, where, cfg, index[0], codes, lens)
+            vote_ms[where] = [st["vote_rows_ms"], st["plain_ms"],
+                              st["bound_ms"]]
         del index
         gc.collect()
         torch.cuda.empty_cache()
@@ -991,9 +1018,11 @@ def phase_vote(d: str, fa: str, fq: str, long_data: dict, seed: int) -> dict:
     index = load_device_index(rfa, "cuda", verbose=False)
     for exact in (False, True):
         cfg, codes, lens = vote_chunk(index, rreads, 1024, exact)
-        st = vote_case(tag, f"repeat genome 1kb B={cfg.B} C="
-                       f"{cfg.vote_slots}{' exact tier' if exact else ''}",
-                       cfg, index[0], codes, lens)
+        where = (f"repeat genome 1kb B={cfg.B} C={cfg.vote_slots}"
+                 f"{' exact tier' if exact else ''}")
+        st = vote_case(tag, where, cfg, index[0], codes, lens)
+        vote_ms[where] = [st["vote_rows_ms"], st["plain_ms"],
+                          st["bound_ms"]]
         if not (st["wide"] > 0 and st["rows_past_C"] > 0):
             raise AssertionError(f"phase 3b: the repeat genome's chunk has "
                                  f"{st['wide']} wide seeds and "
@@ -1005,6 +1034,8 @@ def phase_vote(d: str, fa: str, fq: str, long_data: dict, seed: int) -> dict:
     torch.cuda.empty_cache()
     for name, out in timed.items():
         log(f"[{tag}] {name} bucket, full int32: " + json.dumps(out))
+    log(f"[{tag}] vote_rows (pick, vote and accept in one launch) ms, its "
+        "plain versions' ms, bound ms, per case: " + json.dumps(vote_ms))
     return timed["1kb"]
 
 
@@ -1189,7 +1220,7 @@ def reset_counts():
     for fn in (banded_nw_dirs_v, banded_nw_scores, gact_forward,
                device_traceback_c_plain, gact_traceback_c_plain,
                seed_vote.seed_tables_plain, seed_vote.vote_rows_plain,
-               vote.top2_votes_plain):
+               seed_vote.seed_accept_plain, vote.top2_votes_plain):
         fn.cuda_calls = 0
     device_traceback_c.host_syncs = gact_traceback_c.host_syncs = 0
     torch.cuda.synchronize()
@@ -1226,6 +1257,7 @@ def path_checks(need) -> list:
              + gact_traceback_c_plain.cuda_calls)
     plain_vote = (seed_vote.seed_tables_plain.cuda_calls
                   + seed_vote.vote_rows_plain.cuda_calls
+                  + seed_vote.seed_accept_plain.cuda_calls
                   + vote.top2_votes_plain.cuda_calls)
     syncs = walk_syncs()
     for k, v in run.items():
@@ -1239,7 +1271,7 @@ def path_checks(need) -> list:
              f"{syncs} == 0"),
             (plain_vote == 0,
              f"plain seed-vote calls on CUDA (seed_tables, vote_rows, "
-             f"top2_votes) {plain_vote} == 0")]
+             f"the accept, top2_votes) {plain_vote} == 0")]
 
 
 def as_extra(checks) -> list:
@@ -1426,7 +1458,7 @@ def plain_seed_vote():
     from longreadmapper_tpu_torch.ops import seed_vote
     saved = pipeline.seed_tables, pipeline.vote_rows
     pipeline.seed_tables = seed_vote.seed_tables_plain
-    pipeline.vote_rows = seed_vote.vote_rows_plain
+    pipeline.vote_rows = seed_vote.vote_accept_plain
     try:
         yield
     finally:
@@ -2295,8 +2327,10 @@ def main(argv=None) -> int:
                                ":581 (an XLA gather, not a pallas_call)",
                 "vote_rows": "longreadmapper_tpu/mapping/pipeline.py:690 "
                              "and longreadmapper_tpu/ops/vote.py:56 "
-                             "top2_votes (an XLA gather/sort, not a "
-                             "pallas_call)"}
+                             "top2_votes, and the accept of "
+                             "longreadmapper_tpu/mapping/pipeline.py:"
+                             "768-796 (an XLA gather/sort and small ops, "
+                             "not a pallas_call)"}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
         "source": f"longreadmapper_tpu_torch/csrc/{src[k]}",

@@ -41,10 +41,10 @@ flag reads whose ed reaches it (overflow bit 2) for the full-band retry.
 
 The column traceback is the port's only walk.  On the card the seed vote
 is two CUDA kernels (csrc/vote.cu through ops/seed_vote.py: the per-seed
-tables, a CTA a vote row) and both walks are CUDA kernels (csrc/walk.cu:
-one launch a resident pass, one a gact tile group), and the wide seeds are
-picked by a rank, not a branch, so the step reads nothing back on the
-host.
+tables; the pick, the vote rows and each read's accept in one launch) and
+both walks are CUDA kernels (csrc/walk.cu: one launch a resident pass, one
+a gact tile group), and the wide seeds are picked by a rank, not a branch,
+so the step reads nothing back on the host.
 """
 
 from __future__ import annotations
@@ -59,9 +59,8 @@ from ..index.device import DeviceIndex, IndexMeta
 from ..ops.band_dp import banded_nw_dirs
 from ..ops.band_scores import band_checkpoints
 from ..ops.gact import gact_group_tiles, gact_traceback_c
-from ..ops.seed_vote import seed_tables, vote_rows
+from ..ops.seed_vote import seed_tables, vote_rows, wide_rank
 from ..ops.traceback import device_traceback_c
-from ..ops.vote import top2_small_histo
 from ..utils.config import Params
 
 I32 = torch.int32
@@ -219,66 +218,20 @@ class MapperConfig:
             pos64=meta.pos_dtype == "int64", slim=meta.slim)
 
 
-def _pick_wide_seeds(cfg: MapperConfig, wide, k12, cnt12, kw, cw):
-    """The narrowed wide seeds JAX keeps: its _narrow_wide_seeds compacts
-    the first cfg.wide_lanes wide seeds of the chunk in flat order onto
-    its lanes (a stable sort), LF-narrows them and scatters them back; the
-    rest vote nothing and flag their row.  seed_tables has narrowed every
-    wide seed already (kw, cw), so picking is a rank: a wide seed is kept
-    when at most wide_lanes wide seeds come before it and itself.  No
-    branch and no host sync: with no wide seed it returns (k12, cnt12,
-    no overflow), JAX's lax.cond's other branch.
-
-    Returns (k_seed, cnt, row_overflow)."""
-    flat = wide.reshape(-1)
-    rank = torch.cumsum(flat, 0, dtype=I32)
-    picked = (flat & (rank <= min(cfg.wide_lanes, flat.shape[0]))
-              ).reshape(wide.shape)
-    k_seed = torch.where(picked, kw, k12)
-    cnt = torch.where(wide, torch.where(picked, cw, 0), cnt12)
-    return k_seed, cnt, (wide & ~picked).any(dim=1)
-
-
 def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens,
                mark=None):
     """All seeding phases in one batched pass; returns (best, overflow).
-    `mark(stage)`, when given, follows seed_tables, narrow, vote_rows and
-    accept."""
+    `mark(stage)`, when given, follows seed_tables, narrow (the wide
+    seeds' rank), vote_rows (the pick, the vote and each read's accept, one
+    launch on CUDA) and accept (nothing left to issue: JAX's accept ran in
+    the vote's launch)."""
     mark = mark or (lambda stage: None)
-    B, P = cfg.B, cfg.phases
-    dev = codes.device
-    qw, k12, cnt12, wide, kw, cw = seed_tables(cfg, idx, codes, lens)
+    tabs = seed_tables(cfg, idx, codes, lens)
     mark("seed_tables")
-    k_seed, cnt, wide_overflow = _pick_wide_seeds(cfg, wide, k12, cnt12,
-                                                  kw, cw)
+    rank = wide_rank(tabs[3])
     mark("narrow")
-    CS = cfg.vote_slots
-    v1, key1, v2, total = vote_rows(cfg, idx, k_seed, cnt, qw, wide)
+    best, overflow, _ = vote_rows(cfg, idx, lens, tabs, rank)
     mark("vote_rows")
-    v1 = v1.reshape(B, P)
-    key1 = key1.reshape(B, P)
-    v2 = v2.reshape(B, P)
-
-    # per-phase accept, (v1+v2)/num_seeds > accept_score as exact rational
-    num_seeds = (lens.to(I32) // cfg.step)[:, None]
-    nacc, dacc = cfg.accept_frac
-    accept = (num_seeds > 0) & ((v1 + v2) * dacc > nacc * num_seeds)
-    any_acc = accept.any(dim=1)
-    it_star = accept.to(I32).argmax(dim=1)              # first accepted
-    best_acc = key1.gather(1, it_star[:, None])[:, 0]
-
-    # outer histogram: every phase before the accepted one (all if none)
-    pidx = torch.arange(P, dtype=torch.int64, device=dev)[None, :]
-    upto = torch.where(any_acc, it_star, P)[:, None]
-    outer_valid = (num_seeds > 0) & (v1 != 0) & (pidx < upto)
-    _, okey1, _ = top2_small_histo(key1, outer_valid)
-
-    # no acceptance, or acceptance on the last phase: outer top-1 wins
-    need_outer = ~any_acc | (it_star == P - 1)
-    best = torch.where(need_outer, okey1, best_acc)
-    executed = pidx <= torch.where(any_acc, it_star, P - 1)[:, None]
-    per_phase_ovf = ((total > CS) | wide_overflow).reshape(B, P)
-    overflow = (per_phase_ovf & executed).any(dim=1)
     mark("accept")
     return best, overflow
 

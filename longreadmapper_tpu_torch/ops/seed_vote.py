@@ -13,28 +13,33 @@ rows b*P + p, start j = p + s*step), in the (B*P, S) layout:
                    and 0 elsewhere
 (pos: int32, int64 under pos64).  JAX narrows only the first wide_lanes
 wide seeds of a chunk in flat order, on compacted lanes; the narrowing of
-a seed depends on that seed alone, so the step picks the narrowed values
-of exactly those seeds (mapping/pipeline._pick_wide_seeds), with no host
-sync.
+a seed depends on that seed alone, so the vote picks the narrowed values
+of exactly those seeds (`pick_wide_seeds`: a rank, the flat cumsum of the
+wide flags, `wide_rank`), with no host sync.
 
-`vote_rows(cfg, idx, k_seed, cnt, qw, wide)` — per (read, phase) row of
-C = cfg.vote_slots slots: slot c's owner is the seed whose slot range
-[cum - cnt, cum) holds c; the slot gathers its `sa_ctx` row at the
-owner's interval rank, verifies the seed's `left`-base prefix against the
-row's context (the slim layout rebuilds it from one `text_pair` row), and
-votes the diagonal key SA - left - j (SA - j for a wide seed); then the
-row's top-2 buckets (ops/vote.top2_votes).  Returns (v1, key1, v2,
-total), total = the row's vote count (> C: the row overflowed).
+`vote_rows(cfg, idx, lens, tabs, rank)` — the pick, then per (read,
+phase) row of C = cfg.vote_slots slots: slot c's owner is the seed whose
+slot range [cum - cnt, cum) holds c; the slot gathers its `sa_ctx` row at
+the owner's interval rank, verifies the seed's `left`-base prefix against
+the row's context (the slim layout rebuilds it from one `text_pair` row),
+and votes the diagonal key SA - left - j (SA - j for a wide seed); the
+row's top-2 buckets (ops/vote.top2_votes); then each read's accept over
+its P rows (`seed_accept_plain`).  Returns (best, overflow, rows): best
+and overflow (B,), rows = (v1, key1, v2, total, wide_overflow), each
+(B*P,), total the row's vote count (> C: the row overflowed).
 
-On a CUDA tensor each launches its hand-written kernel in
-csrc/vote.cu (seed_tables_kernel: a thread a seed; vote_rows_kernel: a
-CTA a row), counted in `seed_tables.launches` / `vote_rows.launches`; on
-a CPU tensor each runs its plain version, `seed_tables_plain` /
-`vote_rows_plain`, the JAX step's ops in PyTorch (their `cuda_calls`
-count calls on the card, which the card's map path leaves at 0).  An
-index whose gather tables are `ShardedRows` (parallel/dist.py) is
-gathered between two launches of each kernel: the first writes the rows,
-the collective gathers them, the second reads them.
+On a CUDA tensor each launches its hand-written kernels in csrc/vote.cu
+(seed_tables_kernel: a thread a seed; the vote: vote_warp_kernel, a warp
+a row and a CTA a read, for rows of at most 512 slots, else
+vote_cta_kernel, a CTA a row; each ends with the read's accept), counted
+in `seed_tables.launches` / `vote_rows.launches`; on a CPU tensor each
+runs its plain version, `seed_tables_plain` / `vote_accept_plain` (the
+pick, `vote_rows_plain`, `seed_accept_plain`), the JAX step's ops in
+PyTorch (their `cuda_calls` count calls on the card, which the card's map
+path leaves at 0).  An index whose gather tables are `ShardedRows`
+(parallel/dist.py) is gathered between two launches of each kernel: the
+first writes the rows, the collective gathers them, the second reads
+them.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ import torch
 
 from .. import native_build
 from .rank import backward_step
-from .vote import (VOTE_FUNCS, pow2_at_least, row_scratch,
+from .vote import (VOTE_FUNCS, pow2_at_least, row_scratch, top2_small_histo,
                    top2_votes_plain)
 
 I32 = torch.int32
@@ -201,7 +206,7 @@ seed_tables_plain.cuda_calls = 0
 
 def _rows_gather(cfg, idx, p_safe):
     """The sa_ctx rows at p_safe (and sa_hi, and under slim the text pairs
-    of each row's verify window): what vote_rows_kernel gathers itself
+    of each row's verify window): what the vote kernels gather themselves
     from replicated tables."""
     if cfg.slim:
         sa_low = idx.sa_ctx[p_safe]
@@ -264,6 +269,83 @@ def vote_rows_plain(cfg, idx, k_seed, cnt, qw, wide):
 vote_rows_plain.cuda_calls = 0
 
 
+def wide_rank(wide):
+    """The flat inclusive count of wide seeds, (B*P*S,) int32: a wide
+    seed's rank among the chunk's wide seeds in flat order."""
+    return torch.cumsum(wide.reshape(-1), 0, dtype=I32)
+
+
+def pick_wide_seeds(cfg, wide, k12, cnt12, kw, cw, rank):
+    """The narrowed wide seeds JAX keeps: its _narrow_wide_seeds compacts
+    the first cfg.wide_lanes wide seeds of the chunk in flat order onto
+    its lanes (a stable sort), LF-narrows them and scatters them back; the
+    rest vote nothing and flag their row.  seed_tables has narrowed every
+    wide seed already (kw, cw), so picking is a rank (`wide_rank`): a wide
+    seed is kept when at most wide_lanes wide seeds come before it and
+    itself.  No branch and no host sync: with no wide seed it returns
+    (k12, cnt12, no overflow), JAX's lax.cond's other branch.
+
+    Returns (k_seed, cnt, row_overflow)."""
+    flat = wide.reshape(-1)
+    picked = (flat & (rank <= min(cfg.wide_lanes, flat.shape[0]))
+              ).reshape(wide.shape)
+    k_seed = torch.where(picked, kw, k12)
+    cnt = torch.where(wide, torch.where(picked, cw, 0), cnt12)
+    return k_seed, cnt, (wide & ~picked).any(dim=1)
+
+
+def seed_accept_plain(cfg, lens, v1, key1, v2, total, wide_overflow):
+    """Plain version of the reads' accept (the end of JAX's _seed_vote,
+    alnmain.c:375-403) over the rows' top-2, each (B*P,): per phase,
+    (v1 + v2) / num_seeds > accept_score as an exact rational; the first
+    accepted phase's key1, or the outer histogram's top-1 over the earlier
+    phases with v1 != 0 when no phase or the last one accepted; overflow
+    over the executed phases.  Returns (best, overflow), each (B,)."""
+    if v1.device.type == "cuda":
+        seed_accept_plain.cuda_calls += 1
+    B, P = cfg.B, cfg.phases
+    dev = v1.device
+    v1 = v1.reshape(B, P)
+    key1 = key1.reshape(B, P)
+    v2 = v2.reshape(B, P)
+
+    # per-phase accept, (v1+v2)/num_seeds > accept_score as exact rational
+    num_seeds = (lens.to(I32) // cfg.step)[:, None]
+    nacc, dacc = cfg.accept_frac
+    accept = (num_seeds > 0) & ((v1 + v2) * dacc > nacc * num_seeds)
+    any_acc = accept.any(dim=1)
+    it_star = accept.to(I32).argmax(dim=1)              # first accepted
+    best_acc = key1.gather(1, it_star[:, None])[:, 0]
+
+    # outer histogram: every phase before the accepted one (all if none)
+    pidx = torch.arange(P, dtype=torch.int64, device=dev)[None, :]
+    upto = torch.where(any_acc, it_star, P)[:, None]
+    outer_valid = (num_seeds > 0) & (v1 != 0) & (pidx < upto)
+    _, okey1, _ = top2_small_histo(key1, outer_valid)
+
+    # no acceptance, or acceptance on the last phase: outer top-1 wins
+    need_outer = ~any_acc | (it_star == P - 1)
+    best = torch.where(need_outer, okey1, best_acc)
+    executed = pidx <= torch.where(any_acc, it_star, P - 1)[:, None]
+    per_phase_ovf = ((total > cfg.vote_slots) | wide_overflow).reshape(B, P)
+    overflow = (per_phase_ovf & executed).any(dim=1)
+    return best, overflow
+
+
+seed_accept_plain.cuda_calls = 0
+
+
+def vote_accept_plain(cfg, idx, lens, tabs, rank):
+    """Plain version of vote_rows: pick_wide_seeds, vote_rows_plain and
+    seed_accept_plain."""
+    qw, k12, cnt12, wide, kw, cw = tabs
+    k_seed, cnt, wide_overflow = pick_wide_seeds(cfg, wide, k12, cnt12, kw,
+                                                 cw, rank)
+    rows = vote_rows_plain(cfg, idx, k_seed, cnt, qw, wide) + (
+        wide_overflow,)
+    return seed_accept_plain(cfg, lens, *rows) + (rows,)
+
+
 # ------------------------------------------------------------- the kernels
 
 class TablesArgs(ctypes.Structure):
@@ -280,12 +362,27 @@ class TablesArgs(ctypes.Structure):
 class RowsArgs(ctypes.Structure):
     """csrc/vote.cu::RowsArgs: every field 8 bytes."""
     _fields_ = [(k, ctypes.c_void_p) for k in
-                ("cnt", "kseed", "qw", "wide", "sa_ctx", "sa_hi",
-                 "text_pair", "rows", "v1", "key1", "v2", "total",
+                ("cnt12", "k12", "kw", "cw", "rank", "qw", "wide", "lens",
+                 "sa_ctx", "sa_hi", "text_pair", "rows", "v1", "key1", "v2",
+                 "total", "row_ovf", "best", "overflow", "tickets",
                  "scratch")] + [
         (k, ctypes.c_int64) for k in
-        ("BP", "P", "S", "step", "C", "Cpad", "n", "m_pair", "left",
-         "pos64", "slim", "pre", "stage", "use_global", "row_bytes")]
+        ("B", "P", "S", "step", "C", "Cpad", "n", "m_pair", "left",
+         "lanes", "nacc", "dacc", "pos64", "slim", "pre", "stage",
+         "use_global", "row_bytes")]
+
+
+# a device's read counters for the vote's accept (vote_cta_kernel's
+# tickets): zeroed once, left at 0 by every launch; launches that share
+# them run in order on one stream, as the mapping step's do
+_TICKETS: dict = {}
+
+
+def _tickets(dev, B: int):
+    t = _TICKETS.get(dev)
+    if t is None or t.numel() < B:
+        t = _TICKETS[dev] = torch.zeros(max(B, 4096), dtype=I32, device=dev)
+    return t
 
 
 def _ptr(t):
@@ -394,48 +491,66 @@ def _seed_tables_run(lib, stream, cfg, idx, codes, lens):
 seed_tables.launches = 0
 
 
-def vote_rows(cfg, idx, k_seed, cnt, qw, wide):
-    """(v1, key1, v2, total), each (B*P,): one launch of vote_rows_kernel on
-    CUDA tensors (two over row-sharded tables), the plain version on CPU
-    tensors."""
-    if cnt.device.type == "cpu":
-        return vote_rows_plain(cfg, idx, k_seed, cnt, qw, wide)
+def vote_rows(cfg, idx, lens, tabs, rank):
+    """(best, overflow, (v1, key1, v2, total, wide_overflow)) of
+    seed_tables' `tabs` and `wide_rank`'s `rank`: one launch of the vote
+    kernel on CUDA tensors (two over row-sharded tables), the plain
+    version on CPU tensors."""
+    if lens.device.type == "cpu":
+        return vote_accept_plain(cfg, idx, lens, tabs, rank)
     lib = native_build.load("vote", VOTE_FUNCS)
-    with torch.cuda.device(cnt.device):
-        return _vote_rows_run(lib, _stream(cnt.device), cfg, idx, k_seed,
-                              cnt, qw, wide)
+    with torch.cuda.device(lens.device):
+        return _vote_rows_run(lib, _stream(lens.device), cfg, idx, lens,
+                              tabs, rank)
 
 
-def _vote_rows_run(lib, stream, cfg, idx, k_seed, cnt, qw, wide):
+def _vote_rows_run(lib, stream, cfg, idx, lens, tabs, rank):
     """vote_rows through `lib`'s lrm_vote_rows on `stream`."""
-    dev = cnt.device
-    BP, S = cnt.shape
+    dev = lens.device
+    qw, k12, cnt12, wide, kw, cw = tabs
+    B, P = cfg.B, cfg.phases
+    BP, S = cnt12.shape
     C = cfg.vote_slots
     Cpad = pow2_at_least(C)
     pdt = torch.int64 if cfg.pos64 else I32
-    if (cnt.dtype != I32 or qw.dtype != I32 or k_seed.dtype != pdt
-            or wide.dtype != torch.bool):
-        raise TypeError(f"cnt, qw int32, k_seed {pdt}, wide bool; got "
-                        f"{cnt.dtype}, {qw.dtype}, {k_seed.dtype}, "
+    if (cnt12.dtype != I32 or qw.dtype != I32 or cw.dtype != I32
+            or k12.dtype != pdt or kw.dtype != pdt
+            or wide.dtype != torch.bool or rank.dtype != I32):
+        raise TypeError(f"cnt12, qw, cw, rank int32, k12, kw {pdt}, wide "
+                        f"bool; got {cnt12.dtype}, {qw.dtype}, {cw.dtype}, "
+                        f"{rank.dtype}, {k12.dtype}, {kw.dtype}, "
                         f"{wide.dtype}")
-    for name, t in (("k_seed", k_seed), ("qw", qw), ("wide", wide)):
+    if BP != B * P or tuple(lens.shape) != (B,):
+        raise ValueError(f"vote_rows: {BP} rows, lens {tuple(lens.shape)}; "
+                         f"needs {B} reads of {P} rows")
+    for name, t in (("k12", k12), ("kw", kw), ("cw", cw), ("qw", qw),
+                    ("wide", wide)):
         if tuple(t.shape) != (BP, S):
-            raise ValueError(f"vote_rows: {name} {tuple(t.shape)}, cnt "
+            raise ValueError(f"vote_rows: {name} {tuple(t.shape)}, cnt12 "
                              f"{(BP, S)}")
-    cnt, k_seed, qw = cnt.contiguous(), k_seed.contiguous(), qw.contiguous()
-    wide = wide.contiguous()
-    _check("vote_rows", dev, dict(k_seed=k_seed, qw=qw, wide=wide))
-    v1 = torch.empty(BP, dtype=I32, device=dev)
-    key1 = torch.empty(BP, dtype=pdt, device=dev)
-    v2 = torch.empty(BP, dtype=I32, device=dev)
-    total = torch.empty(BP, dtype=I32, device=dev)
-    use_global, row_bytes, scratch = row_scratch(BP, 12 * Cpad + 4 * S, dev)
+    if rank.numel() != BP * S:
+        raise ValueError(f"vote_rows: rank of {rank.numel()}, not {BP * S}")
+    ins = {k: t.contiguous() for k, t in dict(
+        cnt12=cnt12, k12=k12, kw=kw, cw=cw, rank=rank, qw=qw, wide=wide,
+        lens=lens.to(I32)).items()}
+    _check("vote_rows", dev, ins)
+    out = dict(v1=torch.empty(BP, dtype=I32, device=dev),
+               key1=torch.empty(BP, dtype=pdt, device=dev),
+               v2=torch.empty(BP, dtype=I32, device=dev),
+               total=torch.empty(BP, dtype=I32, device=dev),
+               row_ovf=torch.empty(BP, dtype=torch.bool, device=dev),
+               best=torch.empty(B, dtype=pdt, device=dev),
+               overflow=torch.empty(B, dtype=torch.bool, device=dev))
+    use_global, row_bytes, scratch = row_scratch(lib, BP, Cpad, S,
+                                                 cfg.pos64, dev)
+    nacc, dacc = cfg.accept_frac
     fields = dict(
-        cnt=cnt.data_ptr(), kseed=k_seed.data_ptr(), qw=qw.data_ptr(),
-        wide=wide.data_ptr(), v1=v1.data_ptr(), key1=key1.data_ptr(),
-        v2=v2.data_ptr(), total=total.data_ptr(), scratch=_ptr(scratch),
-        BP=BP, P=cfg.phases, S=S, step=cfg.step, C=C, Cpad=Cpad, n=cfg.n,
-        left=cfg.left, pos64=int(cfg.pos64), slim=int(cfg.slim),
+        **{k: t.data_ptr() for k, t in ins.items()},
+        **{k: t.data_ptr() for k, t in out.items()},
+        tickets=_tickets(dev, B).data_ptr(), scratch=_ptr(scratch),
+        B=B, P=P, S=S, step=cfg.step, C=C, Cpad=Cpad, n=cfg.n,
+        left=cfg.left, lanes=min(cfg.wide_lanes, BP * S), nacc=nacc,
+        dacc=dacc, pos64=int(cfg.pos64), slim=int(cfg.slim),
         use_global=use_global, row_bytes=row_bytes)
     names = ("sa_ctx", "sa_hi", "text_pair")
     if _sharded(idx, *names):
@@ -468,7 +583,8 @@ def _vote_rows_run(lib, stream, cfg, idx, k_seed, cnt, qw, wide):
         text_pair=_ptr(pair), rows=None, m_pair=m_pair, pre=pre,
         stage=_STAGE_ALL), stream)
     vote_rows.launches += 1
-    return v1, key1, v2, total
+    return out["best"], out["overflow"], tuple(
+        out[k] for k in ("v1", "key1", "v2", "total", "row_ovf"))
 
 
 vote_rows.launches = 0

@@ -15,13 +15,15 @@ a (hi, lo ^ sign) int32 pair with a (max, max) sentinel; that order is
 the signed int64 order and the sentinel is the int64 maximum, so the port
 sorts the int64 bucket itself.
 
-`top2_votes` launches the hand-written CUDA kernel
-csrc/vote.cu::top2_votes_kernel on a CUDA tensor (one CTA a row sorts its
-(bucket, column) pairs in shared memory, or in a global scratch row past
-the shared-memory limit; counted in `top2_votes.launches`), and runs the
-plain version `top2_votes_plain` on a CPU tensor.  The mapping step votes
-through csrc/vote.cu::vote_rows_kernel (ops/seed_vote.py), which ends in
-the same code.
+`top2_votes` launches a hand-written CUDA kernel of csrc/vote.cu on a
+CUDA tensor (rows of at most 512 keys: top2_warp_kernel, a warp a row,
+its (bucket, column) pairs sorted in registers and shuffles; longer rows:
+top2_cta_kernel, a CTA a row, the pairs in shared memory, or in a global
+scratch row past the shared-memory limit, as the library's
+lrm_vote_scratch_bytes sizes it; counted in
+`top2_votes.launches`), and runs the plain version `top2_votes_plain` on
+a CPU tensor.  The mapping step votes through the vote kernels of
+csrc/vote.cu (ops/seed_vote.vote_rows), which share the sort and count.
 """
 
 from __future__ import annotations
@@ -52,12 +54,10 @@ def _top1(count, first_occ, eligible):
 # the C entries of csrc/vote.cu: each takes its argument struct and the
 # stream
 _P = ctypes.c_void_p
+_I64 = ctypes.c_int64
 VOTE_FUNCS = {"lrm_seed_tables": [_P, _P], "lrm_vote_rows": [_P, _P],
-              "lrm_top2_votes": [_P, _P]}
-# dynamic shared memory a row's CTA may take: the card's 227 KB a block
-# less room for the kernels' static arrays; a row that needs more sorts in
-# a global scratch row
-ROW_SMEM = 227 * 1024 - 8 * 1024
+              "lrm_top2_votes": [_P, _P],
+              "lrm_vote_scratch_bytes": ([_I64, _I64, _I64], _I64)}
 
 
 class Top2Args(ctypes.Structure):
@@ -72,13 +72,14 @@ def pow2_at_least(x: int) -> int:
     return 1 << max(0, int(x) - 1).bit_length()
 
 
-def row_scratch(rows: int, row_bytes: int, dev):
-    """(use_global, row_bytes, scratch tensor or None) of a row kernel whose
-    rows need `row_bytes` each: shared memory up to ROW_SMEM, else a global
-    scratch row each (16-byte aligned)."""
-    if row_bytes <= ROW_SMEM:
-        return 0, row_bytes, None
-    row_bytes = -(-row_bytes // 16) * 16
+def row_scratch(lib, rows: int, n_pad: int, seeds: int, k64: bool, dev):
+    """(use_global, row_bytes, scratch tensor or None) of `rows` rows of
+    n_pad pairs and `seeds` staged seeds (0 for top2_votes): a global
+    scratch row each where the library's lrm_vote_scratch_bytes asks for
+    one (a row past shared memory), else none."""
+    row_bytes = lib.lrm_vote_scratch_bytes(n_pad, seeds, int(k64))
+    if row_bytes == 0:
+        return 0, 0, None
     return 1, row_bytes, torch.empty(rows * row_bytes, dtype=torch.uint8,
                                      device=dev)
 
@@ -86,10 +87,18 @@ def row_scratch(rows: int, row_bytes: int, dev):
 def top2_votes(keys, valid):
     """keys: (B, V) int32 diagonals, or int64 (pos64); valid: (B, V)
     bool.  Insertion order is the column index (callers lay votes out
-    seed-major, SA-hit-minor).  One launch of top2_votes_kernel on CUDA
+    seed-major, SA-hit-minor).  One launch of a top-2 kernel on CUDA
     tensors, the plain version on CPU tensors."""
     if keys.device.type == "cpu":
         return top2_votes_plain(keys, valid)
+    lib = native_build.load("vote", VOTE_FUNCS)
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        return _top2_votes_run(lib, stream, keys, valid)
+
+
+def _top2_votes_run(lib, stream, keys, valid):
+    """top2_votes through `lib`'s lrm_top2_votes on `stream`."""
     if keys.dtype not in (torch.int32, torch.int64):
         keys = keys.to(torch.int32)
     B, V = keys.shape
@@ -107,15 +116,13 @@ def top2_votes(keys, valid):
     if B == 0:
         return v1, key1, v2
     Vpad = pow2_at_least(V)
-    use_global, row_bytes, scratch = row_scratch(B, 12 * Vpad, keys.device)
+    use_global, row_bytes, scratch = row_scratch(lib, B, Vpad, 0, k64,
+                                                 keys.device)
     args = Top2Args(keys.data_ptr(), valid.data_ptr(), v1.data_ptr(),
                     key1.data_ptr(), v2.data_ptr(),
                     scratch.data_ptr() if scratch is not None else None,
                     B, V, Vpad, int(k64), use_global, row_bytes)
-    lib = native_build.load("vote", VOTE_FUNCS)
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        err = lib.lrm_top2_votes(ctypes.byref(args), stream)
+    err = lib.lrm_top2_votes(ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"top2_votes kernel launch failed: error {err}")
     top2_votes.launches += 1

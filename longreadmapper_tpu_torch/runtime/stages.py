@@ -1,10 +1,10 @@
 """Where the mapping step's time goes: per-stage times of `map_step` and,
 on CUDA, a `torch.profiler` trace of the device kernels.  The stages are
 the seed vote's four (SEED_VOTE_STAGES: seed_tables, the per-seed tables
-and lchash gather, one kernel on CUDA; narrow, the pick of the narrowed
-wide seeds; vote_rows, a CTA a (read, phase) row on CUDA; accept, the
-per-read accept and the cross-phase histogram; `seed_vote_ms` is their
-sum), locate_window, then those of the branch the bucket takes (resident:
+and lchash gather, one kernel on CUDA; narrow, the wide seeds' rank;
+vote_rows, the pick, the (read, phase) rows' votes and each read's
+accept, one kernel on CUDA; accept, empty since the accept joined the
+vote's launch; `seed_vote_ms` is their sum), locate_window, then those of the branch the bucket takes (resident:
 band_dp, walk; gact: gact_forward, gact_walk), after `encode` where the
 chunk ships raw bytes (pipeline.raw_map_step).  On CUDA `walk` is one
 launch of the column-walk kernel and `gact_walk` the tile groups'

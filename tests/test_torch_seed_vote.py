@@ -1,6 +1,7 @@
 """The seed vote's plain versions (ops/seed_vote.py: seed_tables_plain,
-vote_rows_plain; mapping/pipeline._pick_wide_seeds) against the JAX
-step's intermediates on the same chunk.
+pick_wide_seeds, vote_rows_plain, seed_accept_plain) against the JAX
+step's intermediates on the same chunk, and the accept against the
+reference's per-read loop (oracle/refpipe.py) on crafted rows.
 
 JAX's _seed_vote runs eagerly with its _narrow_wide_seeds and top2_votes
 wrapped, so the test reads their inputs (the per-seed tables qw, k12,
@@ -11,7 +12,11 @@ mode in a subprocess), left == 0 (seed_len == hlen), wide seeds on a
 tandem repeat (LF-narrowed) with and without a lane budget that drops
 some, rows past C on the repeat, and the exact tier.  Every comparison is
 exact.  The wrappers' dispatch on a CPU tensor reaches the plain versions
-(the kernels: tests/test_torch_seed_vote_card.py)."""
+(the kernels: tests/test_torch_seed_vote_card.py).  seed_accept_plain
+against OracleMapper.best_location's phase loop (its _Histo): no phase
+accepted, the first, only the last (the overwrite), num_seeds 0, ties in
+the outer histogram, overflow only after the accepted phase, int64 keys,
+and random rows."""
 
 import json
 import os
@@ -29,6 +34,7 @@ from conftest import sample_reads
 from _torch_parity import e2e_fixture, repeat_fixture
 from longreadmapper_tpu.index import device as jdevice
 from longreadmapper_tpu.mapping import pipeline as jpipe
+from longreadmapper_tpu.oracle.refpipe import _Histo
 from longreadmapper_tpu.utils.config import Params
 from longreadmapper_tpu_torch.index import device as tdevice
 from longreadmapper_tpu_torch.mapping import pipeline as tpipe
@@ -85,8 +91,8 @@ def port_intermediates(tc, tidx, codes, lens):
     codes, lens = torch.from_numpy(codes), torch.from_numpy(lens)
     qw, k12, cnt12, wide, kw, cw = tsv.seed_tables_plain(tc, tidx, codes,
                                                          lens)
-    k_seed, cnt, row_overflow = tpipe._pick_wide_seeds(tc, wide, k12, cnt12,
-                                                       kw, cw)
+    k_seed, cnt, row_overflow = tsv.pick_wide_seeds(
+        tc, wide, k12, cnt12, kw, cw, tsv.wide_rank(wide))
     v1, key1, v2, total = tsv.vote_rows_plain(tc, tidx, k_seed, cnt, qw,
                                               wide)
     best, overflow = tpipe._seed_vote(tc, tidx, codes, lens)
@@ -183,7 +189,8 @@ def test_pick_without_wide_seeds_is_the_no_wide_branch(e2e):
     qw, k12, cnt12, wide, kw, cw = tsv.seed_tables_plain(
         tc, e2e["tidx"], torch.from_numpy(codes), torch.from_numpy(lens))
     assert not wide.any()
-    k_seed, cnt, ovf = tpipe._pick_wide_seeds(tc, wide, k12, cnt12, kw, cw)
+    k_seed, cnt, ovf = tsv.pick_wide_seeds(tc, wide, k12, cnt12, kw, cw,
+                                           tsv.wide_rank(wide))
     assert k_seed.dtype == k12.dtype and torch.equal(k_seed, k12)
     assert cnt.dtype == torch.int32 and torch.equal(cnt, cnt12)
     assert ovf.dtype == torch.bool and not ovf.any()
@@ -202,18 +209,20 @@ def test_pick_keeps_the_first_wide_lanes_in_flat_order():
     k12 = torch.arange(8, dtype=torch.int32).reshape(2, 4)
     cnt12 = torch.full((2, 4), 30, dtype=torch.int32)
     kw, cw = k12 + 100, torch.full((2, 4), 7, dtype=torch.int32)
-    k_seed, cnt, ovf = tpipe._pick_wide_seeds(cfg, wide, k12, cnt12, kw, cw)
+    k_seed, cnt, ovf = tsv.pick_wide_seeds(cfg, wide, k12, cnt12, kw, cw,
+                                           tsv.wide_rank(wide))
     assert k_seed.tolist() == [[0, 101, 2, 103], [104, 5, 6, 7]]
     assert cnt.tolist() == [[30, 7, 30, 7], [7, 30, 0, 0]]
     assert ovf.tolist() == [False, True]
     cfg = replace(cfg, wide_budget=100)         # more lanes than seeds
-    assert not tpipe._pick_wide_seeds(cfg, wide, k12, cnt12, kw,
-                                      cw)[2].any()
+    assert not tsv.pick_wide_seeds(cfg, wide, k12, cnt12, kw, cw,
+                                   tsv.wide_rank(wide))[2].any()
 
 
 def test_wrappers_take_the_plain_versions_on_cpu(e2e):
     """CPU tensors reach the plain versions: no launch, no plain call
-    counted on the card, results equal."""
+    counted on the card, results equal; vote_rows is the pick, the vote
+    and the accept (vote_accept_plain), its rows vote_rows_plain's."""
     params = Params(hlen=HLEN, seed_len=20, thres=300)
     tc = tpipe.MapperConfig.from_params(params, e2e["tmeta"], 16, 256)
     codes, lens = (torch.from_numpy(a) for a in _chunk(
@@ -221,15 +230,24 @@ def test_wrappers_take_the_plain_versions_on_cpu(e2e):
     counts = (tsv.seed_tables.launches, tsv.vote_rows.launches,
               tvote.top2_votes.launches, tsv.seed_tables_plain.cuda_calls,
               tsv.vote_rows_plain.cuda_calls,
+              tsv.seed_accept_plain.cuda_calls,
               tvote.top2_votes_plain.cuda_calls)
     tabs = tsv.seed_tables(tc, e2e["tidx"], codes, lens)
     for g, w in zip(tabs, tsv.seed_tables_plain(tc, e2e["tidx"], codes,
                                                 lens)):
         assert torch.equal(g, w)
     qw, k12, cnt12, wide, kw, cw = tabs
-    rows = tsv.vote_rows(tc, e2e["tidx"], k12, cnt12, qw, wide)
+    rank = tsv.wide_rank(wide)
+    best, overflow, rows = tsv.vote_rows(tc, e2e["tidx"], lens, tabs, rank)
+    want = tsv.vote_accept_plain(tc, e2e["tidx"], lens, tabs, rank)
+    for g, w in zip((best, overflow) + rows, want[:2] + want[2]):
+        assert torch.equal(g, w)
     for g, w in zip(rows, tsv.vote_rows_plain(tc, e2e["tidx"], k12, cnt12,
                                               qw, wide)):
+        assert torch.equal(g, w)
+    assert not rows[4].any()
+    for g, w in zip((best, overflow), tsv.seed_accept_plain(
+            tc, lens, *rows)):
         assert torch.equal(g, w)
     keys = torch.arange(-40, 40, dtype=torch.int32).reshape(4, 20)
     valid = keys % 3 != 0
@@ -239,6 +257,7 @@ def test_wrappers_take_the_plain_versions_on_cpu(e2e):
     assert (tsv.seed_tables.launches, tsv.vote_rows.launches,
             tvote.top2_votes.launches, tsv.seed_tables_plain.cuda_calls,
             tsv.vote_rows_plain.cuda_calls,
+            tsv.seed_accept_plain.cuda_calls,
             tvote.top2_votes_plain.cuda_calls) == counts
 
 
@@ -255,6 +274,116 @@ def test_seed_vote_marks_its_stages(e2e):
         assert torch.equal(g, w)
 
 
+def _accept_cfg(B):
+    """Five phases of step 5 (seed_len 4, gap 1): 20 seeds at length 100,
+    accepted above 12 votes (accept_score 0.6)."""
+    return tpipe.MapperConfig(B=B, L=128, seed_len=4, gap_len=1, thres=300,
+                              hlen=4, n=100_000, dollar_pos=3,
+                              accept_score=0.6, error_rate=0.1)
+
+
+def oracle_accept(cfg, rlen, v1, key1, v2, total, wovf):
+    """OracleMapper.best_location's phase loop (alnmain.c:330-403) on one
+    read's per-phase top-2, and the overflow of the phases it runs (those
+    up to the accepted one, all if none)."""
+    P = cfg.phases
+    outer, best, acc, ovf = _Histo(), None, None, False
+    num_seeds = rlen // cfg.step
+    for it in range(P):
+        ovf = ovf or total[it] > cfg.vote_slots or bool(wovf[it])
+        if num_seeds > 0:
+            if (v1[it] + v2[it]) / num_seeds > cfg.accept_score:
+                best, acc = int(key1[it]), it
+                break
+            if v1[it] != 0:
+                outer.add(int(key1[it]))
+    if best is None or acc == P - 1:
+        best = outer.find_2_max()[0][0]
+    return best, ovf
+
+
+# crafted reads of five phases: (length, v1, key1, v2, total over C at
+# these phases, dropped wide seeds at these phases); C = vote_slots
+ACCEPT_CASES = {
+    # no phase passes 12 votes: the outer histogram of every phase
+    "none": (100, [5, 6, 0, 5, 4], [160, 165, 999, 300, 161],
+             [1, 2, 0, 1, 1], [], [2]),
+    # the first phase: its key1
+    "first": (100, [10, 3, 3, 3, 3], [400, 160, 160, 160, 160],
+              [5, 0, 0, 0, 0], [], []),
+    # only the last: overwritten by the earlier phases' top-1
+    "last": (100, [5, 6, 0, 5, 11], [160, 300, 999, 305, 700],
+             [1, 2, 0, 1, 3], [], []),
+    # lens < step: no seeds, nothing accepted, best 0, every phase runs
+    "no_seeds": (3, [5, 6, 0, 5, 11], [160, 300, 999, 305, 700],
+                 [1, 2, 0, 1, 3], [4], []),
+    # two buckets of two phases each: the one seen first wins, at its
+    # minimum key
+    "ties": (100, [4, 4, 4, 4, 4], [310, 175, 305, 170, 900],
+             [0, 0, 0, 0, 0], [], []),
+    # accepted at phase 1: overflow at phase 3 never ran
+    "late_overflow": (100, [4, 12, 1, 1, 1], [160, 165, 999, 300, 161],
+                      [1, 2, 0, 1, 1], [3], [4]),
+    # ... but at the accepted phase it counts
+    "overflow_at_accept": (100, [4, 12, 1, 1, 1], [160, 165, 999, 300, 161],
+                           [1, 2, 0, 1, 1], [1], []),
+    # negative keys and a bucket that spans no sign change
+    "negative": (100, [3, 3, 3, 0, 3], [-20, -17, 5, 0, -30],
+                 [0, 0, 0, 0, 0], [], []),
+}
+
+
+def _accept_rows(cfg, reads, dtype):
+    """The (B*P,) row tensors of `reads`, each (length, v1, key1, v2,
+    phases over C, phases with dropped wide seeds)."""
+    B, P, C = len(reads), cfg.phases, cfg.vote_slots
+    lens = torch.tensor([r[0] for r in reads], dtype=torch.int32)
+    v1, key1, v2 = (torch.tensor([r[i] for r in reads]).reshape(-1)
+                    for i in (1, 2, 3))
+    total = torch.full((B, P), C // 2, dtype=torch.int32)
+    wovf = torch.zeros((B, P), dtype=torch.bool)
+    for b, r in enumerate(reads):
+        total[b, r[4]] = C + 1
+        wovf[b, r[5]] = True
+    return (lens, v1.to(torch.int32), key1.to(dtype), v2.to(torch.int32),
+            total.reshape(-1), wovf.reshape(-1))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", list(ACCEPT_CASES) + ["random"])
+def test_seed_accept_plain_matches_the_reference_loop(case, dtype):
+    """seed_accept_plain on crafted rows against the reference's phase
+    loop, read by read; int64 keys past 2^32 under int64."""
+    if case == "random":
+        rng = np.random.default_rng(17)
+        reads = [(int(rng.integers(0, 130)),
+                  rng.integers(0, 14, 5).tolist(),
+                  (rng.integers(-3, 4, 5) * 16
+                   + rng.integers(0, 16, 5)).tolist(),
+                  rng.integers(0, 4, 5).tolist(),
+                  np.flatnonzero(rng.random(5) < 0.2).tolist(),
+                  np.flatnonzero(rng.random(5) < 0.1).tolist())
+                 for _ in range(300)]
+    else:
+        reads = [ACCEPT_CASES[case]]
+    if dtype == torch.int64:
+        reads = [(r[0], r[1], [k + (5 << 32) for k in r[2]]) + r[3:]
+                 for r in reads]
+    cfg = _accept_cfg(len(reads))
+    rows = _accept_rows(cfg, reads, dtype)
+    best, overflow = tsv.seed_accept_plain(cfg, *rows)
+    assert best.dtype == dtype and overflow.dtype == torch.bool
+    want = [oracle_accept(cfg, r[0], r[1], r[2], r[3],
+                          rows[4].reshape(len(reads), -1)[b].tolist(),
+                          rows[5].reshape(len(reads), -1)[b].tolist())
+            for b, r in enumerate(reads)]
+    assert best.tolist() == [w[0] for w in want]
+    assert overflow.tolist() == [w[1] for w in want]
+    if case == "ties":
+        assert best.tolist() == [305 + (5 << 32 if dtype == torch.int64
+                                        else 0)]
+
+
 # JAX in x64 mode (forced pos64 layouts) runs in a process of its own
 POS64_WORKER = r"""
 import os, sys
@@ -269,6 +398,7 @@ import numpy as np
 from dataclasses import replace
 from longreadmapper_tpu.index.device import load_device_index
 from longreadmapper_tpu.mapping import pipeline as jpipe
+from longreadmapper_tpu.oracle.refpipe import _Histo
 from longreadmapper_tpu.utils.config import Params
 from test_torch_seed_vote import jax_intermediates
 fa, npz, out, cfg_json = sys.argv[2:6]

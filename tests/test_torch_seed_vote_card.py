@@ -1,10 +1,14 @@
 """The seed vote's CUDA kernels (csrc/vote.cu) on the card against their
-plain versions (ops/seed_vote.py, ops/vote.py), bit for bit: the tables
-and vote rows in the full, slim and split-hi pos64 layouts, with
-left == 0, wide seeds (narrowed in the kernel, some dropped by a lane
-budget), rows past C, the exact tier, rows of C 20096 that pass shared
-memory and sort in global scratch, and tables that stand for a
-row-sharded index (two launches each, the rows gathered between them);
+plain versions (ops/seed_vote.py, ops/vote.py), bit for bit: the tables,
+and the vote with its accept ((best, overflow) and every row's v1, key1,
+v2, total and wide-drop flag against vote_accept_plain) in the full, slim
+and split-hi pos64 layouts, with left == 0, wide seeds (narrowed in the
+kernel, more than the lanes in a budget that drops some), rows with no
+vote and rows past C, the exact tier, rows of C 20096 that pass shared
+memory and sort in global scratch, tables that stand for a row-sharded
+index (two launches each, the rows gathered between them), and C on both
+sides of the warp / CTA boundary (Cpad 32 to 4096; the CTA rows' accept
+by the read's last CTA, twice in a row, its counters back at 0);
 top2_votes on int32 and int64 keys, rows of 120,000 votes in global
 scratch among them; and the mapping step with no host sync, under
 torch.cuda.set_sync_debug_mode("error").
@@ -15,7 +19,7 @@ import no JAX, so they run where JAX is absent:
         tests/test_torch_seed_vote_card.py
 """
 
-from dataclasses import replace
+from dataclasses import dataclass, replace
 
 import numpy as np
 import pytest
@@ -31,6 +35,16 @@ from longreadmapper_tpu_torch.utils.config import Params
 
 torch.set_num_threads(1)
 HLEN = 6
+
+
+@dataclass(frozen=True)
+class _Slots(tpipe.MapperConfig):
+    """A config whose vote rows have `slots` slots (0: the tier's own)."""
+    slots: int = 0
+
+    @property
+    def vote_slots(self) -> int:
+        return self.slots or super().vote_slots
 
 
 def _card():
@@ -84,7 +98,10 @@ def _reads(genome, n=24, L=200):
 
 def _inputs(fa, genome, dev, load, params, B=32, L=256, **kw):
     idx, meta, mta = load_device_index(fa, dev, verbose=False, **load)
-    cfg = replace(tpipe.MapperConfig.from_params(params, meta, B, L), **kw)
+    cfg = _Slots(**vars(replace(
+        tpipe.MapperConfig.from_params(params, meta, B, L),
+        **{k: v for k, v in kw.items() if k != "slots"})),
+        slots=kw.get("slots", 0))
     tm = TorchMapper(idx, meta, mta, params, chunk_b=B, device=dev)
     codes, _, lens, _ = tm._pack_reads(_reads(genome), L, B)
     return (idx, cfg, torch.from_numpy(codes).to(dev),
@@ -94,8 +111,22 @@ def _inputs(fa, genome, dev, load, params, B=32, L=256, **kw):
 def _equal(got, want):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
+        if isinstance(g, tuple):
+            _equal(g, w)
+            continue
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, w)
+
+
+def _vote_twice(cfg, idx, lens, tabs):
+    """The vote kernel twice in a row against vote_accept_plain; the
+    read counters stay at 0.  Returns the plain (best, overflow, rows)."""
+    rank = tsv.wide_rank(tabs[3])
+    want = tsv.vote_accept_plain(cfg, idx, lens, tabs, rank)
+    for _ in range(2):
+        _equal(tsv.vote_rows(cfg, idx, lens, tabs, rank), want)
+    assert not tsv._TICKETS[lens.device].any()
+    return want
 
 
 LAYOUTS = [dict(), dict(slim=True), dict(force_pos_dtype="int64"),
@@ -125,19 +156,37 @@ def test_seed_vote_kernels_match_plain_on_card(genome_fa, load, case):
     tabs = tsv.seed_tables(cfg, idx, codes, lens)
     want = tsv.seed_tables_plain(cfg, idx, codes, lens)
     _equal(tabs, want)
-    qw, k12, cnt12, wide, kw_, cw = want
     if case in ("wide", "budget"):
-        assert wide.any()
-    k_seed, cnt, _ = tpipe._pick_wide_seeds(cfg, wide, k12, cnt12, kw_, cw)
-    rows = tsv.vote_rows(cfg, idx, k_seed, cnt, qw, wide)
-    want = tsv.vote_rows_plain(cfg, idx, k_seed, cnt, qw, wide)
-    _equal(rows, want)
+        assert want[3].any()
+    best, overflow, rows = _vote_twice(cfg, idx, lens, want)
     per = 2 if case == "sharded" else 1
     assert (tsv.seed_tables.launches, tsv.vote_rows.launches) == (
-        n[0] + per, n[1] + per)
+        n[0] + per, n[1] + 2 * per)
     if case == "plain":
-        assert (want[3] > cfg.vote_slots).any()       # the repeat's rows
-    assert (want[0] > 0).any()
+        assert (rows[3] > cfg.vote_slots).any()       # the repeat's rows
+        assert (rows[3] == 0).any()                   # the short read's
+    if case == "budget":
+        assert rows[4].any() and overflow.any()       # dropped wide seeds
+    assert (rows[0] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("load", [dict(), dict(force_pos_dtype="int64"),
+                                  dict(slim=True)])
+@pytest.mark.parametrize("slots", [20, 64, 500, 512, 513, 1000, 4000])
+def test_vote_kernels_at_each_row_size_on_card(genome_fa, load, slots):
+    """C from Cpad 32 to 4096: at most 512 a warp a row (vote_warp_kernel),
+    above it a CTA a row (vote_cta_kernel) whose read's last CTA runs the
+    accept, twice in a row."""
+    _card()
+    fa, genome = genome_fa
+    params = Params(hlen=HLEN, thres=300)
+    idx, cfg, codes, lens = _inputs(fa, genome, "cuda", load, params,
+                                    slots=slots)
+    assert cfg.vote_slots == slots
+    tabs = tsv.seed_tables_plain(cfg, idx, codes, lens)
+    best, overflow, rows = _vote_twice(cfg, idx, lens, tabs)
+    assert (rows[0] > 0).any() and (best != 0).any()
 
 
 @pytest.mark.cuda
@@ -145,7 +194,8 @@ def test_seed_vote_kernels_match_plain_on_card(genome_fa, load, case):
                                           (torch.int32, 1 << 28),
                                           (torch.int64, 1 << 40)])
 @pytest.mark.parametrize("B,V", [(64, 80), (7, 1), (33, 600), (5, 4864),
-                                 (3, 120000)])    # past shared memory
+                                 (3, 120000),     # past shared memory
+                                 (40, 32), (9, 512), (9, 513)])
 def test_top2_votes_kernel_matches_plain_on_card(dtype, spread, B, V):
     _card()
     rng = np.random.default_rng(B + V)
@@ -180,14 +230,16 @@ def test_map_step_makes_no_host_sync_on_card(genome_fa, load):
             tpipe.map_step(cfg, idx, *arrays)         # builds, warms up
             torch.cuda.synchronize()
             plain = (tsv.seed_tables_plain.cuda_calls,
-                     tsv.vote_rows_plain.cuda_calls)
+                     tsv.vote_rows_plain.cuda_calls,
+                     tsv.seed_accept_plain.cuda_calls)
             torch.cuda.set_sync_debug_mode("error")
             try:
                 step = tpipe.map_step(cfg, idx, *arrays)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             assert (tsv.seed_tables_plain.cuda_calls,
-                    tsv.vote_rows_plain.cuda_calls) == plain
+                    tsv.vote_rows_plain.cuda_calls,
+                    tsv.seed_accept_plain.cuda_calls) == plain
         else:
             step = tpipe.map_step(cfg, idx, *arrays)
         out[dev] = {k: v.cpu() for k, v in step.items()}
