@@ -47,7 +47,10 @@ Phases (each raises on failure; nothing is caught):
                5120 and of the 10 kb retry at band 2176, and on a weave
                that saturates its buffer at scale 1; CUDA-event medians
                of kernel and plain walk, the longest lane's iterations and
-               the kernel's ns an iteration
+               the kernel's ns an iteration; the gact walk's iterations a
+               tile held to the plain walk's, their per-tile maxima (the
+               lock-step walk's block iterations) beside the longest
+               lane's
   3b. vote   — after phase 4, whose index and reads it takes: the seed
                vote's kernels (seed_tables; vote_rows, the wide seeds'
                pick, the vote rows and each read's accept in one launch,
@@ -632,10 +635,12 @@ def walk_bound(lane_iters: int, runs):
     return nbytes / HBM_BYTES_S * 1e3, "bytes"
 
 
-def gact_walk_ms(fn, q, t, ckpt, lens, T, W, band, scale, group):
+def gact_walk_ms(fn, q, t, ckpt, lens, T, W, band, scale, group,
+                 iters=None):
     """(runs, saturated, ms): one call of gact_traceback_c or its plain
     version with a CUDA event at each mark; ms sums each group's span from
-    its rematerialized words ("dirs") to the end of its walk ("walk")."""
+    its rematerialized words ("dirs") to the end of its walk ("walk").
+    `iters` as gact_traceback_c's (each lane's iterations a tile)."""
     import torch
     evs = []
 
@@ -644,7 +649,8 @@ def gact_walk_ms(fn, q, t, ckpt, lens, T, W, band, scale, group):
         e.record()
         evs.append(e)
 
-    runs, sat = fn(q, t, ckpt, lens, T, W, band, scale, group, mark)
+    runs, sat = fn(q, t, ckpt, lens, T, W, band, scale, group, mark,
+                   iters=iters)
     torch.cuda.synchronize()
     return runs, sat, sum(a.elapsed_time(b)
                           for a, b in zip(evs[::2], evs[1::2]))
@@ -704,8 +710,10 @@ def phase_walks(rng, res: dict) -> None:
         log(f"[3 kernel] {kernel} {where} median: kernel {ms} ms, plain "
             f"PyTorch {plain_ms} ms ({plain_ms / ms}x); {lane_iters} "
             f"lane-iterations, the longest lane {longest}, the block "
-            f"{iters}: {ms * 1e6 / iters} ns an iteration; bound "
-            f"{bnd[0]} ms by bytes ({bnd[0] / ms:.4f} of it reached)")
+            f"{iters}: {ms * 1e6 / iters} ns a block iteration, "
+            f"{ms * 1e6 / longest} ns an iteration of the longest lane; "
+            f"bound {bnd[0]} ms by bytes ({bnd[0] / ms:.4f} of it "
+            "reached)")
         if main:
             res[kernel].update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
                                bound_by=bnd[1])
@@ -769,23 +777,35 @@ def phase_walks(rng, res: dict) -> None:
         where = (f"B={B} L={L} W={W} band={band} T={T} in groups of "
                  f"{group}, {int((lens > 0).sum())} lanes walked")
         n0 = gact_traceback_c.launches
+        iters = torch.empty((L // T, B), dtype=torch.int32, device="cuda")
+        iters_p = torch.empty_like(iters)
         got, sat, _ = gact_walk_ms(gact_traceback_c, q, t, ckpt, lens, T, W,
-                                   band, scale, group)
+                                   band, scale, group, iters)
         assert gact_traceback_c.launches == n0 + -(-(L // T) // group)
         want, sat_p, _ = gact_walk_ms(gact_traceback_c_plain, q, t, ckpt,
-                                      lens, T, W, band, scale, group)
+                                      lens, T, W, band, scale, group,
+                                      iters_p)
         if sat.dtype != torch.bool or sat.device.type != "cuda" or bool(
                 sat) != bool(sat_p):
             raise AssertionError(f"gact_walk saturated {sat} against the "
                                  f"plain walk's {sat_p} at {where}")
         res["gact_walk"]["err"] = max(res["gact_walk"]["err"], check_equal(
-            "gact_walk", where + f", saturated {bool(sat)}", [got], [want]))
+            "gact_walk", where + f", saturated {bool(sat)}", [got, iters],
+            [want, iters_p]))
+        # the lock-step walk pays each tile's slowest lane; the lanes here
+        # walk at their own pace
+        tile_max = iters.max(dim=1).values
+        log(f"[3 kernel] gact_walk {where}: block iterations a tile "
+            f"(max over lanes) sum to {int(tile_max.sum())} over "
+            f"{int((tile_max > 0).sum())} tiles, the longest lane makes "
+            f"{int(iters.sum(dim=0).max())}; per tile "
+            f"{tile_max.tolist()}")
         if qt is not None:
             if not bool(sat):
                 raise AssertionError("the weave did not saturate the gact "
                                      "walk's buffer at scale 1")
             continue
-        lane_iters, longest, iters = walk_stats(got, B)
+        lane_iters, longest, block = walk_stats(got, B)
         ms = statistics.median(gact_walk_ms(
             gact_traceback_c, q, t, ckpt, lens, T, W, band, scale, group)[2]
             for _ in range(5))
@@ -793,7 +813,7 @@ def phase_walks(rng, res: dict) -> None:
             gact_traceback_c_plain, q, t, ckpt, lens, T, W, band, scale,
             group)[2] for _ in range(2))
         timing("gact_walk", where, ms, plain_ms, got, B, lane_iters, longest,
-               iters, main)
+               block, main)
         del ckpt, got, want
 
 

@@ -24,18 +24,21 @@
 // quantity is an integer, and every int32 sum wraps as the plain version's
 // does.
 //
-// seed_tables_kernel: one thread a seed (read b, phase p, seed s), the flat
-// index e = (b*P + p)*S + s, start j = p + step*s.  It reads the seed_len
-// codes once and builds in registers the verify pattern qw (the first
+// seed_tables_kernel: per seed (read b, phase p, seed s; the flat index e
+// = (b*P + p)*S + s, start j = p + step*s) the verify pattern qw (the first
 // `left` codes, 2 bits each, the first lowest), the lchash key (the last
-// hlen codes, the first highest) and ok (no code >= 4); gathers the lch
-// row (k, l) (and the high bytes under pos64); then present, cnt12 =
-// min(l - k + 1, thres) and wide = cnt12 >= thres.  A wide seed is
-// LF-narrowed here, `left` backward-search steps over the replicated FM
-// tables, to its seed_len-mer interval (kw, cw = its informative count):
-// JAX narrows only the first wide_lanes wide seeds of the chunk, and each
-// seed's narrowing depends on that seed alone, so the vote keeps these
-// values for the seeds that JAX picks and drops the rest as JAX does.
+// hlen codes, the first highest) and ok (no code >= 4); the lch row (k,
+// l) (and the high bytes under pos64); then present, cnt12 = min(l - k +
+// 1, thres) and wide = cnt12 >= thres.  A wide seed is LF-narrowed here,
+// `left` backward-search steps over the replicated FM tables, to its
+// seed_len-mer interval (kw, cw = its informative count): JAX narrows only
+// the first wide_lanes wide seeds of the chunk, and each seed's narrowing
+// depends on that seed alone, so the vote keeps these values for the
+// seeds that JAX picks and drops the rest as JAX does.  A CTA takes a
+// contiguous run of a read's seeds, loads their codes once into shared
+// memory, packed 2 bits a code, and reads each seed's qw and key from the
+// packed words; the wide seeds are queued and narrowed after its main
+// pass (at the kernel below).
 //
 // The vote of a row r = b*P + p of C slots, padded to Cpad (a power of 2):
 //   1. Each seed's pick: a wide seed is kept when its flat rank among the
@@ -97,9 +100,12 @@
 //
 // What bounds these kernels: bytes.  The lch and sa_ctx gathers are random
 // 8-byte reads, a 32-byte sector each, a few million a chunk; the tables
-// write 21 bytes a seed.  A 1 kb chunk (B 2048) moves ~0.15 GB: ~45 us at
-// 3.35 TB/s.  The vote's sort is C log2 C compare-and-selects a row, a few
-// us of the card's integer rate.
+// write 21 bytes a seed; the codes are read once.  A 1 kb chunk (B 2048)
+// moves ~0.15 GB: ~45 us at 3.35 TB/s.  The vote's sort is C log2 C
+// compare-and-selects a row, a few us of the card's integer rate.  The
+// seed tables' lch gathers land in a 2.1 GB table at hlen 14: a TLB miss
+// as much as a sector each (PERF.md: the same kernel takes 0.07 ms on a
+// 134 MB table and 0.09 ms on the 2.1 GB one for as many seeds).
 
 #include <climits>
 #include <cstdint>
@@ -169,7 +175,6 @@ struct Top2Args {
 
 namespace {
 
-constexpr int kTablesThreads = 256;
 constexpr unsigned kM01 = 0x55555555u;
 constexpr int kStageAll = 0;    // the whole kernel, gathers included
 constexpr int kStageRows = 1;   // only the rows to gather (a sharded index)
@@ -211,91 +216,324 @@ __device__ __forceinline__ long long c4_at(const TablesArgs& a, int c) {
                  : static_cast<const int32_t*>(a.c4)[c];
 }
 
+extern __shared__ __align__(16) unsigned char lrm_smem[];
+
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kTablesThreads)
-seed_tables_kernel(TablesArgs a) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  if (e >= a.B * a.P * a.S) return;
-  const long long s = e % a.S;
-  const long long r = e / a.S;
-  const long long p = r % a.P;
-  const long long b = r / a.P;
-  const long long j = p + a.step * s;
-  const int8_t* row = a.codes + b * a.L;
-  // codes past L are the pad code 4, as the plain version's padded copy
-  uint32_t qw = 0;
-  uint32_t num = 0;
-  bool ok = true;
-  for (int t = 0; t < a.seed_len; ++t) {
-    const int c = j + t < a.L ? static_cast<int>(row[j + t]) : 4;
-    ok = ok && c < 4;
-    if (t < a.left) {
-      qw |= static_cast<uint32_t>(c) << (2 * t);
-    } else if (t - a.left < a.hlen) {
-      num |= static_cast<uint32_t>(c) << (2 * (a.hlen - 1 - (t - a.left)));
+// seed_tables_kernel: grid (B, chunks of a read).  A CTA takes the seeds (p,
+// s), p in [p0, p0 + np), s in [s0, s0 + ns) of read b: whole phase rows (ns
+// = S) where a read's rows are short, else a slice of one row (np = 1);
+// either way a contiguous run of the flat index e = (b*P + p)*S + s, so its
+// writes coalesce.  (A CTA of a few seeds of every row loads 21 times fewer
+// codes at 10 and 50 kb, but writes short runs of e, and measured 7-18%
+// slower there: PERF.md.)  It loads the codes of its seeds' window [jlo,
+// jhi) from global memory once, 16 bytes a thread, and packs them in shared
+// memory: 2 bits a code (c & 3) in a word of 16, a bit of 16 for each code
+// that is not 0-3 (`inv`: N, and every position past L, which the plain
+// version pads with 4), and one for each code that is not 0-4 (`exo`).  A
+// seed's 32 codes are then three words and a funnel shift; its qw and lchash
+// key are the fields of it, a 4 adding the bit above its field as the plain
+// OR of (c << 2t) does; a seed with an `exo` code reads its bytes as before.
+// Each thread takes kSeedsPerThread seeds and issues their lch gathers back
+// to back.  A wide seed is queued (warp ballot, shared memory) and
+// LF-narrowed after the CTA's main pass, a queued seed a thread, so the
+// narrowing's dependent loads do not hold up the warps of the other seeds.
+struct SeedPart {
+  int np;      // phase rows a CTA
+  int ns;      // seeds of a row a CTA
+  int cpr;     // CTAs a phase row (ns < S), else 1
+  int units;   // 16-code units of the largest window, margin included
+};
+
+constexpr int kSeedThreads = 512;
+constexpr int kSeedsPerThread = 2;
+constexpr int kSeedsPerCta = kSeedThreads * kSeedsPerThread;
+
+__device__ __forceinline__ uint32_t mask32(int bits) {
+  return bits >= 32 ? 0xFFFFFFFFu : ((1u << bits) - 1u);
+}
+
+// bit t of x (t < 16) to bit 2t
+__device__ __forceinline__ uint32_t spread2(uint32_t x) {
+  x = (x | (x << 8)) & 0x00FF00FFu;
+  x = (x | (x << 4)) & 0x0F0F0F0Fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  return (x | (x << 1)) & 0x55555555u;
+}
+
+// 32 codes from position x of the packed window, the first lowest
+__device__ __forceinline__ unsigned long long codes_at(const uint32_t* cw,
+                                                       int x) {
+  const int u = x >> 4;
+  const int sh = 2 * (x & 15);
+  const unsigned long long lo =
+      cw[u] | (static_cast<unsigned long long>(cw[u + 1]) << 32);
+  return sh ? (lo >> sh) | (static_cast<unsigned long long>(cw[u + 2])
+                            << (64 - sh))
+            : lo;
+}
+
+// 32 flags from position x of a window bitmap, the first lowest
+__device__ __forceinline__ uint32_t flags_at(const uint16_t* m, int x) {
+  const int u = x >> 4;
+  const unsigned long long w =
+      m[u] | (static_cast<unsigned long long>(m[u + 1]) << 16)
+      | (static_cast<unsigned long long>(m[u + 2]) << 32);
+  return static_cast<uint32_t>(w >> (x & 15));
+}
+
+__global__ void __launch_bounds__(kSeedThreads)
+seed_tables_kernel(TablesArgs a, SeedPart q) {
+  // the wide queue (k12, l12, qw, the seed's index in the CTA), then the
+  // packed window
+  long long* q_k = reinterpret_cast<long long*>(lrm_smem);
+  long long* q_l = q_k + kSeedsPerCta;
+  uint32_t* q_qw = reinterpret_cast<uint32_t*>(q_l + kSeedsPerCta);
+  int* q_at = reinterpret_cast<int*>(q_qw + kSeedsPerCta);
+  uint32_t* cw = reinterpret_cast<uint32_t*>(q_at + kSeedsPerCta);
+  uint16_t* inv = reinterpret_cast<uint16_t*>(cw + q.units);
+  uint16_t* exo = inv + q.units;
+  __shared__ int s_nq;
+  const int b = blockIdx.x;
+  const int c = blockIdx.y;
+  const int P = static_cast<int>(a.P);
+  const int S = static_cast<int>(a.S);
+  const int step = static_cast<int>(a.step);
+  const int sl = static_cast<int>(a.seed_len);
+  const int left = static_cast<int>(a.left);
+  const int hlen = static_cast<int>(a.hlen);
+  const int L = static_cast<int>(a.L);
+  const int p0 = c / q.cpr * q.np;
+  const int s0 = c % q.cpr * q.ns;
+  const int np = min(q.np, P - p0);
+  const int ns = min(q.ns, S - s0);
+  const int n = np * ns;
+  const long long e0 = (static_cast<long long>(b) * P + p0) * S + s0;
+  // the window: from the first seed's start to the last one's end
+  const int wlo = (p0 + step * s0) & ~15;
+  const int units =
+      (p0 + np - 1 + step * (s0 + ns - 1) + sl - wlo + 15) / 16 + 2;
+  const int8_t* row = a.codes + static_cast<long long>(b) * L;
+  if (threadIdx.x == 0) s_nq = 0;
+#pragma unroll 4
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int x0 = wlo + 16 * u;
+    uint32_t by[4];                     // the unit's 16 bytes
+    if (x0 + 16 <= L && (reinterpret_cast<uintptr_t>(row + x0) & 15) == 0) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(row + x0));
+      by[0] = v.x;
+      by[1] = v.y;
+      by[2] = v.z;
+      by[3] = v.w;
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        by[t] = 0;
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          const int x = x0 + 4 * t + z;
+          by[t] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                       x < L ? row[x] : 4)) << (8 * z);
+        }
+      }
     }
+    uint32_t w = 0;
+    uint32_t iv = 0;
+    uint32_t ex = 0;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      const int cc = static_cast<int8_t>(by[t >> 2] >> (8 * (t & 3)));
+      w |= static_cast<uint32_t>(cc & 3) << (2 * t);
+      iv |= static_cast<uint32_t>(cc < 0 || cc > 3) << t;
+      ex |= static_cast<uint32_t>(cc < 0 || cc > 4) << t;
+    }
+    cw[u] = w;
+    inv[u] = static_cast<uint16_t>(iv);
+    exo[u] = static_cast<uint16_t>(ex);
   }
-  const long long safe = clampll(static_cast<int32_t>(num), 0, a.H - 1);
+  __syncthreads();
+  const int lens_b = a.lens[b];
+  int at[kSeedsPerThread];
+  int jj[kSeedsPerThread];
+  uint32_t qws[kSeedsPerThread];
+  int32_t nums[kSeedsPerThread];
+  bool oks[kSeedsPerThread];
+#pragma unroll
+  for (int k = 0; k < kSeedsPerThread; ++k) {
+    const int l = threadIdx.x + k * kSeedThreads;
+    at[k] = l;
+    const int p = p0 + l / ns;
+    const int j = p + step * (s0 + l % ns);
+    jj[k] = j;
+    if (l >= n) continue;
+    const int x = j - wlo;
+    const uint32_t iv = flags_at(inv, x) & mask32(sl);
+    uint32_t qw;
+    uint32_t num;
+    bool ok = iv == 0;
+    if ((flags_at(exo, x) & mask32(sl)) == 0) {
+      const unsigned long long bits = codes_at(cw, x);
+      qw = static_cast<uint32_t>(bits) & mask32(2 * left);
+      // the key's codes, the first highest: reverse the 2-bit fields
+      uint32_t r = __brev(static_cast<uint32_t>(bits >> (2 * left))
+                          & mask32(2 * hlen));
+      r = ((r >> 1) & kM01) | ((r & kM01) << 1);
+      num = r >> (32 - 2 * hlen);
+      if (iv) {
+        // a 4 sets the bit above its field (dropped past bit 31)
+        qw |= spread2(iv & mask32(left)) << 2;
+        num |= spread2(__brev(iv >> left) >> (32 - hlen)) << 2;
+      }
+    } else {
+      // a code outside 0-4: the bytes themselves, as the plain version
+      // (which takes a negative code as valid)
+      qw = 0;
+      num = 0;
+      ok = true;
+      for (int t = 0; t < sl; ++t) {
+        const int cc = j + t < L ? static_cast<int>(row[j + t]) : 4;
+        ok = ok && cc < 4;
+        if (t < left) {
+          qw |= static_cast<uint32_t>(cc) << (2 * t);
+        } else {
+          num |= static_cast<uint32_t>(cc) << (2 * (hlen - 1 - (t - left)));
+        }
+      }
+    }
+    qws[k] = qw;
+    nums[k] = static_cast<int32_t>(num);
+    oks[k] = ok;
+  }
   if (a.stage == kStageRows) {
-    a.rows[e] = safe;
+#pragma unroll
+    for (int k = 0; k < kSeedsPerThread; ++k) {
+      if (at[k] < n) a.rows[e0 + at[k]] = clampll(nums[k], 0, a.H - 1);
+    }
     return;
   }
-  const long long g = a.pre ? e : safe;
-  const int32_t klo = a.lch[2 * g];
-  const int32_t llo = a.lch[2 * g + 1];
-  long long k12 = klo;
-  long long l12 = llo;
-  if (a.pos64) {
-    k12 = (static_cast<long long>(a.lch_hi[2 * g]) << 32)
-          | static_cast<uint32_t>(klo);
-    l12 = (static_cast<long long>(a.lch_hi[2 * g + 1]) << 32)
-          | static_cast<uint32_t>(llo);
+  // the lch gathers, all in flight before any is used
+  int2 kl[kSeedsPerThread];
+  uchar2 hi[kSeedsPerThread];
+#pragma unroll
+  for (int k = 0; k < kSeedsPerThread; ++k) {
+    if (at[k] >= n) continue;
+    const long long g = a.pre ? e0 + at[k] : clampll(nums[k], 0, a.H - 1);
+    kl[k] = __ldg(reinterpret_cast<const int2*>(a.lch) + g);
+    if (a.pos64) hi[k] = __ldg(reinterpret_cast<const uchar2*>(a.lch_hi) + g);
   }
-  const bool seed_ok = j < static_cast<long long>(a.lens[b]) - a.seed_len;
-  const bool present = ok && seed_ok && !(k12 == 0 && l12 == 0);
-  int cnt = 0;
-  if (present) {
-    if (a.pos64) {
-      const long long d = l12 - k12 + 1;
-      cnt = static_cast<int32_t>(d < a.thres ? d : a.thres);
-    } else {
-      const int32_t d = static_cast<int32_t>(
-          static_cast<uint32_t>(llo) - static_cast<uint32_t>(klo) + 1u);
-      cnt = d < a.thres ? d : static_cast<int32_t>(a.thres);
+#pragma unroll
+  for (int k = 0; k < kSeedsPerThread; ++k) {
+    const bool in = at[k] < n;
+    const long long e = e0 + at[k];
+    long long k12 = 0;
+    long long l12 = 0;
+    bool wide = false;
+    if (in) {
+      const int32_t klo = kl[k].x;
+      const int32_t llo = kl[k].y;
+      k12 = klo;
+      l12 = llo;
+      if (a.pos64) {
+        k12 = (static_cast<long long>(hi[k].x) << 32)
+              | static_cast<uint32_t>(klo);
+        l12 = (static_cast<long long>(hi[k].y) << 32)
+              | static_cast<uint32_t>(llo);
+      }
+      const bool seed_ok = jj[k] < lens_b - sl;
+      const bool present = oks[k] && seed_ok && !(k12 == 0 && l12 == 0);
+      int cnt = 0;
+      if (present) {
+        if (a.pos64) {
+          const long long d = l12 - k12 + 1;
+          cnt = static_cast<int32_t>(d < a.thres ? d : a.thres);
+        } else {
+          const int32_t d = static_cast<int32_t>(
+              static_cast<uint32_t>(llo) - static_cast<uint32_t>(klo) + 1u);
+          cnt = d < a.thres ? d : static_cast<int32_t>(a.thres);
+        }
+      }
+      wide = present && cnt >= a.thres;
+      a.qw[e] = static_cast<int32_t>(qws[k]);
+      a.cnt12[e] = cnt;
+      a.wide[e] = wide;
+      if (a.pos64) {
+        static_cast<long long*>(a.k12)[e] = k12;
+      } else {
+        static_cast<int32_t*>(a.k12)[e] = static_cast<int32_t>(k12);
+      }
+      if (!wide) {
+        a.cw[e] = 0;
+        if (a.pos64) {
+          static_cast<long long*>(a.kw)[e] = k12;
+        } else {
+          static_cast<int32_t*>(a.kw)[e] = static_cast<int32_t>(k12);
+        }
+      }
+    }
+    // queue the warp's wide seeds
+    const unsigned m = __ballot_sync(kFull, wide);
+    if (m) {
+      const int lane = threadIdx.x & 31;
+      int base = 0;
+      if (lane == 0) base = atomicAdd(&s_nq, __popc(m));
+      base = __shfl_sync(kFull, base, 0);
+      if (wide) {
+        const int slot = base + __popc(m & ((1u << lane) - 1u));
+        q_k[slot] = k12;
+        q_l[slot] = l12;
+        q_qw[slot] = qws[k];
+        q_at[slot] = at[k];
+      }
     }
   }
-  const bool wide = present && cnt >= a.thres;
-  long long kw = k12;
-  int cw = 0;
-  if (wide) {
-    // LF-narrow to the seed_len-mer: the left codes, last first
-    long long k = k12;
-    long long l = l12;
-    for (int t = static_cast<int>(a.left) - 1; t >= 0; --t) {
+  __syncthreads();
+  // LF-narrow each queued seed to its seed_len-mer: the left codes, last
+  // first
+  for (int t0 = threadIdx.x; t0 < s_nq; t0 += blockDim.x) {
+    long long k = q_k[t0];
+    long long l = q_l[t0];
+    const uint32_t qw = q_qw[t0];
+    for (int t = left - 1; t >= 0; --t) {
       if (k > l) break;                 // empty: no later step is active
-      const int c = (static_cast<int32_t>(qw) >> (2 * t)) & 3;
-      const long long cb = c4_at(a, c);
+      const int cc = (static_cast<int32_t>(qw) >> (2 * t)) & 3;
+      const long long cb = c4_at(a, cc);
       const long long sk = k < 1 ? 1 : k;
-      const long long sl = clampll(l, 0, a.nocc * 16 - 1);
-      k = cb + occ_at(a, c, sk - 1) + 1;
-      l = cb + occ_at(a, c, sl);
+      const long long sl2 = clampll(l, 0, a.nocc * 16 - 1);
+      k = cb + occ_at(a, cc, sk - 1) + 1;
+      l = cb + occ_at(a, cc, sl2);
     }
     const long long hits = k <= l ? l - k + 1 : 0;
-    cw = hits > 0 && hits < a.thres ? static_cast<int>(hits) : 0;
-    kw = k;
+    const long long e = e0 + q_at[t0];
+    a.cw[e] = hits > 0 && hits < a.thres ? static_cast<int>(hits) : 0;
+    if (a.pos64) {
+      static_cast<long long*>(a.kw)[e] = k;
+    } else {
+      static_cast<int32_t*>(a.kw)[e] = static_cast<int32_t>(k);
+    }
   }
-  a.qw[e] = static_cast<int32_t>(qw);
-  a.cnt12[e] = cnt;
-  a.wide[e] = wide;
-  a.cw[e] = cw;
-  if (a.pos64) {
-    static_cast<long long*>(a.k12)[e] = k12;
-    static_cast<long long*>(a.kw)[e] = kw;
+}
+
+// The CTA split of a launch and its shared memory: whole phase rows a CTA
+// while a read's rows are short, else slices of one row.
+SeedPart seed_part(const TablesArgs& a, long long* chunks, size_t* smem) {
+  SeedPart q;
+  if (a.S >= kSeedsPerCta) {
+    q.cpr = static_cast<int>((a.S + kSeedsPerCta - 1) / kSeedsPerCta);
+    q.ns = static_cast<int>((a.S + q.cpr - 1) / q.cpr);
+    q.np = 1;
+    *chunks = a.P * q.cpr;
   } else {
-    static_cast<int32_t*>(a.k12)[e] = static_cast<int32_t>(k12);
-    static_cast<int32_t*>(a.kw)[e] = static_cast<int32_t>(kw);
+    q.cpr = 1;
+    q.ns = static_cast<int>(a.S);
+    q.np = static_cast<int>(kSeedsPerCta / a.S < a.P ? kSeedsPerCta / a.S
+                                                      : a.P);
+    *chunks = (a.P + q.np - 1) / q.np;
   }
+  const long long span =
+      q.np - 1 + a.step * (q.ns - 1) + a.seed_len + 15;   // wlo's 15 below
+  q.units = static_cast<int>((span + 15) / 16 + 2);
+  *smem = static_cast<size_t>(kSeedsPerCta) * (8 + 8 + 4 + 4)
+          + static_cast<size_t>(q.units) * (4 + 2 + 2);
+  return q;
 }
 
 
@@ -1020,8 +1258,6 @@ __device__ void read_accept(const RowsArgs& a, long long b) {
   }
 }
 
-extern __shared__ __align__(16) unsigned char lrm_smem[];
-
 // Lane `lane`'s K slots l*K .. of row r.
 template <int K, class P>
 __device__ __forceinline__ void warp_fill(const RowsArgs& a, long long r,
@@ -1358,14 +1594,29 @@ extern "C" int lrm_seed_tables(const TablesArgs* args, void* stream) {
   TablesArgs a = *args;
   if (a.B <= 0 || a.P <= 0 || a.S <= 0 || a.L <= 0 || a.H <= 0
       || a.left < 0 || a.left > 16 || a.hlen <= 0 || a.hlen > 16
-      || a.seed_len != a.left + a.hlen || a.npw <= 0 || a.nocc <= 0) {
+      || a.seed_len != a.left + a.hlen || a.npw <= 0 || a.nocc <= 0
+      || a.step <= 0) {
     return -1;
   }
-  const long long n = a.B * a.P * a.S;
-  const long long grid = (n + kTablesThreads - 1) / kTablesThreads;
-  if (grid > 0x7FFFFFFFLL) return -1;
-  seed_tables_kernel<<<static_cast<unsigned>(grid), kTablesThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  // the kernel's positions and CTA indices are 32-bit
+  if (a.B > 0x7FFFFFFFLL || a.L > 0x7FFFFFFFLL
+      || a.P + a.step * a.S + a.seed_len + 32 > 0x7FFFFFFFLL) {
+    return -1;
+  }
+  long long chunks = 0;
+  size_t smem = 0;
+  const SeedPart q = seed_part(a, &chunks, &smem);
+  if (chunks > 65535 || smem > static_cast<size_t>(227 * 1024)) return -1;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        seed_tables_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  seed_tables_kernel<<<dim3(static_cast<unsigned>(a.B),
+                            static_cast<unsigned>(chunks)),
+                       kSeedThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(a, q);
   return cudaGetLastError();
 }
 

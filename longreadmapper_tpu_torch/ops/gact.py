@@ -22,9 +22,11 @@ ops/band_scores.band_checkpoints, whose kernel has the same contract.
 `gact_traceback_c` walks each group in one launch of the hand-written CUDA
 kernel csrc/walk.cu::gact_walk_kernel on CUDA tensors (counted in
 `gact_traceback_c.launches`), right after the group's direction kernel,
-with no host sync; on CPU tensors it runs the plain version
-`gact_traceback_c_plain`, eager PyTorch with one host sync per iteration
-(the JAX while_loop's `any(alive)`, counted in
+with no host sync: a warp a lane, each lane at its own pace, the group's
+last CTA placing the lanes' pairs on the rows of the shared write
+pointer; on CPU tensors it runs the plain version
+`gact_traceback_c_plain`, eager PyTorch in lock step with one host sync
+per iteration (the JAX while_loop's `any(alive)`, counted in
 `gact_traceback_c.host_syncs`).
 """
 
@@ -114,11 +116,12 @@ def _for_each_group(q, t, ckpt, T: int, W: int, band: int, group: int,
 
 
 def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
-                     scale: int = 1, group: int = 1, mark=None):
+                     scale: int = 1, group: int = 1, mark=None, iters=None):
     """Column-consuming rematerialized walk.  lens (B,) with dead lanes
     (unmapped / over-limit) masked to 0 by the caller; `group` tiles are
     rematerialized at a time (gact_group_tiles); `mark` as
-    _for_each_group's.
+    _for_each_group's; `iters`, when given, an int32 (L/T, B) tensor on
+    the input's device that receives each lane's iterations in each tile.
 
     Returns (runs (B, gact_runs_cols_c(L, T, W, scale)) int16 entries
     (count << 2 | op) in reverse path order with pad gaps between tiles,
@@ -131,18 +134,30 @@ def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
     _check_counts(T, W, band)
     if q.device.type == "cpu":
         return gact_traceback_c_plain(q, t, ckpt, lens, T, W, band, scale,
-                                      group, mark)
+                                      group, mark, iters)
     B, L = q.shape
+    K = L // T
     dev = q.device
     if lens.device != dev or tuple(lens.shape) != (B,):
         raise ValueError(f"lens {tuple(lens.shape)} on {lens.device}: (B,) "
                          f"on {dev}")
+    if iters is None:
+        iters = torch.empty((K, B), dtype=torch.int32, device=dev)
+    elif (iters.dtype != torch.int32 or iters.device != dev
+          or tuple(iters.shape) != (K, B) or not iters.is_contiguous()):
+        raise ValueError(f"iters must be a contiguous int32 {(K, B)} tensor "
+                         f"on {dev}")
     n_rows = gact_runs_cols_c(L, T, W, scale) // 2
     buf = torch.full((B, n_rows, 2), OP_PAD, dtype=torch.int16, device=dev)
+    # each lane's pairs, staged until the group's last CTA places them, and
+    # where each of its tiles' pairs start
+    stage = torch.empty((B, n_rows, 2), dtype=torch.int16, device=dev)
+    starts = torch.empty((K, B), dtype=torch.int32, device=dev)
     l32 = lens.to(torch.int32)
-    # per lane (i, j, done), then the shared (ptr, nsat)
+    # per lane (i, j, done), then the shared (ptr, nsat) and the launch's
+    # CTA ticket
     st = torch.cat([l32, l32, (l32 <= 0).to(torch.int32),
-                    torch.zeros(2, dtype=torch.int32, device=dev)])
+                    torch.zeros(3, dtype=torch.int32, device=dev)])
     lib = native_build.load("walk", WALK_FUNCS)
 
     def walk(k_lo, k_hi, vg, nmg):
@@ -157,8 +172,10 @@ def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.lrm_gact_walk(vg.data_ptr(), nmg.data_ptr(),
-                                    st.data_ptr(), buf.data_ptr(), B, T, W,
-                                    band, k_lo, k_hi, n_rows, stream)
+                                    st.data_ptr(), iters.data_ptr(),
+                                    starts.data_ptr(), stage.data_ptr(),
+                                    buf.data_ptr(), B, T, W, band, k_lo,
+                                    k_hi, n_rows, stream)
         if err != 0:
             raise RuntimeError(f"gact_walk kernel launch failed: error {err}")
         gact_traceback_c.launches += 1
@@ -172,9 +189,10 @@ gact_traceback_c.host_syncs = 0       # the plain version's, on any device
 
 
 def gact_traceback_c_plain(q, t, ckpt, lens, T: int, W: int, band: int,
-                           scale: int = 1, group: int = 1, mark=None):
-    """Plain version of gact_traceback_c: eager PyTorch, one host sync per
-    iteration of each tile's loop."""
+                           scale: int = 1, group: int = 1, mark=None,
+                           iters=None):
+    """Plain version of gact_traceback_c: eager PyTorch, all lanes in lock
+    step, one host sync per iteration of each tile's loop."""
     if q.device.type == "cuda":
         gact_traceback_c_plain.cuda_calls += 1
     _check_counts(T, W, band)
@@ -190,6 +208,8 @@ def gact_traceback_c_plain(q, t, ckpt, lens, T: int, W: int, band: int,
     done = i <= 0
     buf = torch.full((n_rows, B, 2), OP_PAD, dtype=torch.int16, device=dev)
     ptr = nsat = syncs = 0
+    if iters is not None:
+        iters.zero_()
 
     def walk(k_lo, k_hi, vg, nmg):
         nonlocal i, j, done, ptr, nsat, syncs
@@ -245,6 +265,8 @@ def gact_traceback_c_plain(q, t, ckpt, lens, T: int, W: int, band: int,
                                    j2.clamp(min=0), 0)
                 j4 = torch.where(drun > 0, 0, j3)
                 done = done | ((i3 == 0) & (j4 == 0))
+                if iters is not None:
+                    iters[k] += active.to(iters.dtype)
                 e1 = torch.where(mrun > 0, mrun << 2, OP_PAD)
                 e2 = torch.where(take_e, 4 | op,
                                  torch.where(drun > 0, (drun << 2) | 2,

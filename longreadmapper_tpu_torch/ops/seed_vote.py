@@ -29,7 +29,9 @@ and overflow (B,), rows = (v1, key1, v2, total, wide_overflow), each
 (B*P,), total the row's vote count (> C: the row overflowed).
 
 On a CUDA tensor each launches its hand-written kernels in csrc/vote.cu
-(seed_tables_kernel: a thread a seed; the vote: vote_warp_kernel, a warp
+(seed_tables_kernel: a CTA a run of a read's seeds over its codes packed
+in shared memory, the wide seeds narrowed after the main pass; the vote:
+vote_warp_kernel, a warp
 a row and a CTA a read, for rows of at most 512 slots, else
 vote_cta_kernel, a CTA a row; each ends with the read's accept), counted
 in `seed_tables.launches` / `vote_rows.launches`; on a CPU tensor each

@@ -37,7 +37,7 @@ _MASK32 = 0xFFFFFFFF
 _P, _I = ctypes.c_void_p, ctypes.c_int
 WALK_FUNCS = {
     "lrm_walk_c": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
-    "lrm_gact_walk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "lrm_gact_walk": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 

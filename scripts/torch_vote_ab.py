@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""The mapping step's stage split of this checkout against another
-checkout's (the parent commit, unpacked with `git archive`) on one NVIDIA
-GPU, in turns within one call: `runtime/stages.py::stage_times` (per-stage
-ms, the seed vote's stages, the whole step unsynced, and a device trace of
-one step: kernels and busy share) on the 1 kb, 10 kb and 50 kb read sets
-of chip_smoke.py on its 4 Mb genome, all made from --seed.
+"""The mapping step's stage split, and the seed tables kernel alone, of
+this checkout against another checkout's (the parent commit, unpacked
+with `git archive`) on one NVIDIA GPU, in turns within one call:
+`runtime/stages.py::stage_times` (per-stage ms, the seed vote's stages,
+the whole step unsynced, and a device trace of one step: kernels and busy
+share) on the 1 kb, 10 kb and 50 kb read sets of chip_smoke.py on its 4
+Mb genome, all made from --seed; and `seed_tables` on each set's first
+chunk and on the 1 kb chunk of phase 3b's repeat genome (wide seeds):
+the wrapper's CUDA-event median over VOTE_TURNS calls, and the kernel's
+own device time from a torch.profiler trace of as many calls, its
+outputs' digest held equal between the checkouts.
 
   python3 scripts/torch_vote_ab.py --base DIR [--seed N] [--rounds N]
 
 The index is built once by this checkout (`cli index`, the lchash on the
 card); both checkouts read the same artifacts and `.devidx` cache.  Each
-round runs base, new, new, base, each checkout in a fresh process that
-builds its kernels (not timed), loads the index once and times the three
-sets.  The JSON printed last holds every run's stage times and traces,
-and the card's name and power limit.
+checkout first builds its kernels (not timed); then each round runs base,
+new, new, base, each checkout in a fresh process
+that loads the index once and times the three sets.  The JSON printed
+last holds every run's numbers and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -30,22 +35,67 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # set -> (reads timed, read length); 2048-read chunks
 SETS = {"1kb": (8192, 1000), "10kb": (800, 10_000), "50kb": (160, 50_000)}
 
-# one checkout's stage times: argv = checkout, fasta, reads pickle
+# one checkout's numbers: argv = checkout, fasta, reads pickle, timed calls,
+# the repeat genome's fasta
 STAGES = r"""
-import json, pickle, sys
+import json, pickle, statistics, sys
 sys.path.insert(0, sys.argv[1])
+import torch
+from torch.profiler import ProfilerActivity, profile
 from longreadmapper_tpu_torch import native_build
 native_build.build()
 from longreadmapper_tpu_torch.index.device import load_device_index
+from longreadmapper_tpu_torch.models.mapper import TorchMapper
+from longreadmapper_tpu_torch.ops.seed_vote import seed_tables
 from longreadmapper_tpu_torch.runtime.stages import stage_times
+from longreadmapper_tpu_torch.utils.config import Params
 index = load_device_index(sys.argv[2], "cuda", verbose=False)
 with open(sys.argv[3], "rb") as f:
     sets = pickle.load(f)
-out = {name: stage_times(sys.argv[2], reads, chunk_b=2048, device="cuda",
-                         traced_steps=1, index=index)
-       for name, reads in sets.items()}
+out = {"stages": {
+    name: stage_times(sys.argv[2], reads, chunk_b=2048, device="cuda",
+                      traced_steps=1, index=index)
+    for name, (reads, _) in sets.items() if name != "repeat"}}
+out["tables"] = {}
+for name, (reads, L) in sets.items():
+    if name == "repeat":
+        index = load_device_index(sys.argv[5], "cuda", verbose=False)
+    idx, meta, mta = index
+    mapper = TorchMapper(idx, meta, mta, Params(), chunk_b=2048,
+                         device="cuda")
+    cfg = mapper._step_for(L)
+    codes, _, lens, _ = mapper._pack_reads(reads[:cfg.B], L, cfg.B)
+    codes = torch.from_numpy(codes).cuda()
+    lens = torch.from_numpy(lens).cuda()
+    fn = lambda: seed_tables(cfg, idx, codes, lens)
+    tabs = fn()
+    digest = [int((t.reshape(-1).to(torch.int64) * (torch.arange(
+        t.numel(), device=t.device) % 999983 + 1)).sum()) for t in tabs]
+    fn()
+    ms = []
+    for _ in range(int(sys.argv[4])):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(int(sys.argv[4])):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type.name == "CUDA"
+            and "seed_tables_kernel" in e.name]
+    out["tables"][name] = dict(
+        B=cfg.B, L=L, seeds=int(tabs[0].numel()),
+        wide=int(tabs[3].sum()), wrapper_ms=statistics.median(ms),
+        kernel_ms=statistics.median(kern) if kern else None,
+        kernel_launches=len(kern), digest=digest)
 print(json.dumps(out))
 """
+VOTE_TURNS = 20                    # timed seed_tables calls, as the smoke's
 
 
 def main(argv=None) -> int:
@@ -64,6 +114,11 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     runs = []
+    for checkout in (base, HERE):
+        subprocess.run([sys.executable, "-c",
+                        "from longreadmapper_tpu_torch import native_build; "
+                        "native_build.build()"], cwd=checkout, check=True,
+                       env=dict(os.environ, PYTHONPATH=checkout))
     with tempfile.TemporaryDirectory(prefix="lrm_vote_ab_") as d:
         fa, fq, _, g = smoke.make_data(d, args.seed, 4_000_000,
                                        SETS["1kb"][0], SETS["1kb"][1], 0.03)
@@ -71,32 +126,47 @@ def main(argv=None) -> int:
                 contextlib.redirect_stderr(e):
             cli.main(["index", fa])
         from longreadmapper_tpu_torch.runtime.reads import load_read_batches
-        sets = {"1kb": next(iter(load_read_batches(
-            fq, SETS["1kb"][0], background=False)))}
+        sets = {"1kb": (next(iter(load_read_batches(
+            fq, SETS["1kb"][0], background=False))), 1024)}
         for k, name in enumerate(("10kb", "50kb")):
             n, read_len = SETS[name]
             reads, _, _ = smoke.make_long_reads(g, args.seed + 1 + k, n,
                                                 read_len)
-            sets[name] = [(nm, s, None) for nm, s in reads]
+            sets[name] = ([(nm, s, None) for nm, s in reads],
+                          smoke.VOTE_SETS[name])
+        # phase 3b's repeat genome (wide seeds): its 1 kb chunk, tables only
+        rfa, rreads = smoke.repeat_genome(d, args.seed)
+        sets["repeat"] = ([(nm, s, None) for nm, s in rreads], 1024)
         pkl = os.path.join(d, "sets.pkl")
         with open(pkl, "wb") as f:
             pickle.dump(sets, f)
+        digests = {}
         for r in range(args.rounds):
             for who in ("base", "new", "new", "base"):
                 checkout = base if who == "base" else HERE
                 p = subprocess.run([sys.executable, "-c", STAGES, checkout,
-                                    fa, pkl], capture_output=True, text=True,
+                                    fa, pkl, str(VOTE_TURNS), rfa],
+                                   capture_output=True, text=True,
                                    timeout=1200, cwd=checkout)
                 if p.returncode != 0:
                     print(p.stderr[-3000:], file=sys.stderr)
                     raise RuntimeError(f"{who} stage times exited "
                                        f"{p.returncode}")
                 out = json.loads(p.stdout.strip().splitlines()[-1])
-                runs.append(dict(who=who, round=r, stages=out))
-                for name, st in out.items():
+                runs.append(dict(who=who, round=r, **out))
+                for name, st in out["stages"].items():
                     print(f"[{who}] {name}: step {st['step_ms']} ms, "
                           f"stages {json.dumps(st['stage_ms'])}, trace "
                           f"{json.dumps(st['trace'])}", flush=True)
+                for name, st in out["tables"].items():
+                    print(f"[{who}] {name} seed_tables: wrapper "
+                          f"{st['wrapper_ms']} ms, kernel {st['kernel_ms']} "
+                          f"ms ({st['kernel_launches']} traced), "
+                          f"{st['seeds']} seeds, {st['wide']} wide",
+                          flush=True)
+                    if digests.setdefault(name, st["digest"]) != st["digest"]:
+                        raise AssertionError(f"{name}: seed_tables' outputs "
+                                             "differ between the checkouts")
     print(card)
     print(json.dumps(dict(card=card, runs=runs)))
     return 0

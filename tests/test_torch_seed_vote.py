@@ -23,6 +23,7 @@ import os
 import subprocess
 import sys
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -384,6 +385,250 @@ def test_seed_accept_plain_matches_the_reference_loop(case, dtype):
                                         else 0)]
 
 
+# ------------------------------------------ seed_tables_kernel's schedule
+# Scalar models of csrc/vote.cu::seed_tables_kernel as it is written: the
+# CTA split (seed_part: whole phase rows or a slice of one a CTA), each
+# CTA's window packed from its codes (2 bits a code, an `inv` bit for
+# codes outside 0-3 and past L, an `exo` bit for codes outside 0-4), a
+# seed's qw, lchash key and validity read from the packed words, and the
+# wide seeds' queue narrowed after the main pass.
+
+SEEDS_PER_CTA, SEED_THREADS = 1024, 512
+
+
+def model_seed_part(cfg):
+    """(np, ns, cpr, chunks): phase rows and seeds of a row a CTA, CTAs a
+    row, CTAs a read: whole rows a CTA while a read's rows are short,
+    else slices of one row."""
+    P, S = cfg.phases, cfg.max_seeds
+    if S >= SEEDS_PER_CTA:
+        cpr = -(-S // SEEDS_PER_CTA)
+        return 1, -(-S // cpr), cpr, P * cpr
+    n_p = min(SEEDS_PER_CTA // S, P)
+    return n_p, S, 1, -(-P // n_p)
+
+
+def model_ctas(cfg):
+    """Each CTA's (p0, np, s0, ns) for one read."""
+    n_p, ns, cpr, chunks = model_seed_part(cfg)
+    for c in range(chunks):
+        p0, s0 = c // cpr * n_p, c % cpr * ns
+        yield p0, min(n_p, cfg.phases - p0), s0, min(ns, cfg.max_seeds - s0)
+
+
+def _rev2(x, n):
+    """The n 2-bit fields of x in reverse order."""
+    return sum(((x >> (2 * t)) & 3) << (2 * (n - 1 - t)) for t in range(n))
+
+
+def model_packed_seeds(cfg, codes):
+    """qw, num (the lchash key) and ok per seed, (B*P, S) each, as the
+    kernel reads them from each CTA's packed window."""
+    B, L = codes.shape
+    P, S, step = cfg.phases, cfg.max_seeds, cfg.step
+    sl, left, hlen = cfg.seed_len, cfg.left, cfg.hlen
+    qw = np.zeros((B * P, S), np.int64)
+    num = np.zeros((B * P, S), np.int64)
+    ok = np.zeros((B * P, S), bool)
+    for b in range(B):
+        row = [int(c) for c in codes[b]]
+        for p0, n_p, s0, ns in model_ctas(cfg):
+            wlo = (p0 + step * s0) & ~15
+            units = (p0 + n_p - 1 + step * (s0 + ns - 1) + sl - wlo
+                     + 15) // 16 + 2
+            cw, inv, exo = [], [], []
+            for u in range(units):
+                cs = [row[x] if x < L else 4
+                      for x in range(wlo + 16 * u, wlo + 16 * u + 16)]
+                cw.append(sum((c & 3) << (2 * t) for t, c in enumerate(cs)))
+                inv.append(sum((not 0 <= c <= 3) << t
+                               for t, c in enumerate(cs)))
+                exo.append(sum((not 0 <= c <= 4) << t
+                               for t, c in enumerate(cs)))
+            for lc in range(n_p * ns):
+                p, s = p0 + lc // ns, s0 + lc % ns
+                j = p + step * s
+                x = j - wlo
+                u = x >> 4
+                bits = (cw[u] | cw[u + 1] << 32 | cw[u + 2] << 64) >> (
+                    2 * (x & 15))
+                iv = ((inv[u] | inv[u + 1] << 16 | inv[u + 2] << 32)
+                      >> (x & 15)) & ((1 << sl) - 1)
+                ex = ((exo[u] | exo[u + 1] << 16 | exo[u + 2] << 32)
+                      >> (x & 15)) & ((1 << sl) - 1)
+                if ex:            # the bytes themselves
+                    cs = [row[j + t] if j + t < L else 4 for t in range(sl)]
+                    q = k = 0
+                    for t, c in enumerate(cs[:left]):
+                        q |= (c << (2 * t)) & M32
+                    for t, c in enumerate(cs[left:]):
+                        k |= (c << (2 * (hlen - 1 - t))) & M32
+                    good = all(c < 4 for c in cs)
+                else:
+                    q = bits & ((1 << 2 * left) - 1)
+                    k = _rev2((bits >> 2 * left) & ((1 << 2 * hlen) - 1),
+                              hlen)
+                    # a 4 sets the bit above its 2-bit field
+                    q |= sum(1 << (2 * t + 2) for t in range(left)
+                             if iv >> t & 1)
+                    k |= sum(1 << (2 * (hlen - 1 - t) + 2)
+                             for t in range(hlen) if iv >> (left + t) & 1)
+                    good = iv == 0
+                r = b * P + p
+                qw[r, s] = np.int64(q & M32).astype(np.uint32).view(np.int32)
+                num[r, s] = np.int64(k & M32).astype(np.uint32).view(np.int32)
+                ok[r, s] = good
+    return qw.astype(np.int32), num.astype(np.int32), ok
+
+
+M32 = 0xFFFFFFFF
+
+
+def _seed_codes(rng, B, L, exotic=False):
+    """Reads of random bases with N codes and an N run, ragged lengths
+    (the tail pad 4), the last one at full length so a seed ends at L;
+    with `exotic`, one read of arbitrary int8 codes."""
+    codes = np.full((B, L), 4, np.int8)
+    for b in range(B):
+        n = L if b == B - 1 else int(rng.integers(L // 2, L))
+        codes[b, :n] = rng.integers(0, 4, n)
+        codes[b, rng.integers(0, n, max(1, n // 40))] = 4
+        s = int(rng.integers(0, n - 30))
+        codes[b, s:s + 25] = 4
+    if exotic:
+        codes[0] = rng.integers(-128, 128, L)
+    return codes
+
+
+def _seed_cfgs(seed_len, hlen, L, B=3):
+    kw = dict(B=B, L=L, seed_len=seed_len, gap_len=1, thres=30, hlen=hlen,
+              n=1000, dollar_pos=3, accept_score=0.6, error_rate=0.1)
+    return tpipe.MapperConfig(**kw), jpipe.MapperConfig(**kw)
+
+
+@pytest.mark.parametrize("seed_len,hlen,L", [
+    (20, 14, 256),        # left 6, one CTA a read
+    (20, 14, 4000),       # left 6, a few phase rows a CTA
+    (20, 14, 22000),      # left 6, slices of a row
+    (6, 6, 256),          # left 0
+    (6, 6, 8001)])        # left 0, slices of a row
+def test_packed_seed_model_matches_plain_and_jax(seed_len, hlen, L):
+    """The kernel's packed-code extraction gives the plain version's qw
+    and JAX's _position_tables' qw, key and validity for every seed: N
+    codes, N runs, codes past L (the padded copy's 4s), a seed ending at
+    L and, in one read, codes outside 0-4 (the kernel's byte path)."""
+    tc, jc = _seed_cfgs(seed_len, hlen, L)
+    assert tc.left == seed_len - hlen
+    codes = _seed_codes(np.random.default_rng(L + seed_len), 3, L,
+                        exotic=L < 5000)
+    qw, num, ok = model_packed_seeds(tc, codes)
+    tq, tn, to = (tsv._by_phase(tc, a) for a in tsv._position_tables(
+        tc, torch.from_numpy(codes)))
+    jq, jn, jo = (np.asarray(jpipe._by_phase(jc, a)) for a in
+                  jpipe._position_tables(jc, jnp.asarray(codes)))
+    for got, port, jax_ in ((qw, tq, jq), (num, tn, jn), (ok, to, jo)):
+        np.testing.assert_array_equal(got, port.numpy())
+        np.testing.assert_array_equal(got, jax_)
+    lens = torch.full((3,), L, dtype=torch.int32)
+    idx = SimpleNamespace(lch=torch.zeros((4 ** hlen, 2), dtype=torch.int32),
+                          c4=torch.zeros(4, dtype=torch.int32),
+                          packed=torch.zeros(4, dtype=torch.int32),
+                          occ_samp=torch.zeros((4, 4), dtype=torch.int32))
+    np.testing.assert_array_equal(qw, tsv.seed_tables_plain(
+        tc, idx, torch.from_numpy(codes), lens)[0].numpy())
+    starts = tsv._seed_starts(tc, 3, "cpu").numpy()
+    assert (starts + seed_len == L).any()          # a seed ends at L
+    assert (starts + seed_len > L).any()           # seeds past L
+    assert (~ok).any() and ok.any()
+    n_p, ns, cpr, chunks = model_seed_part(tc)
+    assert (cpr > 1) == (tc.max_seeds >= SEEDS_PER_CTA)
+
+
+def _occ_at(idx, cfg, c, loc):
+    """csrc/vote.cu::occ_at on Python integers."""
+    wid, off = loc >> 4, loc & 15
+    npw, nocc = idx.packed.shape[0], idx.occ_samp.shape[0]
+    word = int(idx.packed[min(max(wid, 0), npw - 1)]) & M32
+    pat = word ^ (c * 0x55555555)
+    hit = ~pat & ~(pat >> 1) & 0x55555555
+    cnt = bin(hit & (0x55555555 >> (2 * (15 - off)))).count("1")
+    cnt -= (c == 0 and wid == cfg.dollar_pos >> 4
+            and (cfg.dollar_pos & 15) <= off)
+    return int(idx.occ_samp[min(max(wid, 0), nocc - 1), c]) + cnt
+
+
+def model_wide_queue(cfg, idx, codes, lens):
+    """(k12, cnt12, wide, kw, cw) by the kernel's schedule: each CTA's
+    seeds in its threads' order (a thread's k-th seed at thread + 256k),
+    the lch gather of each, a warp's wide seeds queued by ballot in lane
+    order, then each queued seed LF-narrowed, `left` steps, last code
+    first."""
+    P, S, left, thres = cfg.phases, cfg.max_seeds, cfg.left, cfg.thres
+    qw, num, ok = model_packed_seeds(cfg, codes)
+    B = codes.shape[0]
+    out = {k: np.zeros((B * P, S), np.int64)
+           for k in ("k12", "cnt12", "wide", "kw", "cw")}
+    H = idx.lch.shape[0]
+    lch = idx.lch.numpy()
+    for b in range(B):
+        for p0, n_p, s0, ns in model_ctas(cfg):
+            queue = []
+            for k in range(SEEDS_PER_CTA // SEED_THREADS):
+                for lane0 in range(0, SEED_THREADS, 32):    # warps
+                    for lc in range(lane0 + k * SEED_THREADS,
+                                    lane0 + 32 + k * SEED_THREADS):
+                        if lc >= n_p * ns:
+                            continue
+                        p, s = p0 + lc // ns, s0 + lc % ns
+                        r = b * P + p
+                        kk, ll = (int(x) for x in lch[min(max(
+                            int(num[r, s]), 0), H - 1)])
+                        present = (ok[r, s] and p + cfg.step * s
+                                   < int(lens[b]) - cfg.seed_len
+                                   and not (kk == 0 and ll == 0))
+                        cnt = min(ll - kk + 1, thres) if present else 0
+                        wide = present and cnt >= thres
+                        out["k12"][r, s], out["cnt12"][r, s] = kk, cnt
+                        out["wide"][r, s] = wide
+                        out["kw"][r, s] = kk
+                        if wide:
+                            queue.append((r, s, kk, ll, int(qw[r, s])))
+            for r, s, kk, ll, q in queue:
+                for t in range(left - 1, -1, -1):
+                    if kk > ll:
+                        break
+                    c = (q >> (2 * t)) & 3
+                    cb = int(idx.c4[c])
+                    sk, sll = max(kk, 1), min(max(ll, 0),
+                                              idx.occ_samp.shape[0] * 16 - 1)
+                    kk = cb + _occ_at(idx, cfg, c, sk - 1) + 1
+                    ll = cb + _occ_at(idx, cfg, c, sll)
+                hits = ll - kk + 1 if kk <= ll else 0
+                out["kw"][r, s] = kk
+                out["cw"][r, s] = hits if 0 < hits < thres else 0
+    return out
+
+
+@pytest.mark.parametrize("L", [256, 4000])
+def test_wide_queue_model_matches_plain_on_the_repeat(rep, L):
+    """The repeat genome's wide seeds, queued and narrowed after each
+    CTA's main pass, get the plain version's kw and cw; every other table
+    equal too."""
+    params = Params(hlen=HLEN, thres=30)
+    tc = tpipe.MapperConfig.from_params(params, rep["tmeta"], 8, L)
+    codes, lens = _chunk(rep, params, rep["reads"], 8, L, rep["tidx"],
+                         rep["tmeta"])
+    want = dict(zip(("qw", "k12", "cnt12", "wide", "kw", "cw"),
+                    tsv.seed_tables_plain(tc, rep["tidx"],
+                                          torch.from_numpy(codes),
+                                          torch.from_numpy(lens))))
+    got = model_wide_queue(tc, rep["tidx"], codes, lens)
+    assert want["wide"].sum() > 0 and (want["cw"] > 0).any()
+    for k, g in got.items():
+        np.testing.assert_array_equal(g, want[k].numpy().astype(np.int64),
+                                      err_msg=k)
+
+
 # JAX in x64 mode (forced pos64 layouts) runs in a process of its own
 POS64_WORKER = r"""
 import os, sys
@@ -396,6 +641,7 @@ jax.config.update("jax_enable_x64", True)
 import json
 import numpy as np
 from dataclasses import replace
+from types import SimpleNamespace
 from longreadmapper_tpu.index.device import load_device_index
 from longreadmapper_tpu.mapping import pipeline as jpipe
 from longreadmapper_tpu.oracle.refpipe import _Histo

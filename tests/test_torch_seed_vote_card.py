@@ -11,7 +11,9 @@ sides of the warp / CTA boundary (Cpad 32 to 4096; the CTA rows' accept
 by the read's last CTA, twice in a row, its counters back at 0);
 top2_votes on int32 and int64 keys, rows of 120,000 votes in global
 scratch among them; and the mapping step with no host sync, under
-torch.cuda.set_sync_debug_mode("error").
+torch.cuda.set_sync_debug_mode("error"); and seed_tables_kernel's CTA split
+at the long buckets' shapes (whole phase rows or slices of one a CTA) in
+every layout and both stages, codes outside 0-4 among them.
 
 Card-only: the tests skip where torch.cuda.is_available() is false, and
 import no JAX, so they run where JAX is absent:
@@ -168,6 +170,51 @@ def test_seed_vote_kernels_match_plain_on_card(genome_fa, load, case):
     if case == "budget":
         assert rows[4].any() and overflow.any()       # dropped wide seeds
     assert (rows[0] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("load", LAYOUTS)
+@pytest.mark.parametrize("L,sharded", [(4000, False), (22000, False),
+                                       (22000, True), (1029, True)])
+def test_seed_tables_kernel_at_long_buckets_on_card(genome_fa, load, L,
+                                                    sharded):
+    """seed_tables_kernel's CTA split past one CTA a read: a few phase
+    rows a CTA (L 4000; L 1029, not a multiple of 16, with a row-sharded
+    index's two stages), slices of one row (L 22000, S > 1024); reads from
+    the genome with N runs, ragged ends, one of arbitrary int8 codes;
+    thres 3 makes many seeds wide."""
+    _card()
+    fa, genome = genome_fa
+    idx, meta, _ = load_device_index(fa, "cuda", verbose=False, **load)
+    cfg = tpipe.MapperConfig.from_params(Params(hlen=HLEN, thres=3), meta,
+                                         4, L)
+    rng = np.random.default_rng(L)
+    lut = np.full(256, 4, np.int8)
+    lut[list(b"ACGT")] = [0, 1, 2, 3]
+    g = lut[np.frombuffer(genome.encode(), np.uint8)]
+    codes = np.full((4, L), 4, np.int8)
+    lens = np.zeros(4, np.int32)
+    for b in range(4):
+        n = L if b == 3 else int(rng.integers(L // 2, L))
+        p = int(rng.integers(0, len(g) - min(n, len(g)) + 1))
+        seg = g[p:p + n]
+        codes[b, :len(seg)] = seg
+        codes[b, len(seg):n] = rng.integers(0, 4, n - len(seg))
+        s = int(rng.integers(0, n - 40))
+        codes[b, s:s + 30] = 4
+        lens[b] = n
+    codes[1] = rng.integers(-128, 128, L)
+    codes, lens = torch.from_numpy(codes).cuda(), torch.from_numpy(lens).cuda()
+    if sharded:
+        for k in ("lch", "lch_hi"):
+            if getattr(idx, k) is not None:
+                setattr(idx, k, _Rows(getattr(idx, k)))
+    n0 = tsv.seed_tables.launches
+    want = tsv.seed_tables_plain(cfg, idx, codes, lens)
+    _equal(tsv.seed_tables(cfg, idx, codes, lens), want)
+    assert tsv.seed_tables.launches == n0 + (2 if sharded else 1)
+    assert want[3].any() and (want[5] > 0).any()
+    assert (cfg.max_seeds >= 1024) == (L == 22000)
 
 
 @pytest.mark.cuda

@@ -4,13 +4,16 @@ per-lane models of their loops, and on the card against the plain walks.
 The models below are written as the CUDA code is written, lane by lane in
 Python integers: walk_c_kernel's independent lanes, each to done or to its
 iteration bound, with the bitmap scan that starts at g_cur's own word and
-stops at the first hit; gact_walk_kernel's shared write pointer, its
-per-tile "any lane alive" loop and the clamped last row that every lane's
-pair overwrites.  Each model is held equal to the port's plain walk and to
-JAX's device_traceback_c / gact_traceback_c: ragged lengths, two or more
-bitmap words, int32 entries, dead lanes, random words for the clamps, and
-a forced saturation at scale 1.  The wrappers' dispatch on a CPU tensor
-reaches the plain walk.
+stops at the first hit; the lock-step gact walk whose semantics
+gact_walk_kernel keeps (one shared write pointer, a per-tile "any lane
+alive" loop, the clamped last row that every lane's pair overwrites), and
+gact_walk_kernel as it is written: a lane at its own pace with its
+iterations a tile and a staging row, then the group's last CTA's maxima,
+prefix, copy and clamped row.  Each model is held equal to the port's
+plain walk and to JAX's device_traceback_c / gact_traceback_c: ragged
+lengths, two or more bitmap words, int32 entries, dead lanes, random
+words for the clamps and the tile bound, and a forced saturation at
+scale 1.  The wrappers' dispatch on a CPU tensor reaches the plain walk.
 
 The card tests import no JAX:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -113,68 +116,83 @@ def model_walk_c(vdirs, nm, lens, L, W, bits=16):
     return runs
 
 
+def _gact_step(v, nmw, b, B, band, T, W, k, i, j):
+    """One iteration of an alive lane b at (i, j) in tile k (walk.cu's
+    column_step): (i, j, e1, e2).  v (G*B*band) and nmw (nbm lists of
+    B*band) hold the tile's words as uint32 Python ints."""
+    lo = k * T
+    in_tile = i > lo
+    any_nm, gstar, wsel = False, 0, 0
+    if in_tile:
+        d = _clamp(j - i + W, 0, band - 1)
+        ii = _clamp(i - 1 - lo, 0, T - 1)
+        g_cur, r = ii >> 4, ii & 15
+        sh = 2 * (15 - r)
+        wm = ((_word(v, g_cur, b, d, B, band) << sh) & M32) >> sh
+        bmidx = _clamp(b * band + d, 0, B * band - 1)
+        g2 = -1 if wm else _group_below(nmw, b, band, g_cur, bmidx)
+        any_nm = wm != 0 or g2 >= 0
+        gstar = g_cur if wm else max(g2, 0)
+        wsel = (wm if wm else
+                _word(v, gstar, b, d, B, band) if any_nm else 0)
+    pstar = max(15 - (_clz(wsel) >> 1), 0)
+    floor_row = (lo + gstar * 16 + pstar + 1 if any_nm
+                 else (0 if k == 0 else lo))
+    mrun = i - floor_row if in_tile else 0
+    i2, j2 = i - mrun, j - mrun
+    op = (wsel >> (2 * pstar)) & 3
+    take_e = any_nm and not (i2 == 0 and j2 == 0)
+    i3 = i2 - 1 if take_e and op == 1 else i2
+    j3 = j2 - 1 if take_e and op == 2 else j2
+    drun = max(j2, 0) if not any_nm and i2 == 0 else 0
+    e1 = _entry(mrun, 0, 16) if mrun > 0 else 3
+    e2 = (_entry(1, op, 16) if take_e else
+          _entry(drun, 2, 16) if drun > 0 else 3)
+    return i3, 0 if drun > 0 else j3, e1, e2
+
+
+def _alive(done, i, j, k, lo):
+    return not done and (i > lo or (k == 0 and j > 0))
+
+
+def _gact_groups(q, t, ckpt, T, W, band, group, walk):
+    """walk(k_lo, k_hi, words, bitmaps) over ops/gact._for_each_group's
+    groups (the plain tile groups on the CPU), each tile's words and
+    bitmap words as uint32 Python ints."""
+    def on_group(k_lo, k_hi, vg, nmg):
+        vg, nmg = vg.cpu().numpy(), nmg.cpu().numpy()
+        walk(k_lo, k_hi, [_u32(x) for x in vg],
+             [[_u32(w) for w in x] for x in nmg])
+    tg._for_each_group(torch.as_tensor(q), torch.as_tensor(t), ckpt, T, W,
+                       band, group, on_group, None)
+
+
 def model_gact_walk(q, t, ckpt, lens, T, W, band, scale=1, group=1):
-    """gact_walk_kernel over every group of ops/gact._for_each_group (the
-    plain tile groups on the CPU): one state for all lanes, one shared
-    write pointer, each tile's loop until no lane is alive.  Returns
-    (runs (B, gact_runs_cols_c), saturated)."""
+    """The lock-step walk that gact_walk_kernel reproduces (the plain
+    walk's semantics): one state for all lanes, one shared write pointer,
+    each tile's loop until no lane is alive.  Returns (runs (B,
+    gact_runs_cols_c), saturated)."""
     B, L = q.shape
     n_rows = tg.gact_runs_cols_c(L, T, W, scale) // 2
     buf = np.full((B, n_rows, 2), 3, np.int64)
     st = dict(i=[int(x) for x in lens], j=[int(x) for x in lens],
               done=[int(x) <= 0 for x in lens], ptr=0, nsat=0)
 
-    def walk(k_lo, k_hi, vg, nmg):
+    def walk(k_lo, k_hi, vs, nms):
         for k in range(k_hi, k_lo - 1, -1):
-            v = _u32(vg[k - k_lo])
-            nmw = [_u32(w) for w in nmg[k - k_lo]]
+            v, nmw = vs[k - k_lo], nms[k - k_lo]
             lo = k * T
             i, j, done = st["i"], st["j"], st["done"]
             for _ in range(W + 4):
-                if not any(not done[b] and (i[b] > lo or (k == 0
-                                                          and j[b] > 0))
+                if not any(_alive(done[b], i[b], j[b], k, lo)
                            for b in range(B)):
                     break
                 ptr = st["ptr"]
                 for b in range(B):
-                    in_tile = i[b] > lo
-                    active = not done[b] and (in_tile or (k == 0
-                                                          and j[b] > 0))
                     e1 = e2 = 3
-                    if active:
-                        any_nm, gstar, wsel = False, 0, 0
-                        if in_tile:
-                            d = _clamp(j[b] - i[b] + W, 0, band - 1)
-                            ii = _clamp(i[b] - 1 - lo, 0, T - 1)
-                            g_cur, r = ii >> 4, ii & 15
-                            sh = 2 * (15 - r)
-                            wm = ((_word(v, g_cur, b, d, B, band) << sh)
-                                  & M32) >> sh
-                            bmidx = _clamp(b * band + d, 0, B * band - 1)
-                            g2 = -1 if wm else _group_below(nmw, b, band,
-                                                            g_cur, bmidx)
-                            any_nm = wm != 0 or g2 >= 0
-                            gstar = g_cur if wm else max(g2, 0)
-                            wsel = (wm if wm else
-                                    _word(v, gstar, b, d, B, band)
-                                    if any_nm else 0)
-                        pstar = max(15 - (_clz(wsel) >> 1), 0)
-                        floor_row = (lo + gstar * 16 + pstar + 1 if any_nm
-                                     else (0 if k == 0 else lo))
-                        mrun = i[b] - floor_row if in_tile else 0
-                        i2, j2 = i[b] - mrun, j[b] - mrun
-                        op = (wsel >> (2 * pstar)) & 3
-                        take_e = any_nm and not (i2 == 0 and j2 == 0)
-                        i3 = i2 - 1 if take_e and op == 1 else i2
-                        j3 = j2 - 1 if take_e and op == 2 else j2
-                        drun = max(j2, 0) if not any_nm and i2 == 0 else 0
-                        if mrun > 0:
-                            e1 = _entry(mrun, 0, 16)
-                        if take_e:
-                            e2 = _entry(1, op, 16)
-                        elif drun > 0:
-                            e2 = _entry(drun, 2, 16)
-                        i[b], j[b] = i3, 0 if drun > 0 else j3
+                    if _alive(done[b], i[b], j[b], k, lo):
+                        i[b], j[b], e1, e2 = _gact_step(v, nmw, b, B, band,
+                                                        T, W, k, i[b], j[b])
                     if i[b] == 0 and j[b] == 0:
                         done[b] = True
                     # every lane's pair, pads included, into the shared row
@@ -182,12 +200,87 @@ def model_gact_walk(q, t, ckpt, lens, T, W, band, scale=1, group=1):
                 st["nsat"] += ptr == n_rows - 1
                 st["ptr"] = min(ptr + 1, n_rows - 1)
 
-    tg._for_each_group(torch.from_numpy(q), torch.from_numpy(t), ckpt, T,
-                       W, band, group,
-                       lambda k_lo, k_hi, vg, nmg: walk(k_lo, k_hi,
-                                                        vg.numpy(),
-                                                        nmg.numpy()), None)
+    _gact_groups(q, t, ckpt, T, W, band, group, walk)
     return buf.reshape(B, -1).astype(np.int16), st["nsat"] >= 2
+
+
+def model_gact_walk_lanes(q, t, ckpt, lens, T, W, band, scale=1, group=1):
+    """gact_walk_kernel as it is written: in each group's launch every lane
+    walks the group's tiles at its own pace (while alive, at most W + 4
+    iterations a tile), counting its iterations a tile (cnt) and staging
+    its pairs in a row of its own (only the last past n_rows - 1); then
+    the group's last CTA takes each tile's block iterations as the maximum
+    over lanes, their prefix from the carried ptr + nsat, copies each
+    lane's pairs to the rows below the clamped one, writes the clamped
+    row from the group's last block iteration and carries ptr and nsat.
+    Returns (runs, saturated, cnt (L/T, B))."""
+    B, L = q.shape
+    n_rows = tg.gact_runs_cols_c(L, T, W, scale) // 2
+    clamp = n_rows - 1
+    buf = np.full((B, n_rows, 2), 3, np.int64)
+    cnt = np.zeros((L // T, B), np.int32)
+    off = np.zeros((L // T, B), np.int64)
+    lanes = [[int(x), int(x), int(x) <= 0] for x in lens]
+    st = dict(ptr=0, nsat=0)
+
+    def walk(k_lo, k_hi, vs, nms):
+        stage = [[None] * n_rows for _ in range(B)]
+        for b in range(B):                     # a warp a lane
+            i, j, done = lanes[b]
+            a = 0
+            for k in range(k_hi, k_lo - 1, -1):
+                off[k, b] = a
+                n = 0
+                while n < W + 4 and _alive(done, i, j, k, k * T):
+                    i, j, e1, e2 = _gact_step(vs[k - k_lo], nms[k - k_lo],
+                                              b, B, band, T, W, k, i, j)
+                    stage[b][min(a, clamp)] = (e1, e2)
+                    a += 1
+                    n += 1
+                    done = i == 0 and j == 0
+                cnt[k, b] = n
+            lanes[b] = [i, j, done]
+        # the group's last CTA
+        ks = range(k_hi, k_lo - 1, -1)
+        base, g = {}, st["ptr"] + st["nsat"]
+        for k in ks:
+            base[k] = g
+            g += int(cnt[k].max())
+        for k in ks:
+            for b in range(B):
+                for it in range(min(int(cnt[k, b]), clamp - base[k])):
+                    buf[b, base[k] + it] = stage[b][off[k, b] + it]
+        if g > clamp and g > base[k_hi]:
+            k = min(k for k in ks if cnt[k].max() > 0)
+            for b in range(B):
+                last = min(off[k, b] + cnt[k, b] - 1, clamp)
+                buf[b, clamp] = (stage[b][last] if cnt[k, b] == cnt[k].max()
+                                 else (3, 3))
+        st["ptr"], st["nsat"] = min(g, clamp), max(0, g - clamp)
+
+    _gact_groups(q, t, ckpt, T, W, band, group, walk)
+    return buf.reshape(B, -1).astype(np.int16), st["nsat"] >= 2, cnt
+
+
+def _random_groups(monkeypatch, seed):
+    """Replace the tiles' direction pass with random words and bitmaps (a
+    group's the same on every call), so lanes wander over the band and
+    run into the tile bound; returns a dict that counts the calls."""
+    seen = {"calls": 0}
+
+    def dirs(q, t, W, band, ckpt, T, k0, tiles):
+        seen["calls"] += 1
+        rng = np.random.default_rng([seed, k0])
+        B, G = q.shape[0], T // 16
+        v = rng.integers(-2**31, 2**31, (tiles, G, B, band), dtype=np.int64)
+        v[rng.random(v.shape) < 0.7] = 0
+        nm = rng.integers(-2**31, 2**31, (tiles, -(-G // 32), B, band),
+                          dtype=np.int64)
+        return (torch.from_numpy(v.astype(np.int32)).to(q.device), None,
+                torch.from_numpy(nm.astype(np.int32)).to(q.device))
+
+    monkeypatch.setattr(tg, "banded_nw_dirs_tiles", dirs)
+    return seen
 
 
 # ------------------------------------------------------------------ data
@@ -375,6 +468,93 @@ def test_gact_walk_model_clamps_on_perturbed_checkpoints():
         assert m_sat == bool(sat)
 
 
+@pytest.mark.parametrize("kind,scale,group", [
+    ("pair", 1, 1), ("pair", 1, 3), ("long", 1, 16),
+    ("weave", 1, 3),                   # saturates at scale 1
+    ("weave", 4, 16)])
+def test_gact_walk_lanes_model_matches_plain_and_jax(kind, scale, group):
+    """The decoupled walk (a lane at its own pace, the rows rebuilt by the
+    group's last CTA) equals the lock-step plain walk and JAX's, runs,
+    saturated flag and each lane's iterations a tile."""
+    import jax.numpy as jnp
+    from longreadmapper_tpu.ops import gact as jg
+    (q, t, lens), T, W, band = _gact_case(kind, seed=5)
+    tq, tt, tl = (torch.from_numpy(a) for a in (q, t, lens))
+    ckpt, _ = tg.gact_forward(tq, tt, T, W, band)
+    iters = torch.zeros((q.shape[1] // T, q.shape[0]), dtype=torch.int32)
+    runs, sat = tg.gact_traceback_c_plain(tq, tt, ckpt, tl, T, W, band,
+                                          scale, group, iters=iters)
+    m_runs, m_sat, m_cnt = model_gact_walk_lanes(q, t, ckpt, lens, T, W,
+                                                 band, scale, group)
+    np.testing.assert_array_equal(m_runs, runs.numpy())
+    np.testing.assert_array_equal(m_cnt, iters.numpy())
+    assert m_sat == bool(sat)
+    ck_w, _ = jg.gact_forward(jnp.asarray(q), jnp.asarray(t), T, W, band)
+    runs_w, sat_w = jg.gact_traceback_c(jnp.asarray(q), jnp.asarray(t), ck_w,
+                                        jnp.asarray(lens), T, W, band,
+                                        scale=scale)
+    np.testing.assert_array_equal(m_runs, np.asarray(runs_w))
+    assert m_sat == bool(sat_w)
+    if kind == "weave" and scale == 1:
+        assert m_sat                     # the forced saturation, flagged
+    if kind != "weave":
+        # the lanes' own paces: the longest lane makes fewer iterations
+        # than the tiles' block iterations the lock-step walk pays
+        assert m_cnt.sum(axis=0).max() < m_cnt.max(axis=1).sum()
+
+
+def test_gact_walk_lanes_model_clamps_on_perturbed_checkpoints():
+    """Perturbed checkpoints (paths out of the band), lens past L, dead
+    lanes (0 and negative): the decoupled walk equals the plain walk at
+    both scales."""
+    from test_torch_gact import _pair
+    rng = np.random.default_rng(7)
+    B, L, T, W, band = 9, 512, 64, 20, 128
+    q, t, _ = _pair(3, B, L)
+    tq, tt = torch.from_numpy(q), torch.from_numpy(t)
+    ckpt, _ = tg.gact_forward(tq, tt, T, W, band)
+    ckpt = ckpt + torch.from_numpy(rng.integers(-3, 4, ckpt.shape).astype(
+        np.int32))
+    lens = np.array([L, L + 20, -2, 0, 300, 17, L - 1, 64, 65], np.int32)
+    for scale in (1, 4):
+        runs, sat = tg.gact_traceback_c_plain(tq, tt, ckpt,
+                                              torch.from_numpy(lens), T, W,
+                                              band, scale, 3)
+        m_runs, m_sat, m_cnt = model_gact_walk_lanes(q, t, ckpt, lens, T, W,
+                                                     band, scale, 3)
+        np.testing.assert_array_equal(m_runs, runs.numpy())
+        assert m_sat == bool(sat)
+        assert (m_cnt[:, 2:4] == 0).all()          # the dead lanes
+
+
+@pytest.mark.parametrize("seed,scale", [(0, 1), (1, 1), (2, 4)])
+def test_gact_walk_lanes_model_on_random_words(monkeypatch, seed, scale):
+    """Random words and bitmaps: lanes that the tile bound stops, lanes at
+    the band's edges, a buffer that saturates at scale 1; the decoupled
+    walk equals the lock-step model and the plain walk, and with them
+    saturation."""
+    B, L, T, W, band = 6, 512, 64, 12, 48
+    seen = _random_groups(monkeypatch, seed)
+    q = np.zeros((B, L), np.int8)
+    lens = np.array([L, L - 5, 0, 200, L + 30, 70], np.int32)
+    ckpt = torch.zeros((L // T + 1, B, band), dtype=torch.int32)
+    tl = torch.from_numpy(lens)
+    iters = torch.zeros((L // T, B), dtype=torch.int32)
+    runs, sat = tg.gact_traceback_c_plain(torch.from_numpy(q),
+                                          torch.from_numpy(q), ckpt, tl, T,
+                                          W, band, scale, 3, iters=iters)
+    m_runs, m_sat, m_cnt = model_gact_walk_lanes(q, q, ckpt, lens, T, W,
+                                                 band, scale, 3)
+    l_runs, l_sat = model_gact_walk(q, q, ckpt, lens, T, W, band, scale, 3)
+    np.testing.assert_array_equal(m_runs, runs.numpy())
+    np.testing.assert_array_equal(l_runs, runs.numpy())
+    np.testing.assert_array_equal(m_cnt, iters.numpy())
+    assert m_sat == l_sat == bool(sat)
+    assert seen["calls"] > 0
+    assert (m_cnt == W + 4).any()                  # stopped by tile_bound
+    assert (m_cnt[:, 2] == 0).all()
+
+
 # ---------------------------------------------------- dispatch on the CPU
 
 def test_wrappers_take_the_plain_walks_on_cpu():
@@ -469,10 +649,19 @@ def test_walk_c_kernel_clamps_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,T,W,band,scale,group,weave", [
     (40, 4096, 512, 409, 896, 1, 3, False),
+    (1, 4096, 512, 409, 896, 1, 3, False),    # one lane, one CTA
+    (31, 4096, 512, 409, 896, 1, 1, False),   # a group a tile
+    (32, 4096, 512, 409, 896, 4, 3, False),   # scale 4
+    (33, 4096, 512, 409, 896, 1, 8, False),   # one group
+    (200, 4096, 512, 204, 512, 1, 2, False),
+    (33, 8192, 1024, 300, 640, 1, 3, False),  # G 64: two bitmap words
+    (33, 8192, 2048, 300, 640, 4, 2, False),  # G 128: rings past 48 KB
     (1100, 1024, 128, 60, 128, 1, 3, False),  # more lanes than threads
     (4, 2048, 128, 32, 128, 1, 3, True)])     # saturates at scale 1
 def test_gact_walk_kernel_matches_plain_on_card(B, L, T, W, band, scale,
                                                 group, weave):
+    """runs, saturated and each lane's iterations in each tile equal the
+    plain walk's."""
     _card()
     rng = np.random.default_rng(B + L)
     if weave:
@@ -486,24 +675,28 @@ def test_gact_walk_kernel_matches_plain_on_card(B, L, T, W, band, scale,
         lens[::7] = 0
     qd, td, ld = (torch.from_numpy(a).cuda() for a in (q, t, lens))
     ckpt, _ = tg.gact_forward(qd, td, T, W, band)
+    K = L // T
+    iters = torch.full((K, B), -1, dtype=torch.int32, device="cuda")
+    iters_p = torch.zeros((K, B), dtype=torch.int32, device="cuda")
     n0 = tg.gact_traceback_c.launches
     got, sat = tg.gact_traceback_c(qd, td, ckpt, ld, T, W, band, scale,
-                                   group)
+                                   group, iters=iters)
     want, sat_p = tg.gact_traceback_c_plain(qd, td, ckpt, ld, T, W, band,
-                                            scale, group)
+                                            scale, group, iters=iters_p)
     torch.cuda.synchronize()
-    assert tg.gact_traceback_c.launches == n0 + -(-(L // T) // group)
+    assert tg.gact_traceback_c.launches == n0 + -(-K // group)
     assert torch.equal(got, want)
+    assert torch.equal(iters, iters_p)
     assert sat.dtype == torch.bool and sat.device.type == "cuda"
     assert bool(sat) == bool(sat_p) == weave
 
 
 @pytest.mark.cuda
 def test_gact_walk_kernel_keeps_lanes_past_shared_memory_on_card():
-    """20,000 lanes: 12 bytes a lane pass the card's 227 KB a block, so
-    the kernel keeps the lanes' state in global memory; runs and the
-    saturated flag equal the plain walk's (a bound JAX does not have,
-    ROADMAP.md C2)."""
+    """20,000 lanes, more than one CTA's shared memory would hold at 12
+    bytes a lane (the bound of the one-CTA walk before the warp a lane):
+    runs and the saturated flag equal the plain walk's (a bound JAX does
+    not have, ROADMAP.md C2)."""
     _card()
     from _torch_parity import mutate_rows
     B, L, T, W, band = 20000, 256, 64, 20, 128
@@ -526,3 +719,25 @@ def test_gact_walk_kernel_keeps_lanes_past_shared_memory_on_card():
     assert torch.equal(got, want)
     assert sat.dtype == torch.bool and bool(sat) == bool(sat_p)
     assert int((ld > 0).sum()) > B // 2
+
+
+@pytest.mark.cuda
+def test_gact_walk_kernel_on_random_words_on_card(monkeypatch):
+    """Random direction words and bitmaps that agree with nothing: lanes
+    wander across the band, hit its edges and the tile bound; the kernel
+    equals the plain walk, run after run (the CTA ticket back at 0)."""
+    _card()
+    B, L, T, W, band = 70, 2048, 512, 60, 192
+    words = _random_groups(monkeypatch, seed=9)
+    q = torch.zeros((B, L), dtype=torch.int8, device="cuda")
+    lens = torch.from_numpy(np.random.default_rng(9).integers(
+        -3, L + 40, B).astype(np.int32)).cuda()
+    ckpt = torch.zeros((L // T + 1, B, band), dtype=torch.int32,
+                       device="cuda")
+    want = tg.gact_traceback_c_plain(q, q, ckpt, lens, T, W, band, 1, 3)
+    for _ in range(2):
+        got = tg.gact_traceback_c(q, q, ckpt, lens, T, W, band, 1, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert bool(got[1]) == bool(want[1])
+    assert words["calls"] > 0
