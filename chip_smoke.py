@@ -47,7 +47,8 @@ Phases (each raises on failure; nothing is caught):
                5120 and of the 10 kb retry at band 2176, and on a weave
                that saturates its buffer at scale 1; CUDA-event medians
                of kernel and plain walk, the longest lane's iterations and
-               the kernel's ns an iteration; the gact walk's iterations a
+               the kernel's ns an iteration (walk_c: also the kernel alone
+               from a torch.profiler trace); the gact walk's iterations a
                tile held to the plain walk's, their per-tile maxima (the
                lock-step walk's block iterations) beside the longest
                lane's
@@ -326,6 +327,37 @@ def cuda_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def trace_ms(fn, kernel: str, calls: int, tries: int = 3) -> float:
+    """Median device ms of a launch of the kernel named `kernel` over
+    `calls` calls of fn (one launch each), from a torch.profiler trace
+    after a warm-up call. The profiler now and then drops a launch's
+    record, so a trace that holds fewer than `calls` launches is taken
+    again, up to `tries` traces, and the last one is used if none holds
+    them all. Raises if a trace holds more launches than were made, or
+    if no trace holds any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        t = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type.name == "CUDA" and kernel in e.name]
+        if len(t) > calls:
+            raise AssertionError(f"{len(t)} {kernel} launches traced, "
+                                 f"{calls} made")
+        if len(t) == calls:
+            break
+        log(f"[trace] {len(t)} of {calls} {kernel} launches traced")
+    if not t:
+        raise AssertionError(f"no {kernel} launch traced in {tries} traces "
+                             f"of {calls} calls")
+    return statistics.median(t)
 
 
 def turns(fns: dict, rounds: int) -> dict:
@@ -735,10 +767,17 @@ def phase_walks(rng, res: dict) -> None:
             "walk_c", where, [got], [want]))
         lane_iters, longest, _ = walk_stats(got, B)
         ms = cuda_ms(lambda: device_traceback_c(v, lens, L, W, nm, dt), 20)
+        # the kernel alone: the wrapper's event time holds its host time
+        kernel_ms = trace_ms(lambda: device_traceback_c(v, lens, L, W, nm,
+                                                        dt),
+                             "walk_c_kernel", 20)
         plain_ms = cuda_ms(
             lambda: device_traceback_c_plain(v, lens, L, W, nm, dt), 2)
         timing("walk_c", where, ms, plain_ms, got, B, lane_iters, longest,
                longest, main)
+        log(f"[3 kernel] walk_c {where}: the kernel alone (trace, median "
+            f"of 20) {kernel_ms} ms, {kernel_ms * 1e6 / longest} ns an "
+            "iteration of the longest lane")
         del v, nm, got, want
 
     # walk_c on random words: every lane to its bound, every clamp

@@ -31,27 +31,39 @@
 // latency.  The words of a pass or group are up to mid_dirs_budget = 1 GiB
 // (134 MB at the 1 kb main shape), not in the 50 MB L2, and a lane's next
 // address depends on the word it just read, so a load is a DRAM round trip
-// (~0.6-1 us); the bytes a walk must move (three words a lane-iteration
-// and the entries) take a few microseconds at 3.35 TB/s.
-// walk_c_kernel (a simple kernel that is right first): one thread a lane,
-// state in registers, an iteration a chain of two dependent loads (the
-// current word beside the first bitmap word, then the target group's word).
-// gact_walk_kernel (redesigned): a warp a lane.  An iteration moves the
-// lane's column d by at most one (an indel moves it, an M-run does not), so
-// the warp keeps the lane's columns d - kAhead .. d + kAhead of its tile in
-// a ring in shared memory, loaded by cp.async (each of the 32 threads a
-// word: a tile's whole column at T = 512 and its bitmap word), and each
-// iteration loads the one column that enters the window, kAhead iterations
-// before the walk can reach it: an iteration is one round trip that
-// overlaps the next one's, not two in a chain, and the target group's
-// word is in shared memory when the bitmap names it.  column_step, the
-// iteration on a column in shared memory, is what walk_c_kernel would call
-// in the same design.
-// Measured (chip_smoke.py phase 3, scripts/torch_walk_ab.py; PERF.md;
-// NVIDIA H100 80GB HBM3, 700 W): walk_c_kernel 1.01 us an iteration of the
-// longest lane at the 10 kb resident shape (0.149 ms for 147 iterations);
-// gact_walk_kernel 0.44-0.57 ms for the 50 kb pass's 628 iterations of the
-// longest lane and 98 tiles, against 1.73 ms for the lock-step walk.
+// (one thread a lane, walk_c_kernel took 0.82 us an iteration for two in a
+// chain); the bytes a walk must move (three words a lane-iteration and the
+// entries) take a few microseconds at 3.35 TB/s.  Both kernels are a warp
+// a lane.  An iteration moves the lane's column d by at most one (an indel
+// moves it, an M-run does not), so the warp keeps the lane's columns d - 1
+// .. d + 1 in a ring in shared memory, loaded by cp.async (each of the 32
+// threads a word), and each iteration loads the one column that enters the
+// window an iteration before the walk can reach it; the iteration itself
+// (column_step on a tile, resident_step on a resident pass, which has its
+// own clamps) reads the column in shared memory.
+// gact_walk_kernel holds a tile's whole column (T = 512: 32 groups and a
+// bitmap word).  walk_c_kernel holds a window of a resident column: the
+// bitmap words over the lane's row and K groups down from it (K = 12 at the
+// 10 kb pass, 30 at 1 kb: one copy a thread); a group below the window is
+// one more round trip.  What bounds walk_c_kernel now is neither that
+// round trip, hidden behind the iteration before it (the warp waits 13
+// cycles an iteration for it at 10 kb), nor the fallbacks: a clock64 split
+// of its loop (scripts/torch_walk_c_split.py) reads ~1330 cycles an
+// iteration at 10 kb, 670 in resident_step and 560 in issuing the next
+// column's copies (with a window of K 76, 96 copies a column and almost no
+// fallbacks, the copies cost more than the fallbacks saved).  A column's
+// words lie B * band words apart, a TLB page each; why a column's copies
+// cost that much at issue and slow the shared-memory reads behind them is
+// not measured.  Copies through registers (ld.global, st.shared), wider
+// windows, more lanes an SM, a deeper window (d +- 2, 3) and a warp-wide
+// bitmap scan measured slower.
+// Measured (scripts/torch_walk_ab.py --walks, the tree before this design
+// in the same call, kernels alone from a trace; NVIDIA H100 80GB HBM3,
+// 700 W): walk_c_kernel 0.0753-0.0765 ms at the 10 kb resident pass (139
+// iterations of the longest lane, 0.55 us each) against 0.1131-0.1147 for
+// one thread a lane, and 0.0073 ms at 1 kb (9 iterations) against 0.0072;
+// gact_walk_kernel 0.420-0.421 ms for the 50 kb pass's 628 iterations of
+// the longest lane and 98 tiles, against 1.72 ms for the lock-step walk.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,7 +71,6 @@
 namespace {
 
 constexpr int kPad = 3;
-constexpr int kWalkThreads = 128;     // walk_c_kernel's block
 constexpr int kGactWarps = 8;         // warps a CTA (the last CTA's copy)
 constexpr int kGactLanes = 4;         // of them walking a lane each, at most
 // a lane's column ring: kRing columns of a tile, the window d +- kAhead in
@@ -74,6 +85,18 @@ constexpr int kAhead = 1;
 static_assert(kRing >= 3 * kAhead + 1, "a slot's load must land before "
               "the slot is loaded again");
 static_assert(kGactLanes <= kGactWarps, "a lane is a warp of the CTA");
+// walk_c_kernel: kWalkLanes lanes (warps) a CTA at most, each lane's
+// columns d +- kWalkAhead in a ring of kWalkRing columns (the same rule as
+// kRing's), a column's window at least kWalkGroups groups.  The constants
+// are scripts/torch_walk_tables_sweep.py's fastest (PERF.md).
+constexpr int kWalkLanes = 2;
+constexpr int kWalkRing = 4;
+constexpr int kWalkAhead = 1;
+constexpr int kWalkGroups = 8;
+static_assert(kWalkRing >= 3 * kWalkAhead + 1
+              && (kWalkRing & (kWalkRing - 1)) == 0,
+              "a power-of-2 ring whose slot's load lands before the slot "
+              "takes another column");
 constexpr int kCopyItems = 4;         // runs a thread of the last CTA copies
 constexpr int kSmemMax = 227 * 1024;  // shared memory a block, opted in
 constexpr uint32_t kPadPair = (kPad << 16) | kPad;
@@ -82,40 +105,12 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// vdirs[g, b, d] with the flat index clamped to [0, G*B*band - 1], as the
-// plain walk's word_at.
-__device__ __forceinline__ uint32_t word_at(const uint32_t* __restrict__ v,
-                                            int g, int b, int d, int B,
-                                            int band, long long nwords) {
-  long long flat = (static_cast<long long>(g) * B + b) * band + d;
-  flat = flat < 0 ? 0 : (flat > nwords - 1 ? nwords - 1 : flat);
-  return __ldg(v + flat);
-}
-
 // Bits of bitmap word w that stand for groups strictly below g_cur: the
 // plain walk's (1 << clamp(g_cur - 32w, 0, 32)) - 1, all ones at 32 (a C
 // shift by 32 is undefined).
 __device__ __forceinline__ uint32_t below_mask(int g_cur, int w) {
   const int lim = clampi(g_cur - (w << 5), 0, 32);
   return lim >= 32 ? 0xFFFFFFFFu : ((1u << lim) - 1u);
-}
-
-// The highest group strictly below g_cur whose bitmap bit is set at bmidx,
-// -1 if none.  The plain walk scans all nbm words from the top and keeps
-// the first hit; words above g_cur's own have no bit below g_cur, so the
-// scan starts at min(nbm-1, g_cur>>5) and stops at the first non-zero
-// masked word, which gives the same group.  bw0 is word `w0`, loaded by the
-// caller beside the current direction word.
-__device__ __forceinline__ int group_below(const uint32_t* __restrict__ nm,
-                                           long long plane, int bmidx,
-                                           int g_cur, int w0, uint32_t bw0) {
-  uint32_t bwk = bw0 & below_mask(g_cur, w0);
-  int w = w0;
-  while (bwk == 0 && w > 0) {
-    --w;
-    bwk = __ldg(nm + w * plane + bmidx) & below_mask(g_cur, w);
-  }
-  return bwk ? (w << 5) + 31 - __clz(static_cast<int>(bwk)) : -1;
 }
 
 // (count << 2) | op in the entry type, the low bits kept as the plain
@@ -127,73 +122,7 @@ __device__ __forceinline__ E entry(int count, int op) {
 }
 
 // ---------------------------------------------------------------------------
-// walk_c_kernel: one thread a lane, grid ceil(B/128) x 128.  A lane's runs
-// depend on its own words alone, and a done lane writes only pads into a
-// buffer the wrapper fills with pads, so each thread walks its lane to done
-// or to n_iter = traceback_c_iters(L, W) iterations; iteration `it` writes
-// entries 2*it and 2*it+1 of the lane's row of runs (B, 2*n_iter), the
-// final layout.
-template <typename E>
-__global__ void __launch_bounds__(kWalkThreads)
-walk_c_kernel(const uint32_t* __restrict__ vdirs,
-              const uint32_t* __restrict__ nm,
-              const int32_t* __restrict__ lens, int G, int B, int band, int W,
-              int n_iter, E* __restrict__ runs) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int nbm = (G + 31) >> 5;
-  const long long plane = static_cast<long long>(B) * band;
-  const long long nwords = plane * G;
-  E* out = runs + static_cast<long long>(b) * 2 * n_iter;
-  int i = lens[b];
-  int j = i;
-  bool done = i <= 0;
-  for (int it = 0; it < n_iter && !done; ++it) {
-    const int d = clampi(j - i + W, 0, band - 1);
-    const int ii = i - 1 > 0 ? i - 1 : 0;
-    const int g_cur = ii >> 4;
-    const int r = ii & 15;
-    const int bmidx = clampi(b * band + d, 0, B * band - 1);
-    const int w0 = min(nbm - 1, g_cur >> 5);
-    // the chain's first round trip: both loads at (g_cur, d)
-    const uint32_t w_cur = word_at(vdirs, g_cur, b, d, B, band, nwords);
-    const uint32_t bw0 = __ldg(nm + w0 * plane + bmidx);
-    const int sh = 2 * (15 - r);
-    const uint32_t wm_cur = (w_cur << sh) >> sh;   // pairs above row i off
-    const bool in_cur = wm_cur != 0;
-    const int g2 = in_cur ? -1 : group_below(nm, plane, bmidx, g_cur, w0,
-                                             bw0);
-    const bool any_nm = i > 0 && (in_cur || g2 >= 0);
-    const int gstar = in_cur ? g_cur : (g2 > 0 ? g2 : 0);
-    // the second: the target group's word, needed only for an indel below
-    const uint32_t wsel =
-        in_cur ? wm_cur
-               : (any_nm ? word_at(vdirs, gstar, b, d, B, band, nwords) : 0u);
-    // 15 - (clz >> 1): the word's lowest row with a non-M pair; -1 for 0
-    const int pstar = 15 - (__clz(static_cast<int>(wsel)) >> 1);
-    const int re = any_nm ? gstar * 16 + pstar + 1 : 0;
-    const int mrun = i - re;
-    const int i2 = i - mrun;
-    const int j2 = j - mrun;
-    const int op = static_cast<int>((wsel >> (2 * (pstar > 0 ? pstar : 0)))
-                                    & 3u);
-    const int i3 = (any_nm && op == 1) ? i2 - 1 : i2;
-    const int j3 = (any_nm && op == 2) ? j2 - 1 : j2;
-    // row 0 reached with target left: the synthetic all-D row
-    const int drun = (!any_nm && i2 == 0) ? (j2 > 0 ? j2 : 0) : 0;
-    const int j4 = drun > 0 ? 0 : j3;
-    done = i3 == 0 && j4 == 0;
-    out[2 * it] = mrun > 0 ? entry<E>(mrun, 0) : static_cast<E>(kPad);
-    out[2 * it + 1] = any_nm     ? entry<E>(1, op)
-                      : drun > 0 ? entry<E>(drun, 2)
-                                 : static_cast<E>(kPad);
-    i = i3;
-    j = j4;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The walk's iteration on a column held in shared memory.
+// Copies into a lane's ring of columns in shared memory.
 
 // Asynchronous 4-byte copies into shared memory, in groups a thread commits
 // and waits for in order (cp_wait<N>: all but the newest N are done).
@@ -214,6 +143,13 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// The tile walk's iteration (gact_walk_kernel) on a tile's whole column in
+// a ring slot.  The resident walk's (resident_step, below) is the same
+// iteration with the resident clamps over a window of a column; the two
+// share no code because a step shared by both made gact_walk_kernel slower
+// (PERF.md).
+
 // The lane's next cell and its two entries (e1 | e2 << 16).
 struct Step {
   int i;
@@ -222,8 +158,7 @@ struct Step {
 };
 
 // One iteration of the column walk at (i, j) in the tile of rows (lo, lo +
-// T] (lo = 0, T = L: a resident pass), `last` when it is the pass's row-0
-// tile.  col[0, G) are column d's direction words of the tile, group g at
+// T], `last` when it is the pass's row-0 tile.  col[0, G) are column d's direction words of the tile, group g at
 // col[g], and col[G, G + nbm) its bitmap words; the caller has made them
 // visible to every thread that calls.  A lane that is not in the tile (i <=
 // lo, j > 0 in the last tile) reads nothing: it owes the all-D row.
@@ -294,6 +229,261 @@ __device__ __forceinline__ void load_column(uint32_t* ring, int CW,
   for (int g = lane; g < CW; g += 32) {
     cp_async4(slot + g, g < G ? v + g * plane + at + x
                               : nm + (g - G) * plane + at + x);
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// The resident walk's iteration (walk_c_kernel).
+
+// The lane's next cell and its two entries, (count << 2) | op or kPad in
+// 32 bits: the caller keeps the low bits of its entry type, as the plain
+// walk's int64 -> int16/int32 cast keeps them.
+struct WalkStep {
+  int i;
+  int j;
+  uint32_t e1;
+  uint32_t e2;
+};
+
+// A resident pass's column d: its ring slot holds a window of groups from
+// lo up to the lane's group when it was loaded (the walk only descends, so
+// it reads no group above the window), and the bitmap words up to that
+// group's at bm.  A group below the window comes from device memory (v +
+// g * plane + at), and a group >= G, which only a lane past row L reads,
+// is the tensor's last word (the plain walk clamps the flat index), `tail`.
+struct WindowColumn {
+  const uint32_t* win;
+  const uint32_t* bm;
+  int lo;
+  int G;
+  uint32_t tail;
+  const uint32_t* v;
+  long long plane;
+  long long at;
+  __device__ __forceinline__ uint32_t word(int g) const {
+    return g >= G ? tail : (g >= lo ? win[g - lo] : __ldg(v + g * plane + at));
+  }
+};
+
+// The highest group strictly below g_cur whose bit is set in the column's
+// bitmap words c.bm[0 .. nbm - 1], -1 if none.  The plain walk scans
+// every word from the top and keeps the first hit; words above g_cur's
+// own have no bit below g_cur, so the scan starts at min(nbm - 1, g_cur >>
+// 5) and stops at the first non-zero masked word, which gives the same
+// group.  (A warp reading 32 words at once and taking the highest by
+// ballot measured slower: the hit is nearly always in the first word.)
+__device__ __forceinline__ int group_below(const WindowColumn& c, int nbm,
+                                           int g_cur) {
+  int w = min(nbm - 1, g_cur >> 5);
+  uint32_t bwk = c.bm[w] & below_mask(g_cur, w);
+  while (bwk == 0 && w > 0) {
+    --w;
+    bwk = c.bm[w] & below_mask(g_cur, w);
+  }
+  return bwk ? (w << 5) + 31 - __clz(static_cast<int>(bwk)) : -1;
+}
+
+// Issue groups g0 .. g0 + gn - 1 of column x (words v[g][b][x]; `at` = b *
+// band) to slot[0, gn) and its bitmap words 0 .. wn - 1 (nm[w][b][x]) to
+// slot[boff, boff + wn): thread `lane` copies items lane, lane + 32, ...
+__device__ __forceinline__ void load_window(uint32_t* slot, int boff, int g0,
+                                            int gn, int wn,
+                                            const uint32_t* __restrict__ v,
+                                            const uint32_t* __restrict__ nm,
+                                            long long plane, long long at,
+                                            int x, int lane) {
+  for (int t = lane; t < gn + wn; t += 32) {
+    const bool word = t < gn;
+    cp_async4(slot + (word ? t : boff + t - gn),
+              word ? v + (g0 + t) * plane + at + x
+                   : nm + (t - gn) * plane + at + x);
+  }
+}
+
+// One iteration of the resident walk at (i, j) (rows (0, L], row 0 the
+// last) on column d's words `c`, with nbm bitmap words; the caller has made
+// the slot visible to every thread that calls, and all 32 threads of the
+// warp call it with the same state.  column_step's iteration with the
+// plain resident walk's clamps, which differ from the tiles' where the
+// words disagree with any path: the row is not clamped into the pass, so
+// past row L (lens > L) the current group is >= G and may be a group the
+// bitmap names (c.word gives both the tensor's last word); the M-run ends
+// at row 16 gstar + pstar + 1 with pstar = -1 when the named word holds no
+// non-M pair; and the indel entry is taken even at (0, 0).  A lane at row
+// 0 reads nothing: it owes the all-D row.
+__device__ __forceinline__ WalkStep resident_step(const WindowColumn& c,
+                                                  int nbm, int i, int j) {
+  const bool in_pass = i > 0;
+  bool any_nm = false;
+  int gstar = 0;
+  uint32_t wsel = 0;
+  if (in_pass) {
+    const int ii = i - 1;
+    const int g_cur = ii >> 4;
+    const int sh = 2 * (15 - (ii & 15));
+    const uint32_t wm_cur = (c.word(g_cur) << sh) >> sh;   // pairs above i
+    if (wm_cur != 0) {                                     // masked off
+      any_nm = true;
+      gstar = g_cur;
+      wsel = wm_cur;
+    } else {
+      // the highest group below g_cur with a non-M pair
+      const int g2 = group_below(c, nbm, g_cur);
+      if (g2 >= 0) {
+        any_nm = true;
+        gstar = g2;
+        wsel = c.word(gstar);
+      }
+    }
+  }
+  // 15 - (clz >> 1): the word's lowest row with a non-M pair; -1 for 0
+  const int praw = 15 - (__clz(static_cast<int>(wsel)) >> 1);
+  const int pstar = praw > 0 ? praw : 0;
+  // M-run floor: the indel row, else row 0 (the walk then owes only the
+  // synthetic all-D row)
+  const int floor_row = any_nm ? gstar * 16 + praw + 1 : 0;
+  const int mrun = in_pass ? i - floor_row : 0;
+  const int i2 = i - mrun;
+  const int j2 = j - mrun;
+  const int op = static_cast<int>((wsel >> (2 * pstar)) & 3u);
+  const int drun = (!any_nm && i2 == 0) ? (j2 > 0 ? j2 : 0) : 0;
+  const uint32_t e1 = mrun > 0 ? static_cast<uint32_t>(mrun) << 2 : kPad;
+  const uint32_t e2 = any_nm     ? 4u | op
+                      : drun > 0 ? (static_cast<uint32_t>(drun) << 2) | 2u
+                                 : kPad;
+  return {(any_nm && op == 1) ? i2 - 1 : i2,
+          drun > 0 ? 0 : ((any_nm && op == 2) ? j2 - 1 : j2), e1, e2};
+}
+
+// ---------------------------------------------------------------------------
+// walk_c_kernel: the column walk of a resident pass, a warp a lane, `lanes`
+// lanes a CTA.  A lane's runs depend on its own words alone, so each warp
+// walks its lane to done or to n_iter = traceback_c_iters(L, W)
+// iterations.  An iteration moves the lane's column d = clamp(j - i + W)
+// by at most one (an indel moves it, an M-run does not; the row-0 D-run
+// ends the walk), so the warp keeps columns d - kWalkAhead .. d +
+// kWalkAhead in a ring in shared memory, each loaded by cp.async
+// kWalkAhead iterations before the walk can reach it, and each iteration
+// loads the one column that enters the window.  A column's words lie
+// B * band words apart (a sector and often a TLB page each), so a slot
+// holds a window of K groups, from the lane's group when it is loaded
+// down, and the bitmap words over them: one copy a thread, one round
+// trip.  A group below the window (an M-run longer than the window, or a
+// walk that descended past it since the load) is read from device memory.
+// A slot's window start and its load's commit group are kept in
+// registers; a column that comes back into the window while its last
+// load is in flight keeps that load.  The lane's entries are staged in
+// shared memory and its whole row of runs (B, 2 * n_iter), pads to the
+// end included, is written at the end by the warp, coalesced: the
+// caller's buffer needs no fill.
+template <typename E>
+__global__ void __launch_bounds__(kWalkLanes * 32)
+walk_c_kernel(const uint32_t* __restrict__ vdirs,
+              const uint32_t* __restrict__ nm,
+              const int32_t* __restrict__ lens, int G, int B, int band, int W,
+              int n_iter, E* __restrict__ runs, int lanes, int K,
+              int lane_words) {
+  extern __shared__ __align__(16) uint32_t s_ring[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * lanes + warp;
+  if (b >= B) return;
+  const int nbm = (G + 31) >> 5;
+  const int CW = K + nbm;                       // words a ring slot
+  const long long plane = static_cast<long long>(B) * band;
+  const long long at = static_cast<long long>(b) * band;
+  uint32_t* ring = s_ring + warp * lane_words;
+  E* stage = reinterpret_cast<E*>(ring + kWalkRing * CW);
+  int i = __ldg(lens + b);
+  int j = i;
+  bool done = i <= 0;
+  const uint32_t tail =
+      !done && ((i - 1) >> 4) >= G ? __ldg(vdirs + plane * G - 1) : 0u;
+  int slot_lo[kWalkRing];       // each slot's window start
+  int slot_grp[kWalkRing];      // and the commit group of its last load
+#pragma unroll
+  for (int r = 0; r < kWalkRing; ++r) {
+    slot_lo[r] = 0;
+    slot_grp[r] = -1;
+  }
+  int committed = 0;            // commit groups issued
+  int retired = 0;              // of them done at the last wait
+  // column x's window: groups down from row i's (at most G - 1) and the
+  // bitmap words at or below its word
+  auto load = [&](int x) {
+    const int r = x & (kWalkRing - 1);
+    const int g_top = (i - 1) >> 4;
+    const int g_hi = min(G - 1, g_top);
+    const int lo = max(0, g_hi - K + 1);
+    bool busy = false;
+#pragma unroll
+    for (int q = 0; q < kWalkRing; ++q) {
+      if (q == r) {
+        busy = slot_grp[q] >= retired;
+        if (!busy) {
+          slot_lo[q] = lo;
+          slot_grp[q] = committed;
+        }
+      }
+    }
+    if (!busy) {
+      load_window(ring + r * CW, K, lo, g_hi - lo + 1,
+                  min(nbm, (g_top >> 5) + 1), vdirs, nm, plane, at, x, lane);
+    }
+  };
+  int d = clampi(W, 0, band - 1);
+  if (!done) {
+    // the window, nearest columns first: group s holds d - s and d + s, so
+    // iteration s, within s columns of d, waits for groups 0..s
+    for (int s = 0; s <= kWalkAhead; ++s) {
+      if (d - s >= 0) load(d - s);
+      if (s > 0 && d + s < band) load(d + s);
+      cp_commit();
+      ++committed;
+    }
+  }
+  int n = 0;
+  while (n < n_iter && !done) {
+    const bool in_tile = i > 0;
+    if (in_tile) {
+      cp_wait<kWalkAhead>();      // one group an iteration, kWalkAhead ahead
+      __syncwarp();
+      retired = committed - kWalkAhead;
+    }
+    const int r = d & (kWalkRing - 1);
+    int lo = 0;
+#pragma unroll
+    for (int q = 0; q < kWalkRing; ++q) {
+      if (q == r) lo = slot_lo[q];
+    }
+    const uint32_t* win = ring + r * CW;
+    const WalkStep s = resident_step(
+        WindowColumn{win, win + K, lo, G, tail, vdirs, plane, at + d}, nbm, i,
+        j);
+    if (lane == 0) {
+      stage[2 * n] = static_cast<E>(s.e1);
+      stage[2 * n + 1] = static_cast<E>(s.e2);
+    }
+    ++n;
+    i = s.i;
+    j = s.j;
+    done = i == 0 && j == 0;
+    if (in_tile) {
+      // the column that enters the window (none while d stays)
+      const int d2 = clampi(j - i + W, 0, band - 1);
+      const int x = d2 > d ? d2 + kWalkAhead : d2 - kWalkAhead;
+      if (d2 != d && !done && i > 0 && x >= 0 && x < band) load(x);
+      cp_commit();
+      ++committed;
+      d = d2;
+    }
+  }
+  cp_wait<0>();
+  __syncwarp();
+  E* out = runs + static_cast<long long>(b) * 2 * n_iter;
+  for (int x = lane; x < 2 * n_iter; x += 32) {
+    out[x] = x < 2 * n ? stage[x] : static_cast<E>(kPad);
   }
 }
 
@@ -502,11 +692,42 @@ gact_walk_kernel(const uint32_t* __restrict__ vg,
 
 // Lanes a CTA for a tile of G groups: kGactLanes, fewer where their rings
 // pass the card's shared memory; 0 where one lane's does.
+// Lanes a CTA for a tile of G groups: kGactLanes, fewer where their rings
+// pass the card's shared memory; 0 where one lane's does.
 int gact_lanes(int G) {
   const long long lane_bytes =
       2LL * kRing * (G + (G + 31) / 32) * static_cast<long long>(sizeof(int));
   const long long w = kSmemMax / lane_bytes;
   return static_cast<int>(w < kGactLanes ? w : kGactLanes);
+}
+
+template <typename E>
+int launch_walk_c(const uint32_t* v, const uint32_t* m, const int32_t* l,
+                  int G, int B, int band, int W, int n_iter, void* runs,
+                  cudaStream_t s) {
+  // a slot's window: kWalkGroups groups, more to fill the warp's last
+  // round of copies with the bitmap words, at most G
+  const int nbm = (G + 31) / 32;
+  const int K = min(G, max(kWalkGroups,
+                           (nbm + kWalkGroups + 31) / 32 * 32 - nbm));
+  // a lane's words: its ring, then its staged entries
+  const long long lane_words =
+      static_cast<long long>(kWalkRing) * (K + nbm)
+      + (2LL * n_iter * static_cast<long long>(sizeof(E)) + 3) / 4;
+  const long long fit = kSmemMax / (lane_words * 4);
+  const int lanes = static_cast<int>(fit < kWalkLanes ? fit : kWalkLanes);
+  if (lanes <= 0) return -1;
+  const size_t smem = static_cast<size_t>(lanes * lane_words) * 4;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        walk_c_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  walk_c_kernel<E><<<(B + lanes - 1) / lanes, lanes * 32, smem, s>>>(
+      v, m, l, G, B, band, W, n_iter, static_cast<E*>(runs), lanes, K,
+      static_cast<int>(lane_words));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -516,7 +737,9 @@ int gact_lanes(int G) {
 
 // The column walk of a resident pass: vdirs (G, B, band) and nm
 // (ceil(G/32), B, band) int32, lens (B,) int32, runs (B, 2*n_iter) of
-// entry_bytes = 2 (int16) or 4 (int32), filled with pads by the caller.
+// entry_bytes = 2 (int16) or 4 (int32), every element written by the
+// kernel (no fill needed).  -1 also where one lane's ring and entries pass
+// the card's shared memory.
 extern "C" int lrm_walk_c(const void* vdirs, const void* nm, const void* lens,
                           int G, int B, int band, int W, int n_iter,
                           void* runs, int entry_bytes, void* stream) {
@@ -526,17 +749,13 @@ extern "C" int lrm_walk_c(const void* vdirs, const void* nm, const void* lens,
   auto m = static_cast<const uint32_t*>(nm);
   auto l = static_cast<const int32_t*>(lens);
   auto s = static_cast<cudaStream_t>(stream);
-  const int grid = (B + kWalkThreads - 1) / kWalkThreads;
   if (entry_bytes == 2) {
-    walk_c_kernel<int16_t><<<grid, kWalkThreads, 0, s>>>(
-        v, m, l, G, B, band, W, n_iter, static_cast<int16_t*>(runs));
-  } else if (entry_bytes == 4) {
-    walk_c_kernel<int32_t><<<grid, kWalkThreads, 0, s>>>(
-        v, m, l, G, B, band, W, n_iter, static_cast<int32_t*>(runs));
-  } else {
-    return -1;
+    return launch_walk_c<int16_t>(v, m, l, G, B, band, W, n_iter, runs, s);
   }
-  return cudaGetLastError();
+  if (entry_bytes == 4) {
+    return launch_walk_c<int32_t>(v, m, l, G, B, band, W, n_iter, runs, s);
+  }
+  return -1;
 }
 
 // The gact walk over one group: tiles k_lo .. k_hi of T rows, vg (k_hi -

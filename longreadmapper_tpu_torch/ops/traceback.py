@@ -12,8 +12,9 @@ Emits (count << 2) | op entries (ops 0=M 1=I 2=D, pad 3) in reverse path
 order.
 
 `device_traceback_c` launches the hand-written CUDA kernel
-csrc/walk.cu::walk_c_kernel (one thread a lane, the whole walk in one
-launch, no host sync; counted in `device_traceback_c.launches`) on a CUDA
+csrc/walk.cu::walk_c_kernel (a warp a lane over its columns in shared
+memory, the whole walk in one launch, every element of `runs` written by
+it, no host sync; counted in `device_traceback_c.launches`) on a CUDA
 tensor, and runs the plain version `device_traceback_c_plain` on a CPU
 tensor.  The plain version is eager PyTorch: torch has no unsigned 32-bit
 logical shifts, clz or popcount, so words are widened to int64 and masked
@@ -107,8 +108,9 @@ def device_traceback_c(vdirs, lens, L: int, W: int, nm,
                          f"{tuple(vdirs.shape)}, {tuple(nm.shape)}, "
                          f"{tuple(lens.shape)}")
     n_iter = traceback_c_iters(L, W)
-    runs = torch.full((B, 2 * n_iter), OP_PAD, dtype=entry_dtype,
-                      device=vdirs.device)
+    # the kernel writes each lane's whole row, pads included
+    runs = torch.empty((B, 2 * n_iter), dtype=entry_dtype,
+                       device=vdirs.device)
     lens32 = lens.to(torch.int32).contiguous()
     lib = native_build.load("walk", WALK_FUNCS)
     with torch.cuda.device(vdirs.device):

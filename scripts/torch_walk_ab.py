@@ -4,12 +4,16 @@ commit, unpacked with `git archive`) on one NVIDIA GPU, in turns within
 one call: reads/s end to end and the mapper's `phase_s` split (prepare,
 dispatch, fetch, assemble) of the 1 kb, 10 kb and 50 kb read sets of
 chip_smoke.py on its 4 Mb genome, all made from --seed.  With --walks,
-the gact walk alone instead: chip_smoke.py phase 3's 50 kb pass at band
-5120 and 10 kb retry at band 2176 (the same reads for both checkouts),
-each timed as phase 3 times it (CUDA events around each group's walk,
-median of 5 calls) and by a torch.profiler trace of one call (the walk
-kernel's launches summed), its runs' digest held equal between the
-checkouts, beside the lanes' iterations.
+the walks alone instead (the same reads for both checkouts): the gact
+walk on chip_smoke.py phase 3's 50 kb pass at band 5120 and 10 kb retry
+at band 2176, timed as phase 3 times it (CUDA events around each group's
+walk, median of 5 calls) and by a torch.profiler trace of one call (the
+walk kernel's launches summed); the column walk `device_traceback_c` on
+phase 3's resident passes, 1 kb (MAIN_SHAPE, int16) and 10 kb
+(WIDE_MAIN, int32) on band_dp's words, by CUDA events (median of 20
+calls, the wrapper's host time included) and by a trace of 20 calls (the
+median walk_c_kernel launch); each walk's runs' digest held equal between
+the checkouts, beside the lanes' iterations.
 
   python3 scripts/torch_walk_ab.py --base DIR [--seed N] [--rounds N]
       [--walks]
@@ -58,16 +62,66 @@ def run_map(checkout: str, fa: str, fq: str, n: int, sam: str) -> dict:
     return dict(seconds=s, reads_s=n / s, phase_s=phase)
 
 
-# one checkout's gact walks: argv = checkout, cases file
+# one checkout's walks: argv = checkout, cases file
 WALKS = r"""
 import json, statistics, sys
 sys.path.insert(0, sys.argv[1])
 import torch
 from torch.profiler import ProfilerActivity, profile
+from longreadmapper_tpu_torch.ops.band_dp import banded_nw_dirs
 from longreadmapper_tpu_torch.ops.band_scores import band_checkpoints
 from longreadmapper_tpu_torch.ops.gact import gact_traceback_c
+from longreadmapper_tpu_torch.ops.traceback import device_traceback_c
+
+
+def digest(runs):
+    return int((runs.to(torch.int64) * (torch.arange(
+        runs.numel(), device=runs.device).reshape(runs.shape) % 999983
+        + 1)).sum())
+
+
+def live(runs):
+    return ((runs.reshape(runs.shape[0], -1, 2) & 3) != 3).any(dim=2)
+
+
+def walk_c(c):
+    q, t, lens = c["q"].cuda(), c["t"].cuda(), c["lens"].cuda()
+    L, W, band = q.shape[1], c["W"], c["band"]
+    dt = torch.int32 if c["wide"] else torch.int16
+    v, _, nm = banded_nw_dirs(q, t, W, band)
+
+    def run():
+        return device_traceback_c(v, lens, L, W, nm, dt)
+
+    runs = run()
+    times = []
+    for _ in range(20):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            run()
+        torch.cuda.synchronize()
+    kern = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type.name == "CUDA" and "walk_c_kernel" in e.name]
+    per_call = [e.name for e in prof.events()
+                if e.device_type.name == "CUDA"]
+    return dict(ms=statistics.median(times),
+                kernel_ms=statistics.median(kern), launches=len(kern),
+                device_ops_a_call=len(per_call) / 20, digest=digest(runs),
+                longest_lane=int(live(runs).sum(dim=1).max()))
+
+
 out = {}
 for name, c in torch.load(sys.argv[2]).items():
+    if c["kind"] == "walk_c":
+        out[name] = walk_c(c)
+        continue
     q, t, lens = c["q"].cuda(), c["t"].cuda(), c["lens"].cuda()
     T, W, band, group = c["T"], c["W"], c["band"], c["group"]
     ckpt, _ = band_checkpoints(q, t, T, W, band)
@@ -92,25 +146,25 @@ for name, c in torch.load(sys.argv[2]).items():
         run()
     kern = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
             if e.device_type.name == "CUDA" and "gact_walk_kernel" in e.name]
-    live = ((runs.reshape(runs.shape[0], -1, 2) & 3) != 3).any(dim=2)
-    digest = int((runs.to(torch.int64) * (torch.arange(
-        runs.numel(), device=runs.device).reshape(runs.shape) % 999983
-        + 1)).sum())
+    lv = live(runs)
     out[name] = dict(ms=ms, kernel_ms=sum(kern), launches=len(kern),
-                     saturated=bool(sat), digest=digest,
-                     block_iterations=int(live.any(dim=0).sum()),
-                     longest_lane=int(live.sum(dim=1).max()))
+                     saturated=bool(sat), digest=digest(runs),
+                     block_iterations=int(lv.any(dim=0).sum()),
+                     longest_lane=int(lv.sum(dim=1).max()))
 print(json.dumps(out))
 """
 
 
 def walk_cases(seed: int, path: str) -> None:
-    """chip_smoke.py phase 3's gact passes: the 50 kb pass at band 5120
-    and the 10 kb retry at 2176 (PASS_SHAPES), reads from --seed with
-    WALK_INDEL's indels, lens as the step masks them; saved to `path`."""
+    """chip_smoke.py phase 3's walks: the gact passes, the 50 kb pass at
+    band 5120 and the 10 kb retry at 2176 (PASS_SHAPES), reads from --seed
+    with WALK_INDEL's indels, and the resident passes of walk_c, 1 kb
+    (MAIN_SHAPE, substitutions only) and 10 kb (WIDE_MAIN, WALK_INDEL);
+    lens as the step masks them; saved to `path`."""
     import numpy as np
     import torch
     import chip_smoke as smoke
+    from longreadmapper_tpu_torch.ops.band_dp import banded_nw_dirs
     from longreadmapper_tpu_torch.ops.band_scores import band_checkpoints
     from longreadmapper_tpu_torch.ops.gact import gact_group_tiles
     rng = np.random.default_rng(seed)
@@ -120,10 +174,19 @@ def walk_cases(seed: int, path: str) -> None:
         T = 512
         q, t = smoke.dp_inputs(rng, B, L, smoke.WALK_INDEL)
         _, wcol = band_checkpoints(q, t, T, W, band)
-        cases[name] = dict(q=q.cpu(), t=t.cpu(),
+        cases[name] = dict(kind="gact", q=q.cpu(), t=t.cpu(),
                            lens=smoke.walk_lens(q, wcol, W).cpu(), T=T, W=W,
                            band=band, group=gact_group_tiles(
                                B, L, T, band, smoke.DIRS_BUDGET))
+    for name, (B, L, W, band), indel in (
+            ("1kb walk_c", smoke.MAIN_SHAPE, 0.0),
+            ("10kb walk_c", smoke.WIDE_MAIN, smoke.WALK_INDEL)):
+        q, t = smoke.dp_inputs(rng, B, L, indel)
+        _, wcol, _ = banded_nw_dirs(q, t, W, band)
+        cases[name] = dict(kind="walk_c", q=q.cpu(), t=t.cpu(),
+                           lens=smoke.walk_lens(q, wcol, W).cpu(), W=W,
+                           band=band, wide=max(L, band - W) >= 8192)
+        del wcol
     torch.save(cases, path)
 
 
@@ -133,7 +196,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--walks", action="store_true",
-                    help="the gact walk alone, not cli map")
+                    help="the walks alone, not cli map")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     import chip_smoke as smoke

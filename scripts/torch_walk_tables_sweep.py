@@ -1,6 +1,11 @@
 #!/usr/bin/env python3
-"""Measures the design constants of two kernels on one NVIDIA GPU:
+"""Measures the design constants of three kernels on one NVIDIA GPU:
 
+  * csrc/walk.cu::walk_c_kernel: the lanes (warps) a CTA, kWalkLanes, how
+    far ahead a lane loads its columns, kWalkAhead (its ring kWalkRing
+    the smallest power of 2 of at least 3 * kWalkAhead + 1), and the
+    least groups of a column's window, kWalkGroups, on chip_smoke.py
+    phase 3's resident passes, 1 kb (MAIN_SHAPE) and 10 kb (WIDE_MAIN);
   * csrc/walk.cu::gact_walk_kernel: the warps a CTA, kGactWarps (all of
     them rebuild the rows in the group's last CTA), the lanes a CTA walks,
     kGactLanes, and how far ahead a lane loads its columns, kAhead (its
@@ -14,12 +19,13 @@
 Each variant is the checkout's source with those constants rewritten,
 built by nvcc with native_build's flags (all builds at once), and run in
 place of the checkout's own library: its outputs are held bit-equal to
-the checkout's build, and the variants are timed in turns (the walk: CUDA
-events around each group's walk, as phase 3; the tables: the kernel's
-device time from one torch.profiler trace of VOTE_TURNS calls of each
-variant in each round).
+the checkout's build, and the variants are timed in turns (the gact walk:
+CUDA events around each group's walk, as phase 3; walk_c and the tables:
+the kernel's device time from one torch.profiler trace of VOTE_TURNS
+calls of each variant in each round).
 
   python3 scripts/torch_walk_tables_sweep.py [--rounds N] [--seed N]
+      [--parts walk_c,gact_walk,seed_tables]
 
 The JSON printed last holds every median (ms) with the card's name and
 power limit.
@@ -42,6 +48,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (kGactWarps, kGactLanes, kAhead); the checkout's own first
 WALK_VARIANTS = ((16, 4, 2), (8, 8, 2), (8, 4, 2), (8, 4, 1), (16, 4, 1),
                  (16, 8, 2), (16, 2, 2), (32, 4, 2))
+# (kWalkLanes, kWalkAhead, kWalkGroups); the checkout's own first
+WALK_C_VARIANTS = ((2, 1, 8), (1, 1, 8), (4, 1, 8), (8, 1, 8), (2, 2, 8),
+                   (2, 3, 8), (2, 1, 24), (2, 1, 56), (2, 2, 24), (1, 2, 8))
 # (kSeedThreads, kSeedsPerThread); the checkout's own first
 TABLE_VARIANTS = ((512, 2), (256, 4), (256, 2))
 VOTE_TURNS = 20
@@ -63,14 +72,16 @@ def rewrite(text: str, consts: dict) -> str:
     return text
 
 
-def build_variants(d: str, jobs: dict) -> dict:
+def build_variants(d: str, jobs: dict, edit=None) -> dict:
     """{tag: (source name, constants)} -> {tag: library path}, every nvcc
-    started at once."""
+    started at once; `edit`, where given, rewrites each source's text
+    before its constants are."""
     from longreadmapper_tpu_torch import native_build
     procs = {}
     for tag, (name, consts) in jobs.items():
         with open(native_build.source(name)) as f:
-            text = rewrite(f.read(), consts)
+            text = f.read()
+        text = rewrite(edit(text) if edit else text, consts)
         src = os.path.join(d, f"{tag}.cu")
         with open(src, "w") as f:
             f.write(text)
@@ -151,9 +162,68 @@ def sweep_walk(rng, libs: dict, rounds: int) -> dict:
     return out
 
 
-def sweep_tables(d: str, seed: int, libs: dict, rounds: int) -> dict:
+def traced_turns(libs: dict, functions: dict, name: str, kernel: str,
+                 fn, rounds: int) -> dict:
+    """{tag: median device ms of `kernel`} over one torch.profiler trace
+    of `rounds` rounds that call fn VOTE_TURNS times with each variant's
+    library loaded as `name`, in order on even rounds and in reverse on
+    odd ones."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    order = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for r in range(rounds):
+            for tag in (list(libs) if r % 2 == 0 else list(libs)[::-1]):
+                with using(name, load(libs[tag], functions)):
+                    for _ in range(VOTE_TURNS):
+                        fn()
+                order.append(tag)
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if e.device_type.name == "CUDA"
+                 and kernel in e.name), key=lambda e: e.time_range.start)
+    if len(ev) != VOTE_TURNS * len(order):
+        raise AssertionError(f"{len(ev)} {kernel} launches traced, "
+                             f"{VOTE_TURNS * len(order)} made")
+    ms = {tag: [] for tag in libs}
+    for i, tag in enumerate(order):
+        ms[tag].extend(e.time_range.elapsed_us() / 1e3 for e in
+                       ev[i * VOTE_TURNS:(i + 1) * VOTE_TURNS])
+    return {tag: statistics.median(v) for tag, v in ms.items()}
+
+
+def sweep_walk_c(rng, libs: dict, rounds: int) -> dict:
+    import torch
+    import chip_smoke as smoke
+    from longreadmapper_tpu_torch.ops.band_dp import banded_nw_dirs
+    from longreadmapper_tpu_torch.ops.traceback import (WALK_FUNCS,
+                                                        device_traceback_c)
+    out = {}
+    for name, (B, L, W, band), indel in (
+            ("1kb", smoke.MAIN_SHAPE, 0.0),
+            ("10kb", smoke.WIDE_MAIN, smoke.WALK_INDEL)):
+        dt = torch.int16 if max(L, band - W) < 8192 else torch.int32
+        q, t = smoke.dp_inputs(rng, B, L, indel)
+        v, wcol, nm = banded_nw_dirs(q, t, W, band)
+        lens = smoke.walk_lens(q, wcol, W)
+        want = None
+        for tag in libs:                        # warm-up and bit-equality
+            with using("walk", load(libs[tag], WALK_FUNCS)):
+                runs = device_traceback_c(v, lens, L, W, nm, dt)
+            if want is None:
+                want = runs
+            elif not torch.equal(runs, want):
+                raise AssertionError(f"walk_c {tag} differs at {name}")
+        out[name] = traced_turns(
+            libs, WALK_FUNCS, "walk", "walk_c_kernel",
+            lambda: device_traceback_c(v, lens, L, W, nm, dt), rounds)
+        print(f"[sweep] walk_c {name} (B {B}, L {L}): "
+              f"{json.dumps(out[name])}", flush=True)
+        del v, nm, wcol
+    return out
+
+
+def sweep_tables(d: str, seed: int, libs: dict, rounds: int) -> dict:
+    import torch
     import chip_smoke as smoke
     from longreadmapper_tpu_torch import cli
     from longreadmapper_tpu_torch.index.device import load_device_index
@@ -185,28 +255,9 @@ def sweep_tables(d: str, seed: int, libs: dict, rounds: int) -> dict:
                 want = tabs
             elif not all(torch.equal(a, b) for a, b in zip(tabs, want)):
                 raise AssertionError(f"seed_tables {tag} differs at {name}")
-        # one trace of every round: the kernels in launch order, VOTE_TURNS
-        # a variant in turn
-        order = []
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for r in range(rounds):
-                for tag in (list(libs) if r % 2 == 0 else list(libs)[::-1]):
-                    with using("vote", load(libs[tag], VOTE_FUNCS)):
-                        for _ in range(VOTE_TURNS):
-                            seed_tables(cfg, index[0], codes, lens)
-                    order.append(tag)
-            torch.cuda.synchronize()
-        ev = sorted((e for e in prof.events() if e.device_type.name == "CUDA"
-                     and "seed_tables_kernel" in e.name),
-                    key=lambda e: e.time_range.start)
-        if len(ev) != VOTE_TURNS * len(order):
-            raise AssertionError(f"{len(ev)} seed_tables launches traced, "
-                                 f"{VOTE_TURNS * len(order)} made")
-        ms = {tag: [] for tag in libs}
-        for i, tag in enumerate(order):
-            ms[tag].extend(e.time_range.elapsed_us() / 1e3 for e in
-                           ev[i * VOTE_TURNS:(i + 1) * VOTE_TURNS])
-        out[name] = {tag: statistics.median(v) for tag, v in ms.items()}
+        out[name] = traced_turns(
+            libs, VOTE_FUNCS, "vote", "seed_tables_kernel",
+            lambda: seed_tables(cfg, index[0], codes, lens), rounds)
         print(f"[sweep] seed_tables {name} (B {cfg.B}, {int(want[3].sum())} "
               f"wide): {json.dumps(out[name])}", flush=True)
         del index
@@ -217,7 +268,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parts", default="walk_c,gact_walk,seed_tables",
+                    help="the kernels to sweep, comma-separated")
     args = ap.parse_args(argv)
+    parts = args.parts.split(",")
     sys.path.insert(0, HERE)
     import numpy as np
     import torch
@@ -227,22 +281,35 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"[sweep] {card}", flush=True)
-    jobs = {f"walk_w{w}_l{n}_a{a}": ("walk", dict(
-        kGactWarps=w, kGactLanes=n, kAhead=a, kRing=ring(a)))
-        for w, n, a in WALK_VARIANTS}
-    jobs.update({f"tables_t{t}_s{s}": ("vote", dict(kSeedThreads=t,
-                                                    kSeedsPerThread=s))
-                 for t, s in TABLE_VARIANTS})
+    jobs = {}
+    if "walk_c" in parts:
+        jobs.update({f"walkc_l{n}_a{a}_g{g}": ("walk", dict(
+            kWalkLanes=n, kWalkAhead=a, kWalkRing=ring(a), kWalkGroups=g))
+            for n, a, g in WALK_C_VARIANTS})
+    if "gact_walk" in parts:
+        jobs.update({f"walk_w{w}_l{n}_a{a}": ("walk", dict(
+            kGactWarps=w, kGactLanes=n, kAhead=a, kRing=ring(a)))
+            for w, n, a in WALK_VARIANTS})
+    if "seed_tables" in parts:
+        jobs.update({f"tables_t{t}_s{s}": ("vote", dict(
+            kSeedThreads=t, kSeedsPerThread=s)) for t, s in TABLE_VARIANTS})
+    out = dict(card=card)
     with tempfile.TemporaryDirectory(prefix="lrm_sweep_") as d:
         libs = build_variants(d, jobs)
-        walk = sweep_walk(np.random.default_rng(args.seed),
-                          {k: v for k, v in libs.items()
-                           if k.startswith("walk")}, args.rounds)
-        tables = sweep_tables(d, args.seed,
-                              {k: v for k, v in libs.items()
-                               if k.startswith("tables")}, args.rounds)
+
+        def of(prefix):
+            return {k: v for k, v in libs.items() if k.startswith(prefix)}
+        if "walk_c" in parts:
+            out["walk_c"] = sweep_walk_c(np.random.default_rng(args.seed),
+                                         of("walkc_"), args.rounds)
+        if "gact_walk" in parts:
+            out["gact_walk"] = sweep_walk(np.random.default_rng(args.seed),
+                                          of("walk_"), args.rounds)
+        if "seed_tables" in parts:
+            out["seed_tables"] = sweep_tables(d, args.seed, of("tables_"),
+                                              args.rounds)
     print(card)
-    print(json.dumps(dict(card=card, gact_walk=walk, seed_tables=tables)))
+    print(json.dumps(out))
     return 0
 
 

@@ -18,7 +18,10 @@ MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK environment.  Modes:
   rows  — ShardedRows over a model group of every rank, against the plain
           gather of the whole table (prints ROWS_OK).
   hang  — rank 0 waits in an all_reduce that rank 1 never joins; rank 0
-          must fail within the group's timeout (config timeout_s).
+          must fail within the mesh group's timeout (config timeout_s).
+          The default group forms with the rendezvous timeout (120 s, in
+          every mode) and the ranks meet at a barrier before the mesh
+          forms, so a rank that starts late is not taken for the hung one.
 """
 
 import importlib.abc
@@ -48,7 +51,9 @@ import torch.distributed as dist  # noqa: E402
 torch.set_num_threads(1)
 rank, world = int(sys.argv[1]), int(sys.argv[2])
 cfg = json.loads(sys.argv[3])
-timeout = datetime.timedelta(seconds=cfg.get("timeout_s", 120))
+# the rendezvous timeout; the hang mode's timeout_s bounds only the mesh
+# group it hangs in
+timeout = datetime.timedelta(seconds=120)
 if cfg.get("store"):
     dist.init_process_group("gloo", store=dist.FileStore(cfg["store"], world),
                             rank=rank, world_size=world, timeout=timeout)
@@ -149,7 +154,8 @@ def run_hang():
     from longreadmapper_tpu_torch.parallel.mesh import make_mesh
     from longreadmapper_tpu_torch.runtime.launch import init_distributed
 
-    init_distributed("cpu", timeout_s=cfg["timeout_s"])
+    init_distributed("cpu")
+    dist.barrier()                 # both ranks up before the clock starts
     mesh = make_mesh(world, 1, "cpu", timeout_s=cfg["timeout_s"])
     if rank:
         time.sleep(cfg["sleep_s"])
@@ -160,7 +166,9 @@ def run_hang():
     except RuntimeError as e:
         print(f"HANG_FAILED after {time.perf_counter() - t0:.1f} s: "
               f"{str(e)[:80]}", flush=True)
-        sys.exit(3)
+        # leave without tearing down a group whose collective timed out:
+        # Gloo's teardown can abort the process there
+        os._exit(3)
     print("HANG_PASSED", flush=True)
 
 

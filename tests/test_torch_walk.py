@@ -2,11 +2,15 @@
 per-lane models of their loops, and on the card against the plain walks.
 
 The models below are written as the CUDA code is written, lane by lane in
-Python integers: walk_c_kernel's independent lanes, each to done or to its
-iteration bound, with the bitmap scan that starts at g_cur's own word and
-stops at the first hit; the lock-step gact walk whose semantics
-gact_walk_kernel keeps (one shared write pointer, a per-tile "any lane
-alive" loop, the clamped last row that every lane's pair overwrites), and
+Python integers: the first walk_c_kernel's independent lanes, each to done
+or to its iteration bound, with the bitmap scan that starts at g_cur's own
+word and stops at the first hit; walk_c_kernel as it is written now, a
+warp a lane over a ring of its columns (each load's window, group and
+readiness checked where the walk reads it), the clamps of the plain walk
+past row L and the whole row written at the end; the lock-step gact walk
+whose semantics gact_walk_kernel keeps (one shared write pointer, a
+per-tile "any lane alive" loop, the clamped last row that every lane's
+pair overwrites), and
 gact_walk_kernel as it is written: a lane at its own pace with its
 iterations a tile and a staging row, then the group's last CTA's maxima,
 prefix, copy and clamped row.  Each model is held equal to the port's
@@ -47,15 +51,15 @@ def _below_mask(g_cur, w):
     return M32 if lim >= 32 else (1 << lim) - 1
 
 
-def _group_below(nm, b, band, g_cur, bmidx):
+def _group_below(bm, nbm, g_cur):
     """walk.cu::group_below: from min(nbm-1, g_cur >> 5) down, the first
-    non-zero masked bitmap word gives the group.  nm (nbm, B*band) of
-    uint32 Python ints."""
-    w = min(len(nm) - 1, g_cur >> 5)
-    bwk = nm[w][bmidx] & _below_mask(g_cur, w)
+    non-zero masked bitmap word gives the group.  bm(w): the lane's
+    bitmap word w as a uint32 Python int."""
+    w = min(nbm - 1, g_cur >> 5)
+    bwk = bm(w) & _below_mask(g_cur, w)
     while bwk == 0 and w > 0:
         w -= 1
-        bwk = nm[w][bmidx] & _below_mask(g_cur, w)
+        bwk = bm(w) & _below_mask(g_cur, w)
     return (w << 5) + bwk.bit_length() - 1 if bwk else -1
 
 
@@ -93,7 +97,8 @@ def model_walk_c(vdirs, nm, lens, L, W, bits=16):
             wm_cur = ((_word(v, g_cur, b, d, B, band) << sh) & M32) >> sh
             in_cur = wm_cur != 0
             bmidx = _clamp(b * band + d, 0, B * band - 1)
-            g2 = -1 if in_cur else _group_below(nmw, b, band, g_cur, bmidx)
+            g2 = -1 if in_cur else _group_below(lambda w: nmw[w][bmidx],
+                                                len(nmw), g_cur)
             any_nm = i > 0 and (in_cur or g2 >= 0)
             gstar = g_cur if in_cur else max(g2, 0)
             wsel = (wm_cur if in_cur else
@@ -116,6 +121,155 @@ def model_walk_c(vdirs, nm, lens, L, W, bits=16):
     return runs
 
 
+def _resident_step(word, bm, nbm, i, j, G, seen):
+    """walk.cu::resident_step on a column view (word(g), bm(w)): (i, j,
+    e1, e2) with the entries as 32-bit (count << 2) | op or 3; seen["bit
+    past G"] counts the bitmap bits taken at groups >= G."""
+    any_nm, gstar, wsel = False, 0, 0
+    if i > 0:
+        ii = i - 1
+        g_cur, sh = ii >> 4, 2 * (15 - (ii & 15))
+        wm = ((word(g_cur) << sh) & M32) >> sh
+        if wm:
+            any_nm, gstar, wsel = True, g_cur, wm
+        else:
+            g2 = _group_below(bm, nbm, g_cur)
+            if g2 >= 0:
+                seen["bit past G"] += g2 >= G
+                any_nm, gstar, wsel = True, g2, word(g2)
+    praw = 15 - (_clz(wsel) >> 1)
+    pstar = max(praw, 0)
+    mrun = i - (gstar * 16 + praw + 1 if any_nm else 0) if i > 0 else 0
+    i2, j2 = i - mrun, j - mrun
+    op = (wsel >> (2 * pstar)) & 3
+    drun = max(j2, 0) if not any_nm and i2 == 0 else 0
+    e1 = mrun << 2 if mrun > 0 else 3
+    e2 = 4 | op if any_nm else (drun << 2) | 2 if drun > 0 else 3
+    i3 = i2 - 1 if any_nm and op == 1 else i2
+    j3 = j2 - 1 if any_nm and op == 2 else j2
+    return i3, 0 if drun > 0 else j3, e1, e2
+
+
+def walk_c_window(G, k_groups=8):
+    """lrm_walk_c's window K: k_groups groups, more to fill the warp's last
+    round of copies with the bitmap words, at most G."""
+    nbm = -(-G // 32)
+    return min(G, max(k_groups, -(-(nbm + k_groups) // 32) * 32 - nbm))
+
+
+class _Ring:
+    """A lane's ring of `size` column slots filled by cp.async groups, as
+    walk_c_kernel keeps it: load() records a slot's column, window start,
+    groups, bitmap words and commit group, and skips a slot whose last
+    load is still in flight (which the ring's size makes the same column);
+    column(d) gives the step's view of column d, reading a slot only where
+    the kernel's last wait has retired its load."""
+
+    def __init__(self, size, v, nmw, b, B, band, G, tail, seen):
+        self.size, self.v, self.nmw = size, v, nmw
+        self.b, self.B, self.band, self.G = b, B, band, G
+        self.tail, self.seen = tail, seen
+        self.slots = [None] * size
+        self.committed = self.retired = 0
+
+    def load(self, x, lo, gn, wn):
+        k = x & (self.size - 1)
+        old = self.slots[k]
+        if old is not None and old[4] >= self.retired:
+            assert old[0] == x, "another column's load still in flight"
+            self.seen["kept"] += 1
+            return
+        self.slots[k] = (x, lo, gn, wn, self.committed)
+
+    def commit(self):
+        self.committed += 1
+
+    def wait(self, ahead):                     # cp_wait<ahead>
+        self.retired = self.committed - ahead
+
+    def column(self, d):
+        x, lo, gn, wn, grp = self.slots[d & (self.size - 1)]
+        assert x == d and grp < self.retired, (x, d, grp, self.retired)
+        at = self.b * self.band + d
+
+        def word(g):
+            if g >= self.G:
+                self.seen["tail"] += 1
+                return self.tail
+            if g < lo:
+                self.seen["below"] += 1         # from device memory
+            else:
+                assert g - lo < gn, (g, lo, gn)
+            return self.v[g * self.B * self.band + at]
+
+        def bm(w):
+            assert w < wn, (w, wn)
+            return self.nmw[w][at]
+        return word, bm
+
+
+def model_walk_c_warp(vdirs, nm, lens, L, W, bits=16, ahead=1, ring=4,
+                      k_groups=8, seen=None):
+    """walk_c_kernel as it is written: a warp a lane over the ring of its
+    columns d +- ahead, each a window of walk_c_window(G, k_groups) groups
+    from the lane's group down and the bitmap words over them, loaded
+    `ahead` iterations before the walk can reach them; the resident_step
+    iteration, groups below a window from device memory; entries staged
+    and the lane's whole row written at the end.  Returns runs (B, 2 * (W
+    + 6)); `seen` counts the reads of the tensor's last word (lanes past
+    row L), of groups below a window, the loads kept in flight and the
+    bitmap bits taken past G."""
+    G, B, band = vdirs.shape
+    nbm = nm.shape[0]
+    K = walk_c_window(G, k_groups)
+    v = _u32(vdirs)
+    nmw = [_u32(nm[w]) for w in range(nbm)]
+    n_iter = ttb.traceback_c_iters(L, W)
+    if seen is None:
+        seen = {}
+    for k in ("tail", "below", "kept", "bit past G"):
+        seen.setdefault(k, 0)
+    runs = np.full((B, 2 * n_iter), -99, np.int64)   # every element written
+    for b in range(B):
+        i = j = int(lens[b])
+        done = i <= 0
+        tail = v[-1] if not done and ((i - 1) >> 4) >= G else 0
+        r = _Ring(ring, v, nmw, b, B, band, G, tail, seen)
+
+        def load(x):
+            g_top = (i - 1) >> 4
+            g_hi = min(G - 1, g_top)
+            lo = max(0, g_hi - K + 1)
+            r.load(x, lo, g_hi - lo + 1, min(nbm, (g_top >> 5) + 1))
+
+        d = _clamp(W, 0, band - 1)
+        if not done:
+            for s in range(ahead + 1):
+                if d - s >= 0:
+                    load(d - s)
+                if s > 0 and d + s < band:
+                    load(d + s)
+                r.commit()
+        stage = []
+        while len(stage) < 2 * n_iter and not done:
+            in_tile = i > 0
+            if in_tile:
+                r.wait(ahead)
+            word, bm = r.column(d) if in_tile else (None, None)
+            i, j, e1, e2 = _resident_step(word, bm, nbm, i, j, G, seen)
+            stage += [_entry(e >> 2, e & 3, bits) for e in (e1, e2)]
+            done = i == 0 and j == 0
+            if in_tile:
+                d2 = _clamp(j - i + W, 0, band - 1)
+                x = d2 + ahead if d2 > d else d2 - ahead
+                if d2 != d and not done and i > 0 and 0 <= x < band:
+                    load(x)
+                r.commit()
+                d = d2
+        runs[b] = stage + [3] * (2 * n_iter - len(stage))
+    return runs
+
+
 def _gact_step(v, nmw, b, B, band, T, W, k, i, j):
     """One iteration of an alive lane b at (i, j) in tile k (walk.cu's
     column_step): (i, j, e1, e2).  v (G*B*band) and nmw (nbm lists of
@@ -130,7 +284,8 @@ def _gact_step(v, nmw, b, B, band, T, W, k, i, j):
         sh = 2 * (15 - r)
         wm = ((_word(v, g_cur, b, d, B, band) << sh) & M32) >> sh
         bmidx = _clamp(b * band + d, 0, B * band - 1)
-        g2 = -1 if wm else _group_below(nmw, b, band, g_cur, bmidx)
+        g2 = -1 if wm else _group_below(lambda w: nmw[w][bmidx], len(nmw),
+                                        g_cur)
         any_nm = wm != 0 or g2 >= 0
         gstar = g_cur if wm else max(g2, 0)
         wsel = (wm if wm else
@@ -383,6 +538,121 @@ def test_walk_c_model_clamps_on_random_words(seed):
                                       _jax_walk_c(v, nm, lens, L, W, wide))
 
 
+WALK_C_CASES = [
+    (256, 24, 128, 12, False, 0),      # ragged, one bitmap word
+    (1024, 40, 128, 6, False, 1),      # 64 groups: two bitmap words
+    (2048, 60, 256, 5, True, 2),       # four words, int32 entries
+    (800, 40, 128, 7, False, 3),       # G 50, not a multiple of 32
+]
+
+
+@pytest.mark.parametrize("L,W,band,B,wide,seed", WALK_C_CASES)
+@pytest.mark.parametrize("ahead,ring,k_groups", [(1, 4, 8), (2, 8, 40)])
+def test_walk_c_warp_model_matches_plain_and_jax(L, W, band, B, wide, seed,
+                                                 ahead, ring, k_groups):
+    """The warp-a-lane walk over its ring of columns (the kernel's columns
+    d +- 1 with windows of at least 8 groups, and d +- 2 with 40) equals
+    the plain walk and JAX's on real words."""
+    q, t, lens = _reads(seed, B, L, W)
+    v, nm, lt = _dirs(q, t, lens, W, band)
+    dt = torch.int32 if wide else torch.int16
+    plain = ttb.device_traceback_c_plain(v, lt, L, W, nm, dt).numpy()
+    seen = {}
+    model = model_walk_c_warp(v.numpy(), nm.numpy(), lt.numpy(), L, W,
+                              32 if wide else 16, ahead, ring, k_groups,
+                              seen)
+    np.testing.assert_array_equal(model, plain)
+    np.testing.assert_array_equal(plain, _jax_walk_c(v, nm, lt, L, W, wide))
+    if ahead > 1:
+        assert seen["kept"] > 0       # a column back while its load flies
+    assert ((plain & 3 == 1) | (plain & 3 == 2)).any()
+
+
+def _random_words(rng, G, B, band, sparse):
+    v = rng.integers(-2**31, 2**31, (G, B, band), dtype=np.int64)
+    if sparse:
+        v[rng.random(v.shape) < 0.8] = 0
+    nm = rng.integers(-2**31, 2**31, (-(-G // 32), B, band), dtype=np.int64)
+    return (torch.from_numpy(v.astype(np.int32)),
+            torch.from_numpy(nm.astype(np.int32)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_walk_c_warp_model_clamps_on_random_words(seed):
+    """test_walk_c_model_clamps_on_random_words's words and lens for the
+    warp-a-lane walk: lanes past L read the tensor's last word for their
+    current group and for bitmap bits at groups >= G."""
+    rng = np.random.default_rng(300 + seed)
+    G, B, band, W = [45, 70, 9, 33][seed], 6, 128, 30
+    L = 16 * G
+    v, nm = _random_words(rng, G, B, band, seed % 2)
+    lens = torch.from_numpy(np.array([L, L + 40, -3, 0, 17, L // 2],
+                                     np.int32))
+    seen = {}
+    for wide in (False, True):
+        plain = ttb.device_traceback_c_plain(
+            v, lens, L, W, nm, torch.int32 if wide else torch.int16).numpy()
+        model = model_walk_c_warp(v.numpy(), nm.numpy(), lens.numpy(), L, W,
+                                  32 if wide else 16, seen=seen)
+        np.testing.assert_array_equal(model, plain)
+        np.testing.assert_array_equal(plain,
+                                      _jax_walk_c(v, nm, lens, L, W, wide))
+    assert seen["tail"] > 0
+
+
+@pytest.mark.parametrize("case", ["lens past L", "bit past G",
+                                  "G not a multiple of 32",
+                                  "group below the window"])
+def test_walk_c_warp_model_clamp_paths(case):
+    """One crafted case a path of the resident walk: a lane that starts
+    past row L (its current group >= G reads the tensor's last word), a
+    bitmap bit at a group >= G that the scan from such a row takes (the
+    last word again, here 0: the M-run ends at 16 gstar), real words at G
+    = 50 with lanes 300 rows past L, and an M-run from row 1000 to an
+    insertion near row 40, whose word lies below the slot's window."""
+    rng = np.random.default_rng(17)
+    B, band, W = 4, 64, 12
+    seen = {}
+    if case == "group below the window":
+        L = 1024
+        q = rng.integers(0, 4, (B, L)).astype(np.int8)
+        t = np.concatenate([q[:, :40], np.full((B, 1), 2, np.int8),
+                            q[:, 40:-1]], axis=1)
+        v, nm, lt = _dirs(q, t, np.full(B, L, np.int32), W, band)
+        lt[1] = 0
+    elif case == "G not a multiple of 32":
+        L = 800
+        q, t, lens = _reads(5, B, L, W)
+        v, nm, lt = _dirs(q, t, lens, W, band)
+        lt = torch.where(lt > 0, lt + 300, lt)
+    else:
+        G = 40 if case == "bit past G" else 20
+        L = 16 * G
+        v, nm = _random_words(rng, G, B, band, True)
+        lt = torch.tensor([L + 37, L + 16 * 7 + 3, 5, 0], dtype=torch.int32)
+        if case == "bit past G":
+            v[-1, -1, -1] = 0                    # the tensor's last word
+            v[:, :2] = 0                         # no non-M pair in lanes 0-1
+            nm[:, :2] = 0
+            nm[1, :2, :] = 1 << (45 - 32)        # only group 45's bit
+    for dt, bits in ((torch.int16, 16), (torch.int32, 32)):
+        plain = ttb.device_traceback_c_plain(v, lt, L, W, nm, dt).numpy()
+        model = model_walk_c_warp(v.numpy(), nm.numpy(), lt.numpy(), L, W,
+                                  bits, seen=seen)
+        np.testing.assert_array_equal(model, plain)
+        np.testing.assert_array_equal(plain, _jax_walk_c(v, nm, lt, L, W,
+                                                         bits == 32))
+        np.testing.assert_array_equal(
+            model_walk_c(v.numpy(), nm.numpy(), lt.numpy(), L, W, bits),
+            plain)
+    if case == "group below the window":
+        assert seen["below"] > 0 and int((lt > 0).sum()) == B - 1
+    else:
+        assert seen["tail"] > 0
+    if case == "bit past G":
+        assert seen["bit past G"] > 0
+
+
 def test_group_below_early_exit_equals_full_scan():
     """The kernel's scan from g_cur's word down to the first hit gives the
     plain walk's full scan's group, on bitmaps with few bits set."""
@@ -397,7 +667,8 @@ def test_group_below_early_exit_equals_full_scan():
            for w in range(nbm)]
     want = ttb.group_below(nmf, torch.arange(n), torch.from_numpy(g_cur))
     words = [[int(x) for x in nm[w]] for w in range(nbm)]
-    got = [_group_below(words, 0, 0, int(g_cur[k]), k) for k in range(n)]
+    got = [_group_below(lambda w: words[w][k], nbm, int(g_cur[k]))
+           for k in range(n)]
     assert got == want.tolist()
     assert (want >= 0).any() and (want < 0).any()
 
@@ -604,7 +875,10 @@ def _card():
 @pytest.mark.parametrize("B,L,W,band,wide", [
     (37, 256, 24, 128, False),
     (300, 2048, 204, 512, True),
-    (2048, 1024, 102, 256, False)])    # the 1 kb main shape
+    (2048, 1024, 102, 256, False),     # the 1 kb main shape
+    (200, 10240, 512, 1152, True),     # the 10 kb resident pass
+    (1, 1024, 102, 256, False),        # one lane
+    (3, 2048, 204, 512, False)])       # a CTA's lanes not all in B
 def test_walk_c_kernel_matches_plain_on_card(B, L, W, band, wide):
     _card()
     from _torch_parity import mutate_rows
@@ -615,7 +889,8 @@ def test_walk_c_kernel_matches_plain_on_card(B, L, W, band, wide):
     qd, td = torch.from_numpy(q).cuda(), torch.from_numpy(t).cuda()
     v, wc, nm = banded_nw_dirs(qd, td, W, band)
     lens = torch.full((B,), L - L // 16, dtype=torch.int32, device="cuda")
-    lens[::5] = 0
+    if B > 1:
+        lens[::5] = 0
     ed = wc[lens.long(), torch.arange(B, device="cuda")]
     lens = torch.where(ed.int() <= W, lens, 0)
     dt = torch.int32 if wide else torch.int16
@@ -639,11 +914,24 @@ def test_walk_c_kernel_clamps_on_card():
                                        dtype=np.int64).astype(np.int32))
     lens = torch.from_numpy(rng.integers(-3, 16 * G + 40, B).astype(
         np.int32))
+    from longreadmapper_tpu_torch import native_build
+    lib = native_build.load("walk", ttb.WALK_FUNCS)
+    n_iter = ttb.traceback_c_iters(16 * G, W)
+    vd, nmd, ld = v.cuda(), nm.cuda(), lens.cuda()
     for dt in (torch.int16, torch.int32):
-        got = ttb.device_traceback_c(v.cuda(), lens.cuda(), 16 * G, W,
-                                     nm.cuda(), dt)
+        got = ttb.device_traceback_c(vd, ld, 16 * G, W, nmd, dt)
         want = ttb.device_traceback_c_plain(v, lens, 16 * G, W, nm, dt)
         assert torch.equal(got.cpu(), want)
+        # the kernel writes every element: a buffer of garbage comes back
+        # equal to the plain walk's runs
+        runs = torch.empty((B, 2 * n_iter), dtype=dt, device="cuda")
+        runs.fill_(-21846)
+        assert lib.lrm_walk_c(
+            vd.data_ptr(), nmd.data_ptr(), ld.data_ptr(), G, B, band, W,
+            n_iter, runs.data_ptr(), runs.element_size(),
+            torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(runs.cpu(), want)
 
 
 @pytest.mark.cuda
