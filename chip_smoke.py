@@ -14,7 +14,8 @@ FM-index queries, `TorchMapper.map_stream`, the Myers aligners).
 Phases (each raises on failure; nothing is caught):
   1. device  — requires CUDA; prints the card's name and power limit
   2. build   — nvcc builds csrc/band_dp.cu, csrc/band_scores.cu,
-               csrc/walk.cu and csrc/vote.cu for sm_90a and g++ the host
+               csrc/walk.cu, csrc/vote.cu and csrc/step.cu for sm_90a and
+               g++ the host
                code (the
                suffix-array build csrc/sais.cpp, the external build's
                merge csrc/samerge.cpp,
@@ -64,6 +65,15 @@ Phases (each raises on failure; nothing is caught):
                CUDA-event medians of vote_rows and its plain versions in
                every case, of each kernel at each bucket (full int32
                layout), beside the bound
+  3c. glue   — after 3b, on the same chunks: the step glue's four kernels
+               (csrc/step.cu: encode, locate_window, lanes, pack) each
+               bit-equal to its plain version at the 1 kb, 10 kb and 50 kb
+               buckets, in the full int32 and full pos64 layouts, on the
+               values the step hands it (the raw chunk, the seed vote's
+               best, the DP's centre column, the walk's run entries);
+               CUDA-event medians of each wrapper and its plain version,
+               and each kernel alone from a torch.profiler trace, beside
+               the bound
   4. map     — a 4 Mb single-contig genome and 16384 1 kb reads (3%
                substitutions, both strands, planted positions), all made
                from --seed; `cli index` (the lchash built on the card, held
@@ -73,8 +83,9 @@ Phases (each raises on failure; nothing is caught):
                placement, that every CIGAR consumes its read and spells its
                ED against the genome, that every chunk was encoded on the
                card (raw bytes in), and that the main path went through
-               the kernels (the seed vote's two, the DP and the walk) and
-               never through a plain version, with no walk host sync; the
+               the kernels (the seed vote's two, the DP, the walk and the
+               step glue's four) and never through a plain version, with
+               no walk host sync; the
                dispatch and fetch seconds a chunk
   5. cpu     — `cli map --device cpu` (plain versions, in subprocesses
                that run beside phases 6 and 7 and are checked after them)
@@ -154,11 +165,15 @@ DP the larger of its bytes at 3.35 TB/s and its int32 operations,
 INT_OPS_CELL a cell, at INT32_OPS_S; for a walk the words it gathers,
 WALK_WORD_BYTES a lane-iteration, and its entries, at 3.35 TB/s;
 for the seed vote the larger of its bytes (each gathered row once) and
-its int32 operations, vote_bounds; library_ms null: no PyTorch call
-computes a banded NW DP, its walk or the seed vote).
-Phases 4, 7, 10 and 11 check on each map that the seed vote and the
-walks launched their kernels, called no plain seed vote and no plain walk
-on the card and made no walk host sync.
+its int32 operations, vote_bounds; for the step glue its bytes, each
+input read once and each output written once, glue_bounds; library_ms
+null: no PyTorch call computes a banded NW DP, its walk, the seed vote or
+any of the glue's four functions).
+Phases 4, 7, 10 and 11 check on each map that the seed vote, the walks
+and the step glue launched their kernels (the raw encode wherever a chunk
+ships raw bytes: the mesh of phase 10's mapdist ships host codes, as
+JAX's does), called no plain version of them on the card and made no
+walk host sync.
 Exits non-zero, printing no result, when CUDA is unavailable or the
 port's package is not beside this file.
 """
@@ -249,6 +264,10 @@ VOTE_SETS = {"1kb": 1024, "10kb": 10240, "50kb": 50176}
 REPEAT_GENOME, REPEAT_A, REPEAT_B = 600_000, (60, 400), (64, 150)
 VOTE_TURNS = 20                    # timed calls of each kernel
 VOTE_GLOBAL_C = 20000              # a budget whose rows pass 227 KB
+# phase 3c: the step glue's kernels at each set's bucket in these layouts
+GLUE_LAYOUTS = ("full int32", "full pos64")
+GLUE_KERNELS = ("encode", "locate_window", "lanes", "pack")
+GLUE_TURNS = 50                    # timed calls of each wrapper and kernel
 
 
 def log(msg: str) -> None:
@@ -431,7 +450,7 @@ def check_equal(kernel: str, where: str, got, want,
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"{kernel} output {i} {tuple(g.shape)} "
                                  f"{g.dtype} vs {tuple(w.shape)} {w.dtype}")
-        diff = int((g.long() - w.long()).abs().max())
+        diff = int((g.long() - w.long()).abs().max()) if g.numel() else 0
         err = max(err, diff)
         if not torch.equal(g, w):
             raise AssertionError(f"{kernel} output {i} differs from the "
@@ -1098,6 +1117,166 @@ def phase_vote(d: str, fa: str, fq: str, long_data: dict, seed: int) -> dict:
     return timed["1kb"]
 
 
+def glue_bounds(cfg, M: int, R: int, eb: int):
+    """(bound_ms, "bytes") of each glue kernel on one chunk, in
+    GLUE_KERNELS' order: each input read once and each output written
+    once, at HBM_BYTES_S (their operations, a few a byte, take less).
+    encode: the raw bytes, codes and codes_rc.  locate_window: loc and
+    lens, the contig table (M rows), one of codes / codes_rc a read, its
+    L/16 + 1 text words, the six per-read outputs, q and t.  lanes: one
+    centre-column entry, lens, limit, found and overflow a read; four
+    outputs.  pack: the run entries, nine per-read values and the
+    saturated flag; the blob and the tail."""
+    B, L = cfg.B, cfg.L
+    pb = 8 if cfg.pos64 else 4
+    nbytes = (3 * B * L,
+              B * (pb + 4) + 2 * M * pb + B * L + 4 * B * (L // 16 + 1)
+              + B * (2 + 4 + 3 * pb) + 2 * B * L,
+              B * (2 + 4 + 4 + 1 + 1) + B * (4 + 1 + 4 + 4),
+              B * R * eb + B * (2 * pb + 3 + 16) + 1
+              + B * (4 * cfg.meta_words + R * eb))
+    return [(x / HBM_BYTES_S * 1e3, "bytes") for x in nbytes]
+
+
+def glue_case(tag: str, where: str, mapper, reads, res=None) -> dict:
+    """The step glue's four kernels on the first chunk of `reads`, in the
+    step's order and each on the values the step hands it: encode on the
+    raw chunk; locate_window on the seed vote's best; lanes on the DP's
+    centre column (band_dp, or band_checkpoints on the gact path); pack on
+    the walk's run entries.  Each bit-equal to its plain version (the
+    inputs of the next from the plain version); with `res`, CUDA-event
+    medians of the wrapper and its plain version and the kernel alone
+    from a trace, beside the bound, into res.  Returns the max |diff| of
+    each."""
+    import torch
+    from longreadmapper_tpu_torch.ops import step as S
+    from longreadmapper_tpu_torch.ops.band_dp import banded_nw_dirs
+    from longreadmapper_tpu_torch.ops.band_scores import band_checkpoints
+    from longreadmapper_tpu_torch.ops.gact import (gact_group_tiles,
+                                                   gact_traceback_c)
+    from longreadmapper_tpu_torch.ops.seed_vote import (seed_tables,
+                                                        vote_rows, wide_rank)
+    from longreadmapper_tpu_torch.ops.traceback import device_traceback_c
+    L, prepped = mapper._prepare_chunk(reads[:mapper.B])
+    cfg = mapper._step_for(L)
+    _, raw, rc, lens, limits = prepped[0]
+    if rc is not None:
+        raise AssertionError(f"{tag}: the chunk does not ship raw bytes")
+    idx = mapper.idx
+    L0 = int(lens.max())
+    raw, lens, limit = (torch.from_numpy(a).cuda() for a in (raw, lens,
+                                                             limits))
+    plains = (S.encode_raw_plain, S.locate_window_plain, S.lanes_plain,
+              S.pack_plain)
+    pairs = dict(zip(GLUE_KERNELS, zip(glue_wrappers(), plains)))
+    calls, errs = {}, {}
+
+    def hold(name, args):
+        """The kernel and the plain version on args; the plain output."""
+        kern, plain = pairs[name]
+        n0 = kern.launches
+        got, want = kern(*args), plain(*args)
+        if kern.launches != n0 + 1:
+            raise AssertionError(f"{tag}: {name} launched "
+                                 f"{kern.launches - n0} kernels, not 1")
+        if name == "pack":
+            got, want = got.values(), want.values()
+        errs[name] = check_equal(name, where, list(got), list(want), tag)
+        calls[name] = (lambda: kern(*args), lambda: plain(*args))
+        return want
+
+    codes, codes_rc = hold("encode", (raw, L0))
+    tabs = seed_tables(cfg, idx, codes, lens)
+    best, overflow, _ = vote_rows(cfg, idx, lens, tabs, wide_rank(tabs[3]))
+    found, gi, strand, off, _, _, q, t = hold(
+        "locate_window", (cfg, idx, best, lens, codes, codes_rc))
+    if cfg.use_gact:
+        T, Wp = cfg.gact_tile, cfg.gact_W
+        ckpt, wcol = band_checkpoints(q, t, T, Wp, cfg.gact_band)
+        narrow = cfg.half_band
+    else:
+        Wp = cfg.short_W
+        vdirs, wcol, nm = banded_nw_dirs(q, t, Wp, cfg.short_band)
+        narrow = Wp < cfg.W
+    ed_raw, band_short, ovf, lens_tb = hold(
+        "lanes", (wcol, lens, limit, found, overflow, Wp, narrow))
+    if cfg.use_gact:
+        runs, saturated = gact_traceback_c(
+            q, t, ckpt, lens_tb, T, Wp, cfg.gact_band,
+            scale=cfg.gact_runs_scale,
+            group=gact_group_tiles(cfg.B, cfg.L, T, cfg.gact_band,
+                                   cfg.mid_dirs_budget))
+    else:
+        runs = device_traceback_c(
+            vdirs, lens_tb, cfg.L, Wp, nm,
+            entry_dtype=torch.int16 if cfg.tb_entry_bytes == 2
+            else torch.int32)
+        saturated = None
+    hold("pack", (cfg, best, found, gi, strand, off, ed_raw, limit,
+                  band_short, ovf, runs, saturated))
+    stats = dict(B=cfg.B, L=cfg.L, L0=L0, path="gact" if cfg.use_gact
+                 else "resident", R=runs.shape[1],
+                 entry_bytes=cfg.tb_entry_bytes, found=int(found.sum()),
+                 reverse=int(strand.sum()), walked=int((lens_tb > 0).sum()),
+                 band_short=int(band_short.sum()))
+    if res is not None:
+        bounds = glue_bounds(cfg, idx.mta_start.shape[0], runs.shape[1],
+                             cfg.tb_entry_bytes)
+        for name, bnd in zip(GLUE_KERNELS, bounds):
+            kern, plain = calls[name]
+            ms = cuda_ms(kern, GLUE_TURNS)
+            alone = trace_ms(kern, f"{name}_kernel", GLUE_TURNS)
+            plain_ms = cuda_ms(plain, 5)
+            log(f"[{tag}] {name} {where} median: wrapper {ms} ms, kernel "
+                f"alone (trace) {alone} ms, plain PyTorch {plain_ms} ms "
+                f"({plain_ms / ms}x); bound {bnd[0]} ms by {bnd[1]} "
+                f"({bnd[0] / alone:.4f} of it reached by the kernel)")
+            res.setdefault(name, {}).update(
+                err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], kernel_ms=alone)
+    log(f"[{tag}] {where}: {json.dumps(stats)}")
+    return errs
+
+
+def phase_glue(fa: str, fq: str, long_data: dict) -> dict:
+    """Phase 3c (after 3b): the step glue's kernels bit-equal to their
+    plain versions on each set's first chunk at its bucket, in the
+    GLUE_LAYOUTS; their times at each bucket in the full int32 layout.
+    Returns the 1 kb bucket's numbers (the kernels line's) with each
+    kernel's max |diff| over every case."""
+    import gc
+    import torch
+    from longreadmapper_tpu_torch.index.device import load_device_index
+    from longreadmapper_tpu_torch.models.mapper import TorchMapper
+    from longreadmapper_tpu_torch.runtime.reads import load_read_batches
+    from longreadmapper_tpu_torch.utils.config import Params
+    tag = "3c glue"
+    sets = {"1kb": next(iter(load_read_batches(fq, 2048, background=False)))}
+    for name, (reads, _, _) in long_data.items():
+        sets[name] = [(n, s, None) for n, s in reads]
+    timed, err = {}, {k: 0 for k in GLUE_KERNELS}
+    for lname in GLUE_LAYOUTS:
+        index = load_device_index(fa, "cuda", verbose=False,
+                                  **LAYOUTS[lname][0])
+        mapper = TorchMapper(*index, Params(), chunk_b=2048, device="cuda")
+        for name, reads in sets.items():
+            main = lname == GLUE_LAYOUTS[0]
+            out = {} if main else None
+            errs = glue_case(tag, f"{name} {lname}", mapper, reads, out)
+            for k, e in errs.items():
+                err[k] = max(err[k], e)
+            if main:
+                timed[name] = out
+        del index, mapper
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, out in timed.items():
+        log(f"[{tag}] {name} bucket, full int32: " + json.dumps(out))
+    for k in GLUE_KERNELS:
+        timed["1kb"][k]["err"] = err[k]
+    return timed["1kb"]
+
+
 def make_data(d: str, seed: int, genome_len: int, n_reads: int,
               read_len: int, err: float):
     """A single-contig FASTA and a FASTQ of reads from both strands with
@@ -1258,7 +1437,8 @@ def plain_counts():
 
 def reset_counts():
     """Every kernel's launch count, every plain version's CUDA call count
-    (the seed vote's and top2_votes' too) and the walks' host syncs to 0;
+    (the seed vote's, top2_votes' and the step glue's too) and the walks'
+    host syncs to 0;
     the peak memory statistic too."""
     import torch
     from longreadmapper_tpu_torch.ops.band_dp import (band_dp_tiles,
@@ -1271,19 +1451,27 @@ def reset_counts():
         device_traceback_c, device_traceback_c_plain)
     from longreadmapper_tpu_torch.ops.wavefront import (banded_nw_dirs_v,
                                                         banded_nw_scores)
-    from longreadmapper_tpu_torch.ops import seed_vote, vote
+    from longreadmapper_tpu_torch.ops import seed_vote, step, vote
     for fn in (banded_nw_dirs, band_dp_tiles, band_scores,
                device_traceback_c, gact_traceback_c, seed_vote.seed_tables,
-               seed_vote.vote_rows, vote.top2_votes):
+               seed_vote.vote_rows, vote.top2_votes) + glue_wrappers():
         fn.launches = 0
     for fn in (banded_nw_dirs_v, banded_nw_scores, gact_forward,
                device_traceback_c_plain, gact_traceback_c_plain,
                seed_vote.seed_tables_plain, seed_vote.vote_rows_plain,
-               seed_vote.seed_accept_plain, vote.top2_votes_plain):
+               seed_vote.seed_accept_plain, vote.top2_votes_plain,
+               step.encode_raw_plain, step.locate_window_plain,
+               step.lanes_plain, step.pack_plain):
         fn.cuda_calls = 0
     device_traceback_c.host_syncs = gact_traceback_c.host_syncs = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+
+
+def glue_wrappers() -> tuple:
+    """The step glue's wrappers, in GLUE_KERNELS' order."""
+    from longreadmapper_tpu_torch.ops import step
+    return step.encode_raw, step.locate_window, step.lanes, step.pack
 
 
 def walk_syncs() -> int:
@@ -1292,18 +1480,19 @@ def walk_syncs() -> int:
     return device_traceback_c.host_syncs + gact_traceback_c.host_syncs
 
 
-# the walk and seed-vote kernels' launches over the main path's runs
+# the walk, seed-vote and glue kernels' launches over the main path's runs
 # (phases 4, 7, 10, 11)
 MAIN_LAUNCHES = {"walk_c": 0, "gact_walk": 0, "seed_tables": 0,
-                 "vote_rows": 0}
+                 "vote_rows": 0, **{k: 0 for k in GLUE_KERNELS}}
 
 
-def path_checks(need) -> list:
+def path_checks(need, raw: bool = True) -> list:
     """(ok, what) checks of a map run on the card since reset_counts():
-    the seed vote's two kernels and each walk kernel of `need` launched,
-    no plain walk and no plain seed vote called on CUDA, no walk host
-    sync.  Adds the run's launches to MAIN_LAUNCHES."""
-    from longreadmapper_tpu_torch.ops import seed_vote, vote
+    the seed vote's two kernels, each walk kernel of `need` and the step
+    glue's kernels (the raw encode only where the run's chunks ship raw
+    bytes, `raw`) launched, no plain walk, seed vote or glue called on
+    CUDA, no walk host sync.  Adds the run's launches to MAIN_LAUNCHES."""
+    from longreadmapper_tpu_torch.ops import seed_vote, step, vote
     from longreadmapper_tpu_torch.ops.gact import (gact_traceback_c,
                                                    gact_traceback_c_plain)
     from longreadmapper_tpu_torch.ops.traceback import (
@@ -1311,7 +1500,11 @@ def path_checks(need) -> list:
     run = {"walk_c": device_traceback_c.launches,
            "gact_walk": gact_traceback_c.launches,
            "seed_tables": seed_vote.seed_tables.launches,
-           "vote_rows": seed_vote.vote_rows.launches}
+           "vote_rows": seed_vote.vote_rows.launches,
+           **{k: f.launches for k, f in zip(GLUE_KERNELS, glue_wrappers())}}
+    plain_glue = (step.encode_raw_plain.cuda_calls
+                  + step.locate_window_plain.cuda_calls
+                  + step.lanes_plain.cuda_calls + step.pack_plain.cuda_calls)
     plain = (device_traceback_c_plain.cuda_calls
              + gact_traceback_c_plain.cuda_calls)
     plain_vote = (seed_vote.seed_tables_plain.cuda_calls
@@ -1321,16 +1514,20 @@ def path_checks(need) -> list:
     syncs = walk_syncs()
     for k, v in run.items():
         MAIN_LAUNCHES[k] += v
-    need = tuple(need) + ("seed_tables", "vote_rows")
+    need = tuple(need) + ("seed_tables", "vote_rows") + GLUE_KERNELS[
+        0 if raw else 1:]
     return [(all(run[k] > 0 for k in need),
-             f"walk and seed-vote kernel launches {json.dumps(run)}: "
+             f"walk, seed-vote and glue kernel launches {json.dumps(run)}: "
              f"{', '.join(need)} > 0"),
             (plain == 0 and syncs == 0,
              f"plain walk calls on CUDA {plain} == 0, walk host syncs "
              f"{syncs} == 0"),
             (plain_vote == 0,
              f"plain seed-vote calls on CUDA (seed_tables, vote_rows, "
-             f"the accept, top2_votes) {plain_vote} == 0")]
+             f"the accept, top2_votes) {plain_vote} == 0"),
+            (plain_glue == 0,
+             f"plain step glue calls on CUDA (encode, locate_window, lanes, "
+             f"pack) {plain_glue} == 0")]
 
 
 def as_extra(checks) -> list:
@@ -2007,7 +2204,8 @@ def phase_dist(d: str, fa: str, fq: str, n_reads: int, pos, g, long10,
         t_map = time.perf_counter() - t0
         run = dist_launches()
         plain = plain_counts()
-        walks = path_checks(("walk_c",))
+        # the mesh ships host codes: no raw encode
+        walks = path_checks(("walk_c",), raw=False)
         for k, v in run.items():
             counts[k] += v
         log(f"[{tag}] cli mapdist (world 1, NCCL) of {n_reads} reads in "
@@ -2042,7 +2240,7 @@ def phase_dist(d: str, fa: str, fq: str, n_reads: int, pos, g, long10,
     t_map = time.perf_counter() - t0
     run = dist_launches()
     plain = plain_counts()
-    walks = path_checks(("gact_walk",))
+    walks = path_checks(("gact_walk",), raw=False)
     for k, v in run.items():
         counts[k] += v
     log(f"[{tag}] cli mapdist (world 1) of {n} reads of 10 kb in {t_map} s "
@@ -2325,6 +2523,8 @@ def main(argv=None) -> int:
             long_data[name] = (reads, lpos, hi)
         kres.update(phase_vote(d, fa, fq, long_data, args.seed))
         done("3b vote")
+        kres.update(phase_glue(fa, fq, long_data))
+        done("3c glue")
         fq_short = os.path.join(d, "short.cpu.fq")
         with open(fq) as f, open(fq_short, "w") as o:
             for _ in range(4 * N_CPU_READS):
@@ -2370,7 +2570,7 @@ def main(argv=None) -> int:
     src = {"band_dp": "band_dp.cu", "band_dp_wide": "band_dp.cu",
            "band_scores": "band_scores.cu", "walk_c": "walk.cu",
            "gact_walk": "walk.cu", "seed_tables": "vote.cu",
-           "vote_rows": "vote.cu"}
+           "vote_rows": "vote.cu", **{k: "step.cu" for k in GLUE_KERNELS}}
     # the walks and the seed vote replace XLA loops, gathers and sorts,
     # not pallas_calls
     replaces = {"band_dp": "longreadmapper_tpu/ops/band_pallas.py:102",
@@ -2389,7 +2589,22 @@ def main(argv=None) -> int:
                              "top2_votes, and the accept of "
                              "longreadmapper_tpu/mapping/pipeline.py:"
                              "768-796 (an XLA gather/sort and small ops, "
-                             "not a pallas_call)"}
+                             "not a pallas_call)",
+                # the step glue: XLA fusions in the jitted step, no
+                # pallas_call
+                "encode": "longreadmapper_tpu/mapping/pipeline.py:1055-1067"
+                          " raw_step's encode (XLA fusion, not a "
+                          "pallas_call)",
+                "locate_window": "longreadmapper_tpu/mapping/pipeline.py:"
+                                 "798-820 _seq_lookup and :844-880 the "
+                                 "strand select and target window (XLA "
+                                 "fusion in _body, not a pallas_call)",
+                "lanes": "longreadmapper_tpu/mapping/pipeline.py:907-909, "
+                         "975-977, 989 ed, band_short, alive, lens_tb (XLA "
+                         "fusion in _body, not a pallas_call)",
+                "pack": "longreadmapper_tpu/mapping/pipeline.py:989-1050 "
+                        "meta, pad sort, blob and tail (XLA fusion and "
+                        "sort in _body, not a pallas_call)"}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
         "source": f"longreadmapper_tpu_torch/csrc/{src[k]}",

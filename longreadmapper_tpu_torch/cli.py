@@ -21,6 +21,10 @@ lchash on that device, or on the host from the suffix array with
 when `--ram-gb` bounds its working set below the in-RAM build's.
 
 Usage: python -m longreadmapper_tpu_torch.cli <index|map|mapdist|warmup> ...
+
+The `accidx-torch` and `accaln-torch` scripts (accidx_main, accaln_main)
+are `index` and `map` under the reference's binary names, as the JAX
+package's `accidx` and `accaln` are.
 """
 
 from __future__ import annotations
@@ -174,6 +178,19 @@ def main(argv=None) -> int:
                     model_shards=args.model_shards, slim=args.slim_index,
                     verbose=not args.quiet, device=args.device)
     return 0
+
+
+def accidx_main() -> int:
+    """Drop-in `accidx ref.fa` entry point (asindex.c:129 argv contract),
+    the `accidx-torch` script: `index` with the given arguments."""
+    return main(["index", *sys.argv[1:]])
+
+
+def accaln_main() -> int:
+    """Drop-in `accaln ref.fa reads.fq [batch seed thres]` entry point
+    (alnmain.c:560-571 argv contract, `params` file fallback included),
+    the `accaln-torch` script: `map` with the given arguments."""
+    return main(["map", *sys.argv[1:]])
 
 
 if __name__ == "__main__":

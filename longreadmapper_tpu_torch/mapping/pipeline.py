@@ -44,7 +44,11 @@ is two CUDA kernels (csrc/vote.cu through ops/seed_vote.py: the per-seed
 tables; the pick, the vote rows and each read's accept in one launch) and
 both walks are CUDA kernels (csrc/walk.cu: one launch a resident pass, one
 a gact tile group), and the wide seeds are picked by a rank, not a branch,
-so the step reads nothing back on the host.
+so the step reads nothing back on the host.  The glue between them is four
+CUDA kernels (csrc/step.cu through ops/step.py): the raw encode, the
+locate with the read's strand and its target window, the walk's inputs
+from the DP's centre column, and the pack of the meta words and the
+pad-sorted run entries.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from ..ops.band_dp import banded_nw_dirs
 from ..ops.band_scores import band_checkpoints
 from ..ops.gact import gact_group_tiles, gact_traceback_c
 from ..ops.seed_vote import seed_tables, vote_rows, wide_rank
+from ..ops.step import encode_raw, lanes, locate_window, pack
 from ..ops.traceback import device_traceback_c
 from ..utils.config import Params
 
@@ -236,54 +241,6 @@ def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens,
     return best, overflow
 
 
-def _seq_lookup(idx: DeviceIndex, loc, qlen):
-    """First contig whose forward or reverse half fully contains
-    [loc, loc+qlen), in the contig table's position dtype (int64 under
-    pos64).  Returns (found, gi, strand, off, loc_fwd)."""
-    pdt = idx.mta_start.dtype
-    start = idx.mta_start[None, :]
-    slen = idx.mta_len[None, :]
-    end = start + 2 * slen
-    loc_ = loc.to(pdt)[:, None]
-    q_ = qlen.to(pdt)[:, None]
-    fwd = (loc_ >= start) & (loc_ + q_ <= start + slen)
-    rev = (loc_ >= start + slen) & (loc_ + q_ <= end)
-    hit = fwd | rev
-    found = hit.any(dim=1)
-    gi = hit.to(I32).argmax(dim=1)
-    g_start = idx.mta_start[gi]
-    g_end = g_start + 2 * idx.mta_len[gi]
-    strand = rev.gather(1, gi[:, None])[:, 0] & found
-    off = torch.where(strand, g_end - loc.to(pdt) - qlen.to(pdt),
-                      loc.to(pdt) - g_start)
-    loc_fwd = torch.where(strand, off + g_start, loc.to(pdt))
-    return found, gi.to(I32), strand, off, loc_fwd
-
-
-def _target_windows(cfg: MapperConfig, idx: DeviceIndex, safe_loc):
-    """(B, L) int8 target codes at [safe_loc, safe_loc + L) from the 2-bit
-    packed text: L/16 + 1 words per read realigned by the sub-word offset;
-    '$' (position n-1) and out-of-range positions become 5."""
-    B, L = cfg.B, cfg.L
-    nwords = L // 16
-    dev = safe_loc.device
-    tp = idx.text_packed
-    w0 = (safe_loc >> 4).to(torch.int64)
-    o = (safe_loc & 15).to(torch.int64)[:, None]
-    # JAX reads zero pad words past the end; those positions are >= n and
-    # masked to 5 below, so a clamped index reads an equivalent word
-    widx = (w0[:, None] + torch.arange(nwords + 1, device=dev)[None, :]
-            ).clamp(0, tp.shape[0] - 1)
-    words = tp[widx].to(torch.int64) & 0xFFFFFFFF
-    lo = words[:, :-1] >> (2 * o)
-    hi = (words[:, 1:] << (32 - 2 * o)) & 0xFFFFFFFF     # 0 when o == 0
-    aligned = lo | hi                                    # (B, nwords)
-    shifts = 2 * torch.arange(16, device=dev)
-    t = ((aligned[:, :, None] >> shifts) & 3).reshape(B, L)
-    gpos = safe_loc[:, None].to(torch.int64) + torch.arange(L, device=dev)
-    return torch.where(gpos >= cfg.n - 1, 5, t).to(torch.int8)
-
-
 def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
              limits, mark=None):
     """One device step.  codes/codes_rc (B, L) int8 (the reverse
@@ -296,21 +253,17 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
     resident path or gact_forward + gact_walk on the gact path, then
     pack."""
     mark = mark or (lambda stage: None)
-    B, L, W = cfg.B, cfg.L, cfg.W
-    dev = codes.device
     lens = lens.to(I32)
     limit = limits.to(I32)
     best, overflow = _seed_vote(cfg, idx, codes, lens, mark)
 
-    found, gi, strand, off, loc_fwd = _seq_lookup(idx, best, lens)
-    safe_loc = torch.where(found, loc_fwd, 0).clamp(0, cfg.n - 1)
-    # reverse-strand reads align their reverse complement
-    q = torch.where(strand[:, None], codes_rc, codes).contiguous()
-    t = _target_windows(cfg, idx, safe_loc)
+    # the contig, strand and offset of each read's best diagonal; the read
+    # on that strand (q: reverse-strand reads align their reverse
+    # complement) and its target window (t)
+    found, gi, strand, off, _, _, q, t = locate_window(cfg, idx, best, lens,
+                                                       codes, codes_rc)
     mark("locate_window")
 
-    bidx = torch.arange(B, device=dev)
-    overflow = overflow.to(I32)
     if cfg.use_gact:
         # long reads: checkpointed forward pass + rematerialized walk keep
         # memory O(L/T * band) instead of O(L * band) (ops/gact.py)
@@ -322,83 +275,33 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
         Wp = cfg.short_W
         vdirs, wcol, nm = banded_nw_dirs(q, t, Wp, cfg.short_band)
         mark("band_dp")
-        narrow = Wp < W
-    ed_raw = wcol[lens.long(), bidx].to(I32)
-    if narrow:
-        # narrow first pass: values below Wp are exact; lanes whose ed'
-        # reaches it (and whose limit the narrow band cannot certify) flag
-        # bit 2 for the full-band retry and skip their walk here
-        band_short = found & (ed_raw >= Wp) & (limit >= Wp)
-        overflow = overflow | torch.where(band_short, 4, 0).to(I32)
-    else:
-        band_short = torch.zeros_like(found)
-    # dead lanes (unmapped / over-limit: CIGAR '*') skip their walk
-    alive = found & (ed_raw <= limit) & ~band_short
-    lens_tb = torch.where(alive, lens, 0)
+        narrow = Wp < cfg.W
+    # ed', the narrow pass's band-short lanes (overflow bit 2) and the
+    # lanes that walk (dead lanes, unmapped or over the limit, do not)
+    ed_raw, band_short, overflow, lens_tb = lanes(wcol, lens, limit, found,
+                                                  overflow, Wp, narrow)
     if cfg.use_gact:
         # tiles are rematerialized in groups that fit the direction budget
         run_units, saturated = gact_traceback_c(
             q, t, ckpt, lens_tb, T, Wp, cfg.gact_band,
             scale=cfg.gact_runs_scale,
-            group=gact_group_tiles(B, L, T, cfg.gact_band,
+            group=gact_group_tiles(cfg.B, cfg.L, T, cfg.gact_band,
                                    cfg.mid_dirs_budget))
         mark("gact_walk")
-        # a saturated shared run buffer can corrupt any lane's CIGAR: bit 1
-        # sends the chunk to the mapper's saturation tier (a device-side
-        # select: the host reads the flag with the blob)
-        overflow = overflow | torch.where(saturated, 2, 0).to(I32)
     else:
         run_units = device_traceback_c(
-            vdirs, lens_tb, L, Wp, nm,
+            vdirs, lens_tb, cfg.L, Wp, nm,
             entry_dtype=torch.int16 if cfg.tb_entry_bytes == 2
             else torch.int32)
+        saturated = None
         mark("walk")
-    K = cfg.tb_entry_bytes * run_units.shape[1]
-    # a bit-2 lane's ed' is only an upper bound: never report it
-    ed = torch.where((ed_raw <= limit) & ~band_short, ed_raw, -1)
-
-    if cfg.pos64:
-        # best and off as little-endian [lo, hi] int32 pairs
-        b2 = best.to(torch.int64).contiguous().view(I32).reshape(B, 2)
-        o2 = off.to(torch.int64).contiguous().view(I32).reshape(B, 2)
-        meta = torch.stack([b2[:, 0], b2[:, 1], found.to(I32), gi,
-                            strand.to(I32), o2[:, 0], o2[:, 1], ed, limit,
-                            overflow], dim=1)
-    else:
-        meta = torch.stack([best.to(I32), found.to(I32), gi,
-                            strand.to(I32), off.to(I32), ed, limit,
-                            overflow], dim=1)
-    # pad entries (op 3) to the back, path order kept (stable), then the
-    # int16/int32 entries as little-endian bytes
-    is_pad = ((run_units & 3) == 3).to(torch.int8)
-    _, order = torch.sort(is_pad, dim=1, stable=True)
-    compact = run_units.gather(1, order).contiguous().view(torch.int8)
-    if cfg.use_gact:
-        head = K          # long reads need ~2 entries per indel: all eager
-    else:
-        head = min(cfg.OPS_HEAD_COLS, K)
-        head -= head % cfg.tb_entry_bytes
-    meta_bytes = meta.contiguous().view(torch.int8).reshape(
-        B, 4 * cfg.meta_words)
-    blob = torch.cat([meta_bytes, compact[:, :head]], dim=1)
+    # the meta words, then the run entries pad-sorted (path order kept)
+    # as little-endian bytes: the eager head in the blob, the rest in the
+    # tail; a saturated gact run buffer sets overflow bit 1
+    out = pack(cfg, best, found, gi, strand, off, ed_raw, limit, band_short,
+               overflow, run_units, saturated)
     mark("pack")
-    return dict(blob=blob, ops_tail=compact[:, head:K])
-
-
-def encode_raw(raw, L0: int):
-    """(codes, codes_rc) of a (B, L) uint8 ASCII chunk whose reads are all
-    L0 long (pad bytes 0): a/c/g/t of either case -> 0-3, every other byte
-    -> 4, as the host encode's table; the reverse complement front-aligned
-    with pad 4.  L0 comes from the host, so the roll costs no sync."""
-    u = raw | 32                                   # fold ASCII case
-    codes = torch.full_like(raw, 4, dtype=torch.int8)
-    for c, ch in enumerate(b"acgt"):
-        codes = torch.where(u == ch, c, codes)
-    comp = torch.where(codes < 4, 3 - codes, codes)
-    # the flipped row holds the read at [L - L0, L); rolling it left by
-    # L - L0 front-aligns it and wraps the leading pad 4s to the tail
-    codes_rc = torch.roll(comp.flip(1), L0 - raw.shape[1], dims=1)
-    return codes, codes_rc
+    return out
 
 
 def raw_map_step(cfg: MapperConfig, idx: DeviceIndex, raw, lens, limits,

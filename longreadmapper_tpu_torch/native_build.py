@@ -1,5 +1,5 @@
 """Build and load the port's native code: the hand-written CUDA kernels (the
-banded DPs, the CIGAR walks and the seed vote) and the host code of the
+banded DPs, the CIGAR walks, the seed vote and the step's glue) and the host code of the
 index build and the aligners (the suffix-array build, the external
 build's merge, the affine traceback, the banded unit-cost aligner and the
 Myers edit distance).
@@ -55,6 +55,7 @@ SOURCES = {
     "band_scores": ("band_scores.cu", _nvcc, "*.cuh"),
     "walk": ("walk.cu", _nvcc, "*.cuh"),
     "vote": ("vote.cu", _nvcc, None),
+    "step": ("step.cu", _nvcc, None),
     "sais": ("sais.cpp", _gxx, None),
     "samerge": ("samerge.cpp", _gxx, None),
     "affine": ("affine.cpp", _gxx, None),

@@ -17,7 +17,7 @@ and once unsynced (the whole step).  The first chunk is a warm-up and is
 not counted.  On CUDA, three more steps of the second chunk are traced;
 the device's busy share is the kernels' summed time over the span from
 the first kernel's start to the last one's end (the tracer itself widens
-that span).
+that span); `launches` counts the traced steps' device kernels by name.
 
   from longreadmapper_tpu_torch.runtime.stages import stage_times
   stage_times("ref.fa", reads, chunk_b=2048, device="cuda")
@@ -126,9 +126,11 @@ def _trace(step, n_steps: int) -> dict | None:
     busy = sum(e.time_range.elapsed_us() for e in ev)
     span = (max(e.time_range.end for e in ev)
             - min(e.time_range.start for e in ev))
-    per_name = Counter()
+    per_name, launches = Counter(), Counter()
     for e in ev:
         per_name[e.name] += e.time_range.elapsed_us()
+        launches[e.name[:80]] += 1
     return dict(steps=n_steps, kernels=len(ev), busy_ms=busy / 1e3,
                 span_ms=span / 1e3, busy_share=busy / span,
-                top_ms={k[:80]: v / 1e3 for k, v in per_name.most_common(6)})
+                top_ms={k[:80]: v / 1e3 for k, v in per_name.most_common(6)},
+                launches=dict(launches.most_common()))

@@ -202,6 +202,51 @@ def test_cli_map_sam_matches_jax(cli_dirs, index_by):
     assert got == want
 
 
+def test_accidx_script_artifacts_match_jax(cli_dirs, tmp_path,
+                                           monkeypatch):
+    """`accidx-torch ref.fa` (cli.accidx_main, the reference's accidx argv)
+    writes the JAX CLI's artifacts and devidx cache byte for byte."""
+    from longreadmapper_tpu_torch import cli as tcli
+    fa = str(tmp_path / "ref.fa")
+    with open(cli_dirs["jax"]) as f, open(fa, "w") as o:
+        o.write(f.read())
+    monkeypatch.setattr(sys, "argv", ["accidx-torch", fa, "--hlen",
+                                      str(HLEN), "--device", "cpu",
+                                      "--quiet"])
+    assert tcli.accidx_main() == 0
+    want, got = _artifacts(cli_dirs["jax"]), _artifacts(fa)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("params_file", [False, True])
+def test_accaln_script_sam_matches_jax(cli_dirs, tmp_path, monkeypatch,
+                                       params_file):
+    """`accaln-torch ref.fa reads.fq [batch seed thres]`
+    (cli.accaln_main) prints the SAM of the JAX package's `accaln` with the
+    same arguments and --rg-id; without the three numbers both read them
+    from a `params` file in the working directory."""
+    from longreadmapper_tpu import cli as jcli
+    from longreadmapper_tpu_torch import cli as tcli
+    nums = ["1000", "20", "250"]
+    if params_file:
+        monkeypatch.chdir(tmp_path)
+        (tmp_path / "params").write_text(" ".join(nums) + "\n")
+        nums = []
+    args = [cli_dirs["fq"]] + nums + ["--chunk-b", "16", "--rg-id", "0",
+                                      "--quiet"]
+    out = {}
+    for name, main, extra in (("jax", jcli.accaln_main, []),
+                              ("torch", tcli.accaln_main,
+                               ["--device", "cpu"])):
+        monkeypatch.setattr(sys, "argv", [f"accaln-{name}",
+                                          cli_dirs[name]] + args + extra)
+        out[name] = _run_cli(lambda argv: main(), None)
+    assert out["torch"].count("\n") == 16 + 4
+    assert out["torch"] == out["jax"]
+
+
 def test_run_mapping_logs_phase_times_and_retries(cli_dirs):
     """The verbose log of `map` ends with the mapper's host-phase seconds
     (JSON) and its retry counters."""

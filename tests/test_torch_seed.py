@@ -1,6 +1,6 @@
 """Seeding of the port against the JAX package on shared indexes: FM rank
 (ops/rank.occ, backward_step), the seed-vote stage
-mapping/pipeline._seed_vote -> (best, overflow), and _seq_lookup.  Inputs
+mapping/pipeline._seed_vote -> (best, overflow), and ops/step._seq_lookup.  Inputs
 come from the tests/test_e2e.py genome (reads with injected Ns) and from a
 tandem-repeat genome whose seeds are wide (hits >= thres), which takes the
 LF-narrowing branch; a tiny wide-lane budget forces its lane overflow.
@@ -24,6 +24,7 @@ from longreadmapper_tpu_torch.mapping import pipeline as tpipe
 from longreadmapper_tpu_torch.models.mapper import TorchMapper
 from longreadmapper_tpu_torch.ops import rank as trank
 from longreadmapper_tpu_torch.ops import seed_vote as tsv
+from longreadmapper_tpu_torch.ops import step as tstep
 
 torch.set_num_threads(1)
 
@@ -136,7 +137,7 @@ def test_seq_lookup_matches_jax(e2e):
                            n - 1]]).astype(np.int32)
     qlen = rng.integers(0, 300, loc.shape[0]).astype(np.int32)
     want = jpipe._seq_lookup(e2e["idx"], jnp.asarray(loc), jnp.asarray(qlen))
-    got = tpipe._seq_lookup(e2e["tidx"], torch.from_numpy(loc),
+    got = tstep._seq_lookup(e2e["tidx"], torch.from_numpy(loc),
                             torch.from_numpy(qlen))
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
