@@ -415,7 +415,10 @@ def _call(lib, fn: str, args, stream) -> None:
 
 
 def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of `dev`'s current stream (what
+    torch.cuda.current_stream(dev).cuda_stream gives, without building a
+    Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def seed_tables(cfg, idx, codes, lens):

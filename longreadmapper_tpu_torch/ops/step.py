@@ -28,6 +28,7 @@ window.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -263,28 +264,43 @@ def _lib():
     return native_build.load("step", STEP_FUNCS)
 
 
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def _on(dev):
+    """A context that makes `dev` current where it is not: a ctypes launch
+    goes to the current device (mapdist: one card a rank)."""
+    if dev.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(dev)
+
+
 def encode_raw(raw, L0: int):
     """(codes, codes_rc), each (B, L) int8, of a (B, L) uint8 ASCII chunk
     of reads L0 long: one launch of encode_kernel on a CUDA tensor, the
     plain version on a CPU tensor."""
-    if raw.device.type == "cpu":
+    dev = raw.device
+    if dev.type == "cpu":
         return encode_raw_plain(raw, L0)
-    with torch.cuda.device(raw.device):
-        return _encode_run(_lib(), _stream(raw.device), raw, L0)
+    with _on(dev):
+        return _encode_run(_lib(), _stream(dev), raw, L0)
 
 
 def _encode_run(lib, stream, raw, L0: int):
-    """encode_raw through `lib`'s lrm_encode on `stream`."""
+    """encode_raw through `lib`'s lrm_encode on `stream`: codes and
+    codes_rc are the two halves of one allocation (new_empty)."""
     if raw.dtype != torch.uint8 or raw.dim() != 2:
         raise TypeError(f"raw must be (B, L) uint8, got {raw.dtype} "
                         f"{tuple(raw.shape)}")
     B, L = raw.shape
     if not 0 <= L0 <= L:
         raise ValueError(f"encode_raw: L0 {L0} outside [0, {L}]")
-    dev = raw.device
     raw = raw.contiguous()
-    codes = torch.empty((B, L), dtype=torch.int8, device=dev)
-    codes_rc = torch.empty((B, L), dtype=torch.int8, device=dev)
+    # new_empty and two as_strided views take less host time than
+    # torch.empty and unbind (scripts/torch_glue_host.py)
+    buf = raw.new_empty((2 * B * L,), dtype=torch.int8)
+    codes = buf.as_strided((B, L), (L, 1))
+    codes_rc = buf.as_strided((B, L), (L, 1), B * L)
     _call(lib, "lrm_encode", EncodeArgs(
         raw=raw.data_ptr(), codes=codes.data_ptr(),
         codes_rc=codes_rc.data_ptr(), B=B, L=L, L0=L0), stream)
@@ -416,49 +432,59 @@ def pack(cfg, best, found, gi, strand, off, ed_raw, limit, band_short,
     launch of pack_kernel on CUDA tensors, the plain version on CPU
     tensors.  `saturated` is the gact walk's 0-dim bool flag (bit 1), None
     on the resident path."""
-    if run_units.device.type == "cpu":
+    dev = run_units.device
+    if dev.type == "cpu":
         return pack_plain(cfg, best, found, gi, strand, off, ed_raw, limit,
                           band_short, overflow, run_units, saturated)
-    with torch.cuda.device(run_units.device):
-        return _pack_run(_lib(), _stream(run_units.device), cfg, best,
-                         found, gi, strand, off, ed_raw, limit, band_short,
-                         overflow, run_units, saturated)
+    with _on(dev):
+        return _pack_run(_lib(), _stream(dev), cfg, best, found, gi, strand,
+                         off, ed_raw, limit, band_short, overflow, run_units,
+                         saturated)
+
+
+_BOOL, _I32 = (torch.bool,), (I32,)
+# the per-read inputs in PackArgs' order, with their dtypes
+_PACK_IN = (("best", _POS), ("found", _BOOL), ("gi", _I32),
+            ("strand", _BOOL), ("off", _POS), ("ed_raw", _I32),
+            ("limit", _I32), ("band_short", _BOOL), ("overflow", _I32))
 
 
 def _pack_run(lib, stream, cfg, best, found, gi, strand, off, ed_raw, limit,
               band_short, overflow, run_units, saturated):
-    """pack through `lib`'s lrm_pack on `stream`."""
+    """pack through `lib`'s lrm_pack on `stream`: each input checked once
+    (dtype and shape, raising TypeError; device, raising ValueError), the
+    blob and the tail two row-major halves of one allocation
+    (new_empty)."""
     dev = run_units.device
     B, R = run_units.shape
     eb = cfg.tb_entry_bytes
     _need("run_units", run_units, torch.int16 if eb == 2 else I32, (B, R))
-    for name, t, dtype in (("best", best, _POS), ("off", off, _POS),
-                           ("found", found, torch.bool), ("gi", gi, I32),
-                           ("strand", strand, torch.bool),
-                           ("ed_raw", ed_raw, I32), ("limit", limit, I32),
-                           ("band_short", band_short, torch.bool),
-                           ("overflow", overflow, I32)):
-        _need(name, t, dtype, (B,))
+    ins = [best, found, gi, strand, off, ed_raw, limit, band_short,
+           overflow]
+    shape = (B,)
+    for i, (name, dtypes) in enumerate(_PACK_IN):
+        t = ins[i]
+        if t.dtype not in dtypes or t.shape != shape:
+            _need(name, t, dtypes, shape)
+        if t.device != dev:
+            _check("pack", dev, {name: t})
+        ins[i] = t.contiguous()
     if saturated is not None:
         _need("saturated", saturated, torch.bool, ())
-    ins = dict(best=best.contiguous(), found=found.contiguous(),
-               gi=gi.contiguous(), strand=strand.contiguous(),
-               off=off.contiguous(), ed_raw=ed_raw.contiguous(),
-               limit=limit.contiguous(), band_short=band_short.contiguous(),
-               overflow=overflow.contiguous(), saturated=saturated,
-               runs=run_units.contiguous())
-    _check("pack", dev, ins)
+        _check("pack", dev, dict(saturated=saturated))
+    runs = run_units.contiguous()
     K = eb * R
     head = pack_head(cfg, K)
-    blob = torch.empty((B, 4 * cfg.meta_words + head), dtype=torch.int8,
-                       device=dev)
-    tail = torch.empty((B, K - head), dtype=torch.int8, device=dev)
+    pitch, tail_pitch = 4 * cfg.meta_words + head, K - head
+    buf = runs.new_empty((B * (pitch + tail_pitch),), dtype=torch.int8)
+    blob = buf.as_strided((B, pitch), (pitch, 1))
+    tail = buf.as_strided((B, tail_pitch), (tail_pitch, 1), B * pitch)
     _call(lib, "lrm_pack", PackArgs(
-        **{k: _ptr(t) for k, t in ins.items()},
-        blob=blob.data_ptr(), tail=tail.data_ptr(), B=B, R=R, eb=eb,
-        head=head, pos64=int(cfg.pos64),
-        best64=int(best.dtype == torch.int64),
-        off64=int(off.dtype == torch.int64)), stream)
+        *[t.data_ptr() for t in ins],
+        _ptr(saturated), runs.data_ptr(),
+        blob.data_ptr(), tail.data_ptr(), B, R, eb, head, int(cfg.pos64),
+        int(best.dtype == torch.int64), int(off.dtype == torch.int64)),
+        stream)
     pack.launches += 1
     return dict(blob=blob, ops_tail=tail)
 

@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
-"""The mapping step's stage split, and the seed tables kernel alone, of
-this checkout against another checkout's (the parent commit, unpacked
-with `git archive`) on one NVIDIA GPU, in turns within one call:
+"""The mapping step's stage split, the step glue's kernels and the seed
+tables kernel alone, of this checkout against another checkout's (the
+parent commit, unpacked with `git archive`) on one NVIDIA GPU, in turns
+within one call:
 `runtime/stages.py::stage_times` (per-stage ms, the seed vote's stages,
 the whole step unsynced, and a device trace of one step: kernels and busy
 share) on the 1 kb, 10 kb and 50 kb read sets of chip_smoke.py on its 4
-Mb genome, all made from --seed; and `seed_tables` on each set's first
+Mb genome, all made from --seed; the step glue's four kernels on each
+set's first chunk by the checkout's own `chip_smoke.glue_case` (each held
+bit-equal to its plain version; the wrapper's CUDA-event median and the
+kernel's device time from a trace, GLUE_TURNS calls each, beside
+`glue_bounds`); and `seed_tables` on each set's first
 chunk and on the 1 kb chunk of phase 3b's repeat genome (wide seeds):
 the wrapper's CUDA-event median over VOTE_TURNS calls, and the kernel's
 own device time from a torch.profiler trace of as many calls, its
@@ -56,6 +61,18 @@ out = {"stages": {
     name: stage_times(sys.argv[2], reads, chunk_b=2048, device="cuda",
                       traced_steps=1, index=index)
     for name, (reads, _) in sets.items() if name != "repeat"}}
+# the step glue's four kernels on each set's first chunk, by the
+# checkout's own chip_smoke.glue_case: each held bit-equal to its plain
+# version, the wrapper's CUDA-event median and the kernel alone (trace)
+import chip_smoke
+mapper = TorchMapper(*index, Params(), chunk_b=2048, device="cuda")
+out["glue"] = {}
+for name, (reads, _) in sets.items():
+    if name != "repeat":
+        res = {}
+        chip_smoke.glue_case("ab", name, mapper, reads, res)
+        out["glue"][name] = res
+del mapper
 out["tables"] = {}
 for name, (reads, L) in sets.items():
     if name == "repeat":
@@ -158,6 +175,10 @@ def main(argv=None) -> int:
                     print(f"[{who}] {name}: step {st['step_ms']} ms, "
                           f"stages {json.dumps(st['stage_ms'])}, trace "
                           f"{json.dumps(st['trace'])}", flush=True)
+                for name, st in out["glue"].items():
+                    print(f"[{who}] {name} glue (wrapper ms, kernel ms): "
+                          + json.dumps({k: (v["ms"], v["kernel_ms"])
+                                        for k, v in st.items()}), flush=True)
                 for name, st in out["tables"].items():
                     print(f"[{who}] {name} seed_tables: wrapper "
                           f"{st['wrapper_ms']} ms, kernel {st['kernel_ms']} "

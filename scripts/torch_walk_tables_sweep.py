@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Measures the design constants of three kernels on one NVIDIA GPU:
+"""Measures the design constants of five kernels on one NVIDIA GPU:
 
   * csrc/walk.cu::walk_c_kernel: the lanes (warps) a CTA, kWalkLanes, how
     far ahead a lane loads its columns, kWalkAhead (its ring kWalkRing
@@ -14,7 +14,13 @@
     band 2176;
   * csrc/vote.cu::seed_tables_kernel: its threads a CTA, kSeedThreads, and
     seeds a thread, kSeedsPerThread, on the first chunk of chip_smoke.py's
-    1 kb, 10 kb and 50 kb sets and of phase 3b's repeat genome.
+    1 kb, 10 kb and 50 kb sets and of phase 3b's repeat genome;
+  * csrc/step.cu::encode_kernel's threads a CTA, kEncodeThreads, and
+    pack_kernel's rows (warps) a CTA on short rows, kPackRowsCta: at the
+    1 kb, 10 kb and 50 kb buckets' shapes (encode (2048, 1024), (200,
+    10240), (40, 50176); pack (2048, 216) int16, (200, 1036) int32, (40,
+    10456) int16 gact pos64), inputs made with numpy
+    (tests/_glue_inputs.py).
 
 Each variant is the checkout's source with those constants rewritten,
 built by nvcc with native_build's flags (all builds at once), and run in
@@ -25,7 +31,7 @@ the kernel's device time from one torch.profiler trace of VOTE_TURNS
 calls of each variant in each round).
 
   python3 scripts/torch_walk_tables_sweep.py [--rounds N] [--seed N]
-      [--parts walk_c,gact_walk,seed_tables]
+      [--parts walk_c,gact_walk,seed_tables,glue]
 
 The JSON printed last holds every median (ms) with the card's name and
 power limit.
@@ -53,6 +59,8 @@ WALK_C_VARIANTS = ((2, 1, 8), (1, 1, 8), (4, 1, 8), (8, 1, 8), (2, 2, 8),
                    (2, 3, 8), (2, 1, 24), (2, 1, 56), (2, 2, 24), (1, 2, 8))
 # (kSeedThreads, kSeedsPerThread); the checkout's own first
 TABLE_VARIANTS = ((512, 2), (256, 4), (256, 2))
+# (kEncodeThreads, kPackRowsCta); the checkout's own first
+GLUE_VARIANTS = ((128, 8), (256, 8), (64, 8), (128, 4), (128, 16))
 VOTE_TURNS = 20
 
 
@@ -264,6 +272,41 @@ def sweep_tables(d: str, seed: int, libs: dict, rounds: int) -> dict:
     return out
 
 
+def sweep_glue(seed: int, libs: dict, rounds: int) -> dict:
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _glue_inputs as G
+    from longreadmapper_tpu_torch.ops import step as S
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (B, L, L0), (R, eb, gact) in (
+            ("1kb", (2048, 1024, 1000), (216, 2, False)),
+            ("10kb", (200, 10240, 10000), (1036, 4, False)),
+            ("50kb", (40, 50176, 50000), (10456, 2, True))):
+        raw = torch.from_numpy(G.raw_case(rng, B, L, L0)).cuda()
+        v = G.to_torch(G.pack_case(rng, B, R, eb, gact), "cuda")
+        cfg = G.cfg(B, L, 1000, pos64=gact, use_gact=gact, entry_bytes=eb)
+        args = (cfg, v["best"], v["found"], v["gi"], v["strand"], v["off"],
+                v["ed_raw"], v["limit"], v["band_short"], v["overflow"],
+                v["runs"], None)
+        calls = {"encode": lambda: S.encode_raw(raw, L0),
+                 "pack": lambda: S.pack(*args)}
+        want = (S.encode_raw_plain(raw, L0), S.pack_plain(*args))
+        for tag in libs:                        # warm-up and bit-equality
+            with using("step", load(libs[tag], S.STEP_FUNCS)):
+                got = (calls["encode"](), calls["pack"]())
+            if not (all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+                    and all(torch.equal(got[1][k], want[1][k])
+                            for k in want[1])):
+                raise AssertionError(f"glue {tag} differs at {name}")
+        out[name] = {
+            k: traced_turns(libs, S.STEP_FUNCS, "step", f"{k}_kernel", fn,
+                            rounds) for k, fn in calls.items()}
+        print(f"[sweep] glue {name}: {json.dumps(out[name])}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=4)
@@ -293,6 +336,9 @@ def main(argv=None) -> int:
     if "seed_tables" in parts:
         jobs.update({f"tables_t{t}_s{s}": ("vote", dict(
             kSeedThreads=t, kSeedsPerThread=s)) for t, s in TABLE_VARIANTS})
+    if "glue" in parts:
+        jobs.update({f"glue_t{t}_r{r}": ("step", dict(
+            kEncodeThreads=t, kPackRowsCta=r)) for t, r in GLUE_VARIANTS})
     out = dict(card=card)
     with tempfile.TemporaryDirectory(prefix="lrm_sweep_") as d:
         libs = build_variants(d, jobs)
@@ -308,6 +354,8 @@ def main(argv=None) -> int:
         if "seed_tables" in parts:
             out["seed_tables"] = sweep_tables(d, args.seed, of("tables_"),
                                               args.rounds)
+        if "glue" in parts:
+            out["glue"] = sweep_glue(args.seed, of("glue_"), args.rounds)
     print(card)
     print(json.dumps(out))
     return 0

@@ -136,8 +136,12 @@ def _jax_raw_encode(raw, lens, L):
     return codes, codes_rc
 
 
-@pytest.mark.parametrize("B,L,L0", [(5, 64, 37), (3, 128, 128), (2, 48, 0),
-                                    (1, 1024, 1000)])
+@pytest.mark.parametrize("B,L,L0", [
+    (5, 64, 37), (3, 128, 128), (2, 48, 0), (1, 1024, 1000),
+    # L % 16 != 0: the kernel's per-byte edge
+    (3, 50, 23), (2, 37, 37),
+    # L0 15, 16 and 17 past the kernel's 2048-base chunk boundary
+    (2, 4096, 2063), (2, 4096, 2064), (2, 4096, 2065)])
 def test_encode_raw_matches_jax_raw_step(B, L, L0):
     raw = G.raw_case(np.random.default_rng(L0), B, L, L0)
     lens = np.full(B, L0, np.int32)
@@ -195,13 +199,17 @@ def _pack_numpy(c, v, saturated):
 @pytest.mark.parametrize("R,eb,pos64,gact", [
     (40, 2, False, False), (40, 4, False, False), (40, 2, True, False),
     (3, 2, False, False), (3, 4, True, False), (70, 2, True, True),
-    (5, 2, False, True)])
+    (5, 2, False, True),
+    # odd R in gact (a blob pitch only 2-aligned), R past 16-byte slots
+    (71, 2, False, True), (45, 4, True, False),
+    # a large R: past the kernel's 32 KB tile of entries
+    (8500, 4, False, False)])
 @pytest.mark.parametrize("saturated", [None, True, False])
 def test_pack_is_a_stable_partition(R, eb, pos64, gact, saturated):
     """Pad entries (op 3, of different counts) last in their own order,
     the others first in path order; rows all pads and none; heads of
     whole entries, the whole row on the gact path and a head larger than
-    a short row."""
+    a short row; odd rows and a row of 34,000 bytes."""
     vals = G.pack_case(np.random.default_rng(R * eb), 9, R, eb, pos64)
     v = G.to_torch(vals)
     c = G.cfg(9, 64, 1000, pos64=pos64, use_gact=gact, entry_bytes=eb)

@@ -1,16 +1,23 @@
 """The step glue's CUDA kernels (csrc/step.cu) on the card against their
 plain versions (ops/step.py), bit for bit, on the CPU tests' inputs
-(tests/_glue_inputs.py): encode_kernel on rows with garbage past the read;
-locate_window_kernel on the edge tables (zero-length contigs, boundaries,
-reads of length 0, int32 wrap near 2^31 - 1, an int64 table above 2^32),
-at every sub-word offset, and over a text that stands for a row-sharded
-one (two launches, the words gathered between them); lanes_kernel in both
-modes; pack_kernel in int16 and int32 entries, pos64, the gact head and
-the saturation bit, rows of 1 to 32 warps (the 50 kb row's 10,456
-entries, and past 32 x 256); each also at B = 1 and B = 3, and with every
-output allocated over memory filled with garbage (the kernel must write
-every byte); then a whole raw step on the card, byte-equal to the CPU's, that
-launched the four kernels and called no plain version.
+(tests/_glue_inputs.py): encode_kernel on rows with garbage past the read,
+down both of its paths (16 bases a thread where L % 16 == 0 and every
+pointer is 16-aligned; a byte at a time where L % 16 != 0 or raw starts
+off a 16-byte boundary), with L0 0, L0 = L and L0 either side of a CTA's
+2048-base chunk; locate_window_kernel on the edge tables (zero-length
+contigs, boundaries, reads of length 0, int32 wrap near 2^31 - 1, an
+int64 table above 2^32), at every sub-word offset, and over a text that
+stands for a row-sharded one (two launches, the words gathered between
+them); lanes_kernel in both modes; pack_kernel in int16 and int32
+entries, pos64, the gact head and the saturation bit, down its three
+paths (a warp a row up to 64 16-byte slots; a CTA a row up to 2048; tiles
+after a count pass beyond), with rows that start off a 16-byte boundary
+(R not a multiple of the entries in 16 bytes) and blob rows only
+2-aligned (odd R, int16, gact); each also at B = 1 and B = 3, and with
+every output allocated over memory filled with garbage (torch.empty and
+Tensor.new_empty patched: the kernel must write every byte); then a
+whole raw step on the card, byte-equal to the CPU's, that launched the
+four kernels and called no plain version.
 
 Card-only: the tests skip where torch.cuda.is_available() is false, and
 import no JAX, so they run where JAX is absent:
@@ -58,23 +65,26 @@ class _Rows:
         return self.t[i]
 
 
+def _dirty(t):
+    t.view(-1).view(torch.uint8).fill_(0xA5)
+    return t
+
+
 def _run(wrapper, args, garbage: bool, launches: int = 1):
     """wrapper(*args) on the card, its outputs allocated over garbage
-    bytes when `garbage`; checks its launch count."""
+    bytes when `garbage` (torch.empty and Tensor.new_empty patched);
+    checks its launch count."""
     n = wrapper.launches
     if garbage:
-        empty = torch.empty
-
-        def dirty(*a, **kw):
-            t = empty(*a, **kw)
-            t.view(-1).view(torch.uint8).fill_(0xA5)
-            return t
-
-        torch.empty = dirty
+        empty, new_empty = torch.empty, torch.Tensor.new_empty
+        torch.empty = lambda *a, **kw: _dirty(empty(*a, **kw))
+        torch.Tensor.new_empty = (
+            lambda self, *a, **kw: _dirty(new_empty(self, *a, **kw)))
         try:
             got = wrapper(*args)
         finally:
             torch.empty = empty
+            del torch.Tensor.new_empty          # the inherited one again
     else:
         got = wrapper(*args)
     assert wrapper.launches == n + launches
@@ -99,14 +109,36 @@ def _rows(x, B):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("garbage", [False, True])
-@pytest.mark.parametrize("B,L,L0", [(1, 64, 37), (3, 128, 128),
-                                    (2, 48, 0), (2048, 1024, 1000),
-                                    (40, 50176, 50000)])
+@pytest.mark.parametrize("B,L,L0", [
+    (1, 64, 37), (3, 128, 128), (2, 48, 0), (2048, 1024, 1000),
+    (40, 50176, 50000),
+    (3, 50, 23), (2, 37, 37),                  # L % 16 != 0: a byte a time
+    # 16 bases a thread: L0 15, 16, 17 past a CTA's 2048-base chunk (the
+    # reverse complement's windows straddle L0 in the second CTA), L0 0
+    # and L0 = L, B 1
+    (2, 4096, 2063), (2, 4096, 2064), (2, 4096, 2065), (2, 1024, 0),
+    (2, 1024, 1024), (1, 4096, 2064)])
 def test_encode_kernel_matches_plain_on_card(B, L, L0, garbage):
     _card()
     raw = torch.from_numpy(G.raw_case(np.random.default_rng(L0), B, L,
                                       L0)).cuda()
     got = _run(tstep.encode_raw, (raw, L0), garbage)
+    _equal(got, tstep.encode_raw_plain(raw, L0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3, 16])
+def test_encode_kernel_unaligned_raw_on_card(offset):
+    """raw starting `offset` bytes into an allocation: off a 16-byte
+    boundary the kernel takes its bytes one at a time (L % 16 == 0)."""
+    _card()
+    B, L, L0 = 3, 256, 200
+    raw = torch.from_numpy(G.raw_case(np.random.default_rng(offset), B, L,
+                                      L0)).cuda()
+    big = torch.zeros(B * L + offset, dtype=torch.uint8, device="cuda")
+    big[offset:] = raw.reshape(-1)
+    raw = big[offset:].view(B, L)
+    got = _run(tstep.encode_raw, (raw, L0), True)
     _equal(got, tstep.encode_raw_plain(raw, L0))
 
 
@@ -178,7 +210,15 @@ def test_lanes_kernel_matches_plain_on_card(B, L, narrow, garbage):
     (1, 40, 2, False, False), (3, 3, 4, True, False), (9, 70, 2, True, True),
     (2048, 26, 2, False, False), (200, 300, 4, False, False),
     (40, 5000, 2, True, True), (3, 1, 2, False, False),
-    (2, 10456, 2, True, True), (3, 8292, 4, False, False)])
+    (2, 10456, 2, True, True), (3, 8292, 4, False, False),
+    # a warp a row: odd R, int16, gact (blob rows 2-aligned); R not a
+    # multiple of 8 (int16) or 4 (int32) entries, so rows start off a
+    # 16-byte boundary and the 16-byte loads leave edges
+    (9, 71, 2, False, True), (4, 45, 2, False, False),
+    (4, 45, 4, True, False),
+    # tiles after a count pass: 240,000 bytes of entries a row (3, 8292,
+    # 4 above also takes the tiles; 2, 10456 and 40, 5000 a CTA a row)
+    (2, 60000, 4, False, False)])
 def test_pack_kernel_matches_plain_on_card(B, R, eb, pos64, gact,
                                            saturated, garbage):
     _card()
