@@ -65,15 +65,22 @@ Phases (each raises on failure; nothing is caught):
                CUDA-event medians of vote_rows and its plain versions in
                every case, of each kernel at each bucket (full int32
                layout), beside the bound
-  3c. glue   — after 3b, on the same chunks: the step glue's four kernels
-               (csrc/step.cu: encode, locate_window, lanes, pack) each
-               bit-equal to its plain version at the 1 kb, 10 kb and 50 kb
-               buckets, in the full int32 and full pos64 layouts, on the
-               values the step hands it (the raw chunk, the seed vote's
-               best, the DP's centre column, the walk's run entries);
-               CUDA-event medians of each wrapper and its plain version,
-               and each kernel alone from a torch.profiler trace, beside
-               the bound
+  3c. glue   — after 3b, on the same chunks: the step glue's kernels
+               (csrc/step.cu: encode, locate_window, pack) each bit-equal
+               to its plain version at the 1 kb, 10 kb and 50 kb buckets,
+               in the full int32 and full pos64 layouts, on the values the
+               step hands it (the raw chunk, the seed vote's best, the
+               walk's run entries); G3, the walk's inputs from the DP's
+               centre column (csrc/lanes.cuh), on its fused route: walk_c
+               (resident) or the gact walk's setup, lanes_kernel, and the
+               gact walk from its state, each on the lanes' inputs and
+               bit-equal to the same kernels fed lanes_plain's lens_tb
+               (the setup to its plain version), and the lanes' values it
+               wrote for the pack equal to lanes_plain's; CUDA-event
+               medians of each wrapper and its plain version, and each
+               kernel alone from a torch.profiler trace, beside the bound
+               (G3: the setup's at 50 kb; walk_c alone on the lanes'
+               inputs beside the same on given lengths at 1 and 10 kb)
   4. map     — a 4 Mb single-contig genome and 16384 1 kb reads (3%
                substitutions, both strands, planted positions), all made
                from --seed; `cli index` (the lchash built on the card, held
@@ -84,8 +91,8 @@ Phases (each raises on failure; nothing is caught):
                ED against the genome, that every chunk was encoded on the
                card (raw bytes in), and that the main path went through
                the kernels (the seed vote's two, the DP, the walk and the
-               step glue's four) and never through a plain version, with
-               no walk host sync; the
+               step glue's, G3 in the kernels that compute it) and never
+               through a plain version, with no walk host sync; the
                dispatch and fetch seconds a chunk
   5. cpu     — `cli map --device cpu` (plain versions, in subprocesses
                that run beside phases 6 and 7 and are checked after them)
@@ -168,7 +175,10 @@ for the seed vote the larger of its bytes (each gathered row once) and
 its int32 operations, vote_bounds; for the step glue its bytes, each
 input read once and each output written once, glue_bounds; library_ms
 null: no PyTorch call computes a banded NW DP, its walk, the seed vote or
-any of the glue's four functions).
+any of the glue's four functions).  G3's entry, `lanes` (source
+csrc/lanes.cuh), counts the launches that compute it on the main path
+(walk_c on the lanes' inputs, the gact setup) and times the one launch
+of its own, the gact setup (lanes_kernel), at the 50 kb bucket.
 Phases 4, 7, 10 and 11 check on each map that the seed vote, the walks
 and the step glue launched their kernels (the raw encode wherever a chunk
 ships raw bytes: the mesh of phase 10's mapdist ships host codes, as
@@ -1117,43 +1127,55 @@ def phase_vote(d: str, fa: str, fq: str, long_data: dict, seed: int) -> dict:
     return timed["1kb"]
 
 
-def glue_bounds(cfg, M: int, R: int, eb: int):
+def glue_bounds(cfg, M: int, R: int, eb: int, n_rows: int = 0):
     """(bound_ms, "bytes") of each glue kernel on one chunk, in
     GLUE_KERNELS' order: each input read once and each output written
     once, at HBM_BYTES_S (their operations, a few a byte, take less).
     encode: the raw bytes, codes and codes_rc.  locate_window: loc and
     lens, the contig table (M rows), one of codes / codes_rc a read, its
-    L/16 + 1 text words, the six per-read outputs, q and t.  lanes: one
-    centre-column entry, lens, limit, found and overflow a read; four
-    outputs.  pack: the run entries, nine per-read values and the
-    saturated flag; the blob and the tail."""
+    L/16 + 1 text words, the six per-read outputs, q and t.  lanes (the
+    gact walk's setup, lanes_kernel, on G3's inputs): one centre-column
+    entry, lens, limit, found and overflow a read; the walk state (3B + 3
+    words) and the run buffer of n_rows pairs a read.  pack: the run
+    entries, nine per-read values and the saturated flag; the blob and
+    the tail."""
     B, L = cfg.B, cfg.L
     pb = 8 if cfg.pos64 else 4
     nbytes = (3 * B * L,
               B * (pb + 4) + 2 * M * pb + B * L + 4 * B * (L // 16 + 1)
               + B * (2 + 4 + 3 * pb) + 2 * B * L,
-              B * (2 + 4 + 4 + 1 + 1) + B * (4 + 1 + 4 + 4),
+              B * (2 + 4 + 4 + 1 + 1) + 4 * (3 * B + 3) + 4 * B * n_rows,
               B * R * eb + B * (2 * pb + 3 + 16) + 1
               + B * (4 * cfg.meta_words + R * eb))
     return [(x / HBM_BYTES_S * 1e3, "bytes") for x in nbytes]
 
 
 def glue_case(tag: str, where: str, mapper, reads, res=None) -> dict:
-    """The step glue's four kernels on the first chunk of `reads`, in the
-    step's order and each on the values the step hands it: encode on the
-    raw chunk; locate_window on the seed vote's best; lanes on the DP's
-    centre column (band_dp, or band_checkpoints on the gact path); pack on
-    the walk's run entries.  Each bit-equal to its plain version (the
-    inputs of the next from the plain version); with `res`, CUDA-event
-    medians of the wrapper and its plain version and the kernel alone
-    from a trace, beside the bound, into res.  Returns the max |diff| of
-    each."""
+    """The step glue on the first chunk of `reads`, in the step's order and
+    each on the values the step hands it: encode on the raw chunk;
+    locate_window on the seed vote's best; G3 on the DP's centre column
+    (band_dp, or band_checkpoints on the gact path) through its fused
+    route, `lanes` (no launch) then the launch that computes it: walk_c on
+    the Lanes (resident), or lanes_kernel (gact_setup) and the gact walk
+    from its state, each bit-equal to the same kernels fed lanes_plain's
+    lens_tb (gact_setup to gact_setup_plain), its G3 launch counted, and
+    the lanes' values it wrote equal to lanes_plain's; pack on them and
+    the walk's run entries.  encode, locate_window and pack bit-equal to
+    their plain versions (the inputs of the next from the plain version).
+    With `res`, CUDA-event medians of each wrapper and its plain version
+    and the kernel alone from a trace, beside the bound, into res: on the
+    gact path G3's are the setup's (lanes_kernel); on the resident path G3
+    has no launch of its own, and walk_c alone on the Lanes is logged
+    beside the same kernel on lanes_plain's lens_tb.  Returns the max
+    |diff| of each."""
     import torch
     from longreadmapper_tpu_torch.ops import step as S
     from longreadmapper_tpu_torch.ops.band_dp import banded_nw_dirs
     from longreadmapper_tpu_torch.ops.band_scores import band_checkpoints
     from longreadmapper_tpu_torch.ops.gact import (gact_group_tiles,
-                                                   gact_traceback_c)
+                                                   gact_runs_cols_c,
+                                                   gact_traceback_c,
+                                                   gact_traceback_c_state)
     from longreadmapper_tpu_torch.ops.seed_vote import (seed_tables,
                                                         vote_rows, wide_rank)
     from longreadmapper_tpu_torch.ops.traceback import device_traceback_c
@@ -1166,24 +1188,39 @@ def glue_case(tag: str, where: str, mapper, reads, res=None) -> dict:
     L0 = int(lens.max())
     raw, lens, limit = (torch.from_numpy(a).cuda() for a in (raw, lens,
                                                              limits))
-    plains = (S.encode_raw_plain, S.locate_window_plain, S.lanes_plain,
-              S.pack_plain)
+    plains = (S.encode_raw_plain, S.locate_window_plain, None, S.pack_plain)
     pairs = dict(zip(GLUE_KERNELS, zip(glue_wrappers(), plains)))
     calls, errs = {}, {}
 
-    def hold(name, args):
-        """The kernel and the plain version on args; the plain output."""
+    def hold(name, args, plain_args=None):
+        """The kernel on args and the plain version on plain_args (args
+        when None); the plain output."""
         kern, plain = pairs[name]
+        pargs = args if plain_args is None else plain_args
         n0 = kern.launches
-        got, want = kern(*args), plain(*args)
+        got, want = kern(*args), plain(*pargs)
         if kern.launches != n0 + 1:
             raise AssertionError(f"{tag}: {name} launched "
                                  f"{kern.launches - n0} kernels, not 1")
         if name == "pack":
             got, want = got.values(), want.values()
         errs[name] = check_equal(name, where, list(got), list(want), tag)
-        calls[name] = (lambda: kern(*args), lambda: plain(*args))
+        calls[name] = (lambda: kern(*args), lambda: plain(*pargs))
         return want
+
+    def fused(what, fn, want):
+        """fn() computes G3 in one launch of a kernel: bit-equal to want
+        (the same kernel on lanes_plain's lens_tb, or the plain setup)."""
+        n0 = S.lanes.launches
+        out = fn()
+        if S.lanes.launches != n0 + 1:
+            raise AssertionError(f"{tag}: {what} counted "
+                                 f"{S.lanes.launches - n0} G3 launches")
+        got, want = (list(x) if isinstance(x, tuple) else [x]
+                     for x in (out, want))
+        errs["lanes"] = max(errs.get("lanes", 0), check_equal(
+            f"lanes ({what})", where, got, want, tag))
+        return out
 
     codes, codes_rc = hold("encode", (raw, L0))
     tabs = seed_tables(cfg, idx, codes, lens)
@@ -1198,32 +1235,61 @@ def glue_case(tag: str, where: str, mapper, reads, res=None) -> dict:
         Wp = cfg.short_W
         vdirs, wcol, nm = banded_nw_dirs(q, t, Wp, cfg.short_band)
         narrow = Wp < cfg.W
-    ed_raw, band_short, ovf, lens_tb = hold(
-        "lanes", (wcol, lens, limit, found, overflow, Wp, narrow))
+    lane_args = (wcol, lens, limit, found, overflow, Wp, narrow)
+    n0 = S.lanes.launches
+    ln = S.lanes(*lane_args)
+    if S.lanes.launches != n0:
+        raise AssertionError(f"{tag}: lanes launched a kernel of its own")
+    ed_raw, band_short, ovf, lens_tb = S.lanes_plain(*lane_args)
+    n_rows = 0
     if cfg.use_gact:
-        runs, saturated = gact_traceback_c(
-            q, t, ckpt, lens_tb, T, Wp, cfg.gact_band,
-            scale=cfg.gact_runs_scale,
-            group=gact_group_tiles(cfg.B, cfg.L, T, cfg.gact_band,
-                                   cfg.mid_dirs_budget))
+        n_rows = gact_runs_cols_c(cfg.L, T, Wp, cfg.gact_runs_scale) // 2
+        group = gact_group_tiles(cfg.B, cfg.L, T, cfg.gact_band,
+                                 cfg.mid_dirs_budget)
+        st, buf = fused("gact_setup", lambda: S.gact_setup(ln, n_rows),
+                        S.gact_setup_plain(lens_tb, n_rows))
+        runs, saturated = gact_traceback_c_state(
+            q, t, ckpt, st, buf, T, Wp, cfg.gact_band, group)
+        want = gact_traceback_c(q, t, ckpt, lens_tb, T, Wp, cfg.gact_band,
+                                scale=cfg.gact_runs_scale, group=group)
+        errs["lanes"] = max(errs["lanes"], check_equal(
+            "lanes (the gact walk from the setup's state)", where,
+            [runs, saturated], list(want), tag))
+        setup_calls = (lambda: S.gact_setup(ln, n_rows),
+                       lambda: S.gact_setup_plain(
+                           S.lanes_plain(*lane_args)[3], n_rows))
     else:
-        runs = device_traceback_c(
-            vdirs, lens_tb, cfg.L, Wp, nm,
-            entry_dtype=torch.int16 if cfg.tb_entry_bytes == 2
-            else torch.int32)
+        dt = torch.int16 if cfg.tb_entry_bytes == 2 else torch.int32
+        walk_args = (cfg.L, Wp, nm, dt)
+        runs = fused("walk_c", lambda: device_traceback_c(vdirs, ln,
+                                                          *walk_args),
+                     device_traceback_c(vdirs, lens_tb, *walk_args))
         saturated = None
-    hold("pack", (cfg, best, found, gi, strand, off, ed_raw, limit,
-                  band_short, ovf, runs, saturated))
+    # the values the walk's launch wrote for the pack
+    errs["lanes"] = max(errs["lanes"], check_equal(
+        "lanes (ed_raw, band_short, overflow)", where,
+        [ln.ed_raw, ln.band_short, ln.overflow], [ed_raw, band_short, ovf],
+        tag))
+    hold("pack", (cfg, best, found, gi, strand, off, ln, limit, runs,
+                  saturated),
+         (cfg, best, found, gi, strand, off, ed_raw, limit, band_short, ovf,
+          runs, saturated))
     stats = dict(B=cfg.B, L=cfg.L, L0=L0, path="gact" if cfg.use_gact
                  else "resident", R=runs.shape[1],
                  entry_bytes=cfg.tb_entry_bytes, found=int(found.sum()),
                  reverse=int(strand.sum()), walked=int((lens_tb > 0).sum()),
                  band_short=int(band_short.sum()))
     if res is not None:
-        bounds = glue_bounds(cfg, idx.mta_start.shape[0], runs.shape[1],
-                             cfg.tb_entry_bytes)
-        for name, bnd in zip(GLUE_KERNELS, bounds):
+        bounds = dict(zip(GLUE_KERNELS, glue_bounds(
+            cfg, idx.mta_start.shape[0], runs.shape[1], cfg.tb_entry_bytes,
+            n_rows)))
+        if cfg.use_gact:
+            calls["lanes"] = setup_calls
+        for name in GLUE_KERNELS:
+            if name not in calls:
+                continue
             kern, plain = calls[name]
+            bnd = bounds[name]
             ms = cuda_ms(kern, GLUE_TURNS)
             alone = trace_ms(kern, f"{name}_kernel", GLUE_TURNS)
             plain_ms = cuda_ms(plain, 5)
@@ -1234,6 +1300,24 @@ def glue_case(tag: str, where: str, mapper, reads, res=None) -> dict:
             res.setdefault(name, {}).update(
                 err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
                 bound_by=bnd[1], kernel_ms=alone)
+        if not cfg.use_gact:
+            # G3 inside the walk: walk_c alone on the Lanes and on
+            # lanes_plain's lens_tb, and its wrapper on the Lanes
+            on_lanes, given = (
+                lambda: device_traceback_c(vdirs, ln, *walk_args),
+                lambda: device_traceback_c(vdirs, lens_tb, *walk_args))
+            t = {k: trace_ms(fn, "walk_c_kernel", GLUE_TURNS)
+                 for k, fn in (("lanes", on_lanes), ("given", given),
+                               ("lanes again", on_lanes))}
+            wrapper = cuda_ms(on_lanes, GLUE_TURNS)
+            log(f"[{tag}] lanes {where}: walk_c_kernel alone (trace) on "
+                f"the Lanes {t['lanes']}, {t['lanes again']} ms, on "
+                f"lanes_plain's lens_tb {t['given']} ms; the walk's wrapper "
+                f"on the Lanes {wrapper} ms")
+            res["lanes"] = dict(
+                err=errs["lanes"], walk_c_kernel_ms=[t["lanes"],
+                                                     t["lanes again"]],
+                walk_c_given_kernel_ms=t["given"], walk_c_wrapper_ms=wrapper)
     log(f"[{tag}] {where}: {json.dumps(stats)}")
     return errs
 
@@ -1242,8 +1326,9 @@ def phase_glue(fa: str, fq: str, long_data: dict) -> dict:
     """Phase 3c (after 3b): the step glue's kernels bit-equal to their
     plain versions on each set's first chunk at its bucket, in the
     GLUE_LAYOUTS; their times at each bucket in the full int32 layout.
-    Returns the 1 kb bucket's numbers (the kernels line's) with each
-    kernel's max |diff| over every case."""
+    Returns the 1 kb bucket's numbers (the kernels line's; for G3, whose
+    only launch of its own is the gact walk's setup, the 50 kb bucket's)
+    with each kernel's max |diff| over every case."""
     import gc
     import torch
     from longreadmapper_tpu_torch.index.device import load_device_index
@@ -1272,9 +1357,10 @@ def phase_glue(fa: str, fq: str, long_data: dict) -> dict:
         torch.cuda.empty_cache()
     for name, out in timed.items():
         log(f"[{tag}] {name} bucket, full int32: " + json.dumps(out))
+    line = dict(timed["1kb"], lanes=timed["50kb"]["lanes"])
     for k in GLUE_KERNELS:
-        timed["1kb"][k]["err"] = err[k]
-    return timed["1kb"]
+        line[k]["err"] = err[k]
+    return line
 
 
 def make_data(d: str, seed: int, genome_len: int, n_reads: int,
@@ -1461,7 +1547,7 @@ def reset_counts():
                seed_vote.seed_tables_plain, seed_vote.vote_rows_plain,
                seed_vote.seed_accept_plain, vote.top2_votes_plain,
                step.encode_raw_plain, step.locate_window_plain,
-               step.lanes_plain, step.pack_plain):
+               step.lanes_plain, step.gact_setup_plain, step.pack_plain):
         fn.cuda_calls = 0
     device_traceback_c.host_syncs = gact_traceback_c.host_syncs = 0
     torch.cuda.synchronize()
@@ -1490,8 +1576,10 @@ def path_checks(need, raw: bool = True) -> list:
     """(ok, what) checks of a map run on the card since reset_counts():
     the seed vote's two kernels, each walk kernel of `need` and the step
     glue's kernels (the raw encode only where the run's chunks ship raw
-    bytes, `raw`) launched, no plain walk, seed vote or glue called on
-    CUDA, no walk host sync.  Adds the run's launches to MAIN_LAUNCHES."""
+    bytes, `raw`; G3, `lanes`, by the launches that compute it from the
+    lanes' inputs: walk_c and the gact setup) launched, no plain
+    walk, seed vote or glue called on CUDA, no walk host sync.  Adds the
+    run's launches to MAIN_LAUNCHES."""
     from longreadmapper_tpu_torch.ops import seed_vote, step, vote
     from longreadmapper_tpu_torch.ops.gact import (gact_traceback_c,
                                                    gact_traceback_c_plain)
@@ -1504,7 +1592,9 @@ def path_checks(need, raw: bool = True) -> list:
            **{k: f.launches for k, f in zip(GLUE_KERNELS, glue_wrappers())}}
     plain_glue = (step.encode_raw_plain.cuda_calls
                   + step.locate_window_plain.cuda_calls
-                  + step.lanes_plain.cuda_calls + step.pack_plain.cuda_calls)
+                  + step.lanes_plain.cuda_calls
+                  + step.gact_setup_plain.cuda_calls
+                  + step.pack_plain.cuda_calls)
     plain = (device_traceback_c_plain.cuda_calls
              + gact_traceback_c_plain.cuda_calls)
     plain_vote = (seed_vote.seed_tables_plain.cuda_calls
@@ -1527,7 +1617,7 @@ def path_checks(need, raw: bool = True) -> list:
              f"the accept, top2_votes) {plain_vote} == 0"),
             (plain_glue == 0,
              f"plain step glue calls on CUDA (encode, locate_window, lanes, "
-             f"pack) {plain_glue} == 0")]
+             f"the gact setup, pack) {plain_glue} == 0")]
 
 
 def as_extra(checks) -> list:
@@ -2570,7 +2660,8 @@ def main(argv=None) -> int:
     src = {"band_dp": "band_dp.cu", "band_dp_wide": "band_dp.cu",
            "band_scores": "band_scores.cu", "walk_c": "walk.cu",
            "gact_walk": "walk.cu", "seed_tables": "vote.cu",
-           "vote_rows": "vote.cu", **{k: "step.cu" for k in GLUE_KERNELS}}
+           "vote_rows": "vote.cu", **{k: "step.cu" for k in GLUE_KERNELS},
+           "lanes": "lanes.cuh"}
     # the walks and the seed vote replace XLA loops, gathers and sorts,
     # not pallas_calls
     replaces = {"band_dp": "longreadmapper_tpu/ops/band_pallas.py:102",
@@ -2599,8 +2690,8 @@ def main(argv=None) -> int:
                                  "798-820 _seq_lookup and :844-880 the "
                                  "strand select and target window (XLA "
                                  "fusion in _body, not a pallas_call)",
-                "lanes": "longreadmapper_tpu/mapping/pipeline.py:907-909, "
-                         "975-977, 989 ed, band_short, alive, lens_tb (XLA "
+                "lanes": "longreadmapper_tpu/mapping/pipeline.py:896-910, "
+                         "972-977, 989 ed, band_short, alive, lens_tb (XLA "
                          "fusion in _body, not a pallas_call)",
                 "pack": "longreadmapper_tpu/mapping/pipeline.py:989-1050 "
                         "meta, pad sort, blob and tail (XLA fusion and "

@@ -1,5 +1,5 @@
-// The mapping step's glue for Hopper (sm_90a): the four small stages around
-// the banded DP and the CIGAR walks, one launch each.
+// The mapping step's glue for Hopper (sm_90a): the small stages around the
+// banded DP and the CIGAR walks.
 //
 // Replaces no pallas_call.  In the JAX package these stages are XLA fusions
 // inside the jitted step (longreadmapper_tpu/mapping/pipeline.py,
@@ -10,9 +10,15 @@
 //   locate_window_kernel  _seq_lookup (:798-820), the strand select of q
 //                         and the target window from the 2-bit packed text
 //                         (:844-880)
-//   lanes_kernel          the walk's inputs: ed from the DP's centre column,
+//   the lanes             the walk's inputs: ed from the DP's centre column,
 //                         the narrow pass's band-short flag (overflow bit
-//                         2), the lanes that walk (:907-909, 975-977, 989)
+//                         2), the lanes that walk (:896-910, 972-977, 989):
+//                         no launch of their own but csrc/lanes.cuh's
+//                         lane_out, called by walk_c_kernel (csrc/walk.cu)
+//                         for the walk length and by lanes_kernel, the gact
+//                         walk's setup (its walk state and its run buffer
+//                         of pads), each writing the lane's values that
+//                         pack_kernel reads
 //   pack_kernel           the meta words, the run entries stably partitioned
 //                         with the pads last, the blob and the tail
 //                         (:989-1050)
@@ -35,7 +41,11 @@
 //   window   a thread 16 bases, one packed text word and a 16-byte store
 //            each of q and t, after one warp a read has scanned the
 //            contig table with a ballot.
-//   lanes    a thread a read.
+//   lanes    the gact setup: a thread a read's walk state, the run buffer
+//            filled grid-stride in 16-byte stores.  A launch of its own
+//            (the first design, a thread a read writing four arrays) cost a
+//            launch, 1.4 us alone on an H100 for ~15 ns of bytes, and its
+//            wrapper 40-75 us of host time.
 //   pack     the row read once in 16-byte slots, a group-wide scan of
 //            each thread's entries that are not pads, each entry written
 //            at its rank into an image of the blob row and the tail row in
@@ -48,6 +58,8 @@
 // us (encode) and 5.7-11.9 us (pack) alone on an H100.
 
 #include <cuda_runtime.h>
+
+#include "lanes.cuh"
 
 // The C entries' argument blocks, ops/step.py's ctypes Structures: every
 // field 8 bytes.  Outside the anonymous namespace, or the C entries that
@@ -81,17 +93,14 @@ struct LocateArgs {
   long long B, L, M, n, ntext, p64, loc64, stage;
 };
 
-struct LanesArgs {
-  const short* wcol;             // (L + 1, B): the DP's centre column
-  const int* lens;               // (B,)
-  const int* limit;              // (B,)
-  const unsigned char* found;    // (B,) bool
-  const unsigned char* ovf_in;   // (B,) bool: the seed vote's overflow
-  int* ed_raw;                   // (B,)
-  unsigned char* band_short;     // (B,) bool
-  int* overflow;                 // (B,): ovf_in | 4 * band_short
-  int* lens_tb;                  // (B,): the walk's lengths, 0 = no walk
-  long long B, L, Wp, narrow;
+// The gact walk's setup: st and buf of csrc/walk.cu::lrm_gact_walk.
+struct SetupArgs {
+  LanesIn lanes;                 // lanes.wcol null: lanes.lens are the
+                                 // walk's lengths as given
+  int* st;                       // (3B + 3): i, j, done a lane; then the
+                                 // write pointer, nsat and the CTA ticket
+  unsigned* buf;                 // (B, n_rows) pairs of int16 entries
+  long long B, n_rows;
 };
 
 struct PackArgs {
@@ -117,6 +126,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kEncodeThreads = 128;   // a thread 16 bases: 2048 a CTA
 constexpr int kWindowThreads = 128;   // a thread a 16-base word of a read
 constexpr int kLanesThreads = 256;
+constexpr unsigned kPadPair = (3u << 16) | 3u;   // two pad entries (op 3)
 constexpr int kPackRowsCta = 8;       // warp-a-row CTAs: rows (warps) a CTA
 constexpr int kPackSlots = 2;         // 16-byte slots of a row a thread
 constexpr int kPackThreads = 1024;    // a CTA-a-row's threads, at most
@@ -372,21 +382,37 @@ locate_window_kernel(const LocateArgs a) {
       *reinterpret_cast<const uint4*>(src + at);
 }
 
-// ------------------------------------------------------------- the lanes
+// ------------------------------------------------ the gact walk's setup
 
-__global__ void lanes_kernel(const LanesArgs a) {
-  const long long b = blockIdx.x * static_cast<long long>(blockDim.x)
+// Thread b < B writes lane b's walk state (i = j = its walk length, done
+// when that is 0 or less; from lane_out, which writes the lane's values
+// for the pack, where the lanes' inputs are given), threads B .. B + 2
+// zero the shared words (the write pointer, the saturated count, the CTA
+// ticket), and the grid fills the run buffer with pad pairs in 16-byte
+// stores in a grid-stride loop (buf is 16-aligned).  lrm_gact_setup gives
+// every lane and shared word its own thread: the same items in a
+// grid-stride loop cost the 50 kb setup 0.39 us more alone on an H100.
+__global__ void __launch_bounds__(kLanesThreads)
+lanes_kernel(const SetupArgs a) {
+  const long long t = blockIdx.x * static_cast<long long>(blockDim.x)
                       + threadIdx.x;
-  if (b >= a.B) return;
-  const int len = a.lens[b];
-  const int ed = a.wcol[clamp_ll(len, 0, a.L) * a.B + b];
-  const int lim = a.limit[b];
-  const bool found = a.found[b] != 0;
-  const bool bs = a.narrow && found && ed >= a.Wp && lim >= a.Wp;
-  a.ed_raw[b] = ed;
-  a.band_short[b] = bs;
-  a.overflow[b] = (a.ovf_in[b] != 0 ? 1 : 0) | (bs ? 4 : 0);
-  a.lens_tb[b] = found && ed <= lim && !bs ? len : 0;
+  const long long nt = static_cast<long long>(gridDim.x) * blockDim.x;
+  if (t < a.B) {
+    const int len = a.lanes.lens[t];
+    const int n = a.lanes.wcol ? lane_out(a.lanes, t, len) : len;
+    a.st[t] = n;
+    a.st[a.B + t] = n;
+    a.st[2 * a.B + t] = n <= 0;
+  } else if (t < a.B + 3) {
+    a.st[2 * a.B + t] = 0;                     // st[3B + t - B]
+  }
+  const long long words = a.B * a.n_rows;      // a pair a word
+  const long long vecs = words >> 2;
+  uint4* b4 = reinterpret_cast<uint4*>(a.buf);
+  for (long long k = t; k < vecs; k += nt) {
+    b4[k] = make_uint4(kPadPair, kPadPair, kPadPair, kPadPair);
+  }
+  for (long long k = 4 * vecs + t; k < words; k += nt) a.buf[k] = kPadPair;
 }
 
 // -------------------------------------------------------------- the pack
@@ -761,10 +787,20 @@ extern "C" int lrm_locate_window(const LocateArgs* args, void* stream) {
   return cudaGetLastError();
 }
 
-extern "C" int lrm_lanes(const LanesArgs* args, void* stream) {
-  const LanesArgs a = *args;
-  if (a.B <= 0 || a.B > 0x7FFFFFFFLL || a.L < 0) return -1;
-  const long long blocks = (a.B + kLanesThreads - 1) / kLanesThreads;
+// The gact walk's setup: -1 for arguments it does not take (buf not
+// 16-aligned, lanes whose B is not the setup's).
+extern "C" int lrm_gact_setup(const SetupArgs* args, void* stream) {
+  const SetupArgs a = *args;
+  if (a.B <= 0 || a.B > 0x7FFFFFFFLL || a.n_rows <= 0 || a.lanes.B != a.B
+      || a.lanes.L < 0 || !aligned16(a.buf)) {
+    return -1;
+  }
+  // a thread for each lane and shared word; the fill's blocks capped at
+  // 4096 (it strides past them)
+  const long long lane_blocks = (a.B + 3 + kLanesThreads - 1) / kLanesThreads;
+  long long blocks = (a.B * a.n_rows / 4 + kLanesThreads - 1) / kLanesThreads;
+  blocks = blocks < 4096 ? blocks : 4096;
+  blocks = blocks > lane_blocks ? blocks : lane_blocks;
   lanes_kernel<<<static_cast<unsigned>(blocks), kLanesThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();

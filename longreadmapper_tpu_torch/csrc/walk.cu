@@ -10,7 +10,10 @@
 //                    (a lax.while_loop a tile inside a lax.scan over tiles)
 // Contract: the plain PyTorch walks device_traceback_c_plain
 // (ops/traceback.py) and gact_traceback_c_plain (ops/gact.py), bit for bit,
-// degenerate lanes included: every clamp of the plain walk is here.
+// degenerate lanes included: every clamp of the plain walk is here.  On the
+// map path walk_c_kernel takes each lane's length from the lanes' inputs
+// (csrc/lanes.cuh, ops/step.py::lanes_plain's lens_tb), and the gact walk's
+// state comes from csrc/step.cu::lanes_kernel, its setup launch.
 //
 //   vdirs (G, B, band) int32    2-bit directions 0=M 1=I 2=D, 16 rows a word
 //                               (row i of the pass or tile at bit pair
@@ -67,6 +70,21 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "lanes.cuh"
+
+// lrm_walk_c_lanes' argument block (ops/traceback.py::WalkCArgs): every
+// field 8 bytes.  Outside the anonymous namespace, or the C entry that
+// takes it would not be exported.
+struct WalkCArgs {
+  const void* vdirs;             // (G, B, band) int32
+  const void* nm;                // (ceil(G/32), B, band) int32
+  void* runs;                    // (B, 2 * n_iter) of entry_bytes each
+  LanesIn lanes;                 // the lanes' inputs (lane_out gives each
+                                 // walk length); wcol null: lanes.lens are
+                                 // the walk's lengths as given
+  long long G, B, band, W, n_iter, entry_bytes;
+};
 
 namespace {
 
@@ -376,14 +394,19 @@ __device__ __forceinline__ WalkStep resident_step(const WindowColumn& c,
 // load is in flight keeps that load.  The lane's entries are staged in
 // shared memory and its whole row of runs (B, 2 * n_iter), pads to the
 // end included, is written at the end by the warp, coalesced: the
-// caller's buffer needs no fill.
-template <typename E>
+// caller's buffer needs no fill.  kLanes: the walk's length is lane_out's
+// (csrc/lanes.cuh) from the lane's inputs, read by thread 0 of the warp
+// and shuffled to the others; else ln.lens holds it.  The lane's inputs
+// cost the 1 kb walk a dependent load before its first copies, ~0.3 us
+// alone on an H100; the window's first copies made at the read's length
+// before the walk length is known measured slower
+// (scripts/torch_walk_tables_sweep.py --parts lanes).
+template <typename E, bool kLanes>
 __global__ void __launch_bounds__(kWalkLanes * 32)
 walk_c_kernel(const uint32_t* __restrict__ vdirs,
-              const uint32_t* __restrict__ nm,
-              const int32_t* __restrict__ lens, int G, int B, int band, int W,
-              int n_iter, E* __restrict__ runs, int lanes, int K,
-              int lane_words) {
+              const uint32_t* __restrict__ nm, const LanesIn ln, int G,
+              int B, int band, int W, int n_iter, E* __restrict__ runs,
+              int lanes, int K, int lane_words) {
   extern __shared__ __align__(16) uint32_t s_ring[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -395,7 +418,15 @@ walk_c_kernel(const uint32_t* __restrict__ vdirs,
   const long long at = static_cast<long long>(b) * band;
   uint32_t* ring = s_ring + warp * lane_words;
   E* stage = reinterpret_cast<E*>(ring + kWalkRing * CW);
-  int i = __ldg(lens + b);
+  int i = __ldg(ln.lens + b);
+  if (kLanes) {
+    // the read's length: thread 0 turns it into the walk's (it or 0) from
+    // the lane's inputs, writing the lane's values for the pack, and the
+    // warp takes it by shuffle
+    int walk = 0;
+    if (lane == 0) walk = lane_out(ln, b, i);
+    i = __shfl_sync(0xffffffffu, walk, 0);
+  }
   int j = i;
   bool done = i <= 0;
   const uint32_t tail =
@@ -692,8 +723,6 @@ gact_walk_kernel(const uint32_t* __restrict__ vg,
 
 // Lanes a CTA for a tile of G groups: kGactLanes, fewer where their rings
 // pass the card's shared memory; 0 where one lane's does.
-// Lanes a CTA for a tile of G groups: kGactLanes, fewer where their rings
-// pass the card's shared memory; 0 where one lane's does.
 int gact_lanes(int G) {
   const long long lane_bytes =
       2LL * kRing * (G + (G + 31) / 32) * static_cast<long long>(sizeof(int));
@@ -701,8 +730,8 @@ int gact_lanes(int G) {
   return static_cast<int>(w < kGactLanes ? w : kGactLanes);
 }
 
-template <typename E>
-int launch_walk_c(const uint32_t* v, const uint32_t* m, const int32_t* l,
+template <typename E, bool kLanes>
+int launch_walk_c(const uint32_t* v, const uint32_t* m, const LanesIn& ln,
                   int G, int B, int band, int W, int n_iter, void* runs,
                   cudaStream_t s) {
   // a slot's window: kWalkGroups groups, more to fill the warp's last
@@ -720,14 +749,36 @@ int launch_walk_c(const uint32_t* v, const uint32_t* m, const int32_t* l,
   const size_t smem = static_cast<size_t>(lanes * lane_words) * 4;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        walk_c_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        walk_c_kernel<E, kLanes>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  walk_c_kernel<E><<<(B + lanes - 1) / lanes, lanes * 32, smem, s>>>(
-      v, m, l, G, B, band, W, n_iter, static_cast<E*>(runs), lanes, K,
+  const int grid = (B + lanes - 1) / lanes;
+  walk_c_kernel<E, kLanes><<<grid, lanes * 32, smem, s>>>(
+      v, m, ln, G, B, band, W, n_iter, static_cast<E*>(runs), lanes, K,
       static_cast<int>(lane_words));
   return cudaGetLastError();
+}
+
+template <bool kLanes>
+int walk_c(const void* vdirs, const void* nm, const LanesIn& ln, int G,
+           int B, int band, int W, int n_iter, void* runs, int entry_bytes,
+           void* stream) {
+  if (G <= 0 || B <= 0 || band <= 0 || W < 0 || n_iter < 0) return -1;
+  if (static_cast<long long>(B) * band > 0x7FFFFFFFLL) return -1;
+  auto v = static_cast<const uint32_t*>(vdirs);
+  auto m = static_cast<const uint32_t*>(nm);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (entry_bytes == 2) {
+    return launch_walk_c<int16_t, kLanes>(v, m, ln, G, B, band, W, n_iter,
+                                          runs, s);
+  }
+  if (entry_bytes == 4) {
+    return launch_walk_c<int32_t, kLanes>(v, m, ln, G, B, band, W, n_iter,
+                                          runs, s);
+  }
+  return -1;
 }
 
 }  // namespace
@@ -735,27 +786,31 @@ int launch_walk_c(const uint32_t* v, const uint32_t* m, const int32_t* l,
 // C interface for ctypes.  Each returns 0 on success, a cudaError_t code
 // when the launch is refused, or -1 for arguments the kernel does not take.
 
-// The column walk of a resident pass: vdirs (G, B, band) and nm
-// (ceil(G/32), B, band) int32, lens (B,) int32, runs (B, 2*n_iter) of
+// The column walk of a resident pass from an argument block: vdirs (G, B,
+// band) and nm (ceil(G/32), B, band) int32, runs (B, 2*n_iter) of
 // entry_bytes = 2 (int16) or 4 (int32), every element written by the
-// kernel (no fill needed).  -1 also where one lane's ring and entries pass
-// the card's shared memory.
-extern "C" int lrm_walk_c(const void* vdirs, const void* nm, const void* lens,
-                          int G, int B, int band, int W, int n_iter,
-                          void* runs, int entry_bytes, void* stream) {
-  if (G <= 0 || B <= 0 || band <= 0 || W < 0 || n_iter < 0) return -1;
-  if (static_cast<long long>(B) * band > 0x7FFFFFFFLL) return -1;
-  auto v = static_cast<const uint32_t*>(vdirs);
-  auto m = static_cast<const uint32_t*>(nm);
-  auto l = static_cast<const int32_t*>(lens);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (entry_bytes == 2) {
-    return launch_walk_c<int16_t>(v, m, l, G, B, band, W, n_iter, runs, s);
+// kernel (no fill needed); each lane's length from the lanes' inputs
+// (a.lanes.wcol set: lane_out, G3 of the step glue, which also writes the
+// lane's values for the pack), or from a.lanes.lens (B,) int32 as given.
+// -1 also for lanes of another B, sizes past int, or where one lane's ring
+// and entries pass the card's shared memory.
+extern "C" int lrm_walk_c_lanes(const WalkCArgs* args, void* stream) {
+  const WalkCArgs a = *args;
+  if (a.G > 0x7FFFFFFFLL || a.B > 0x7FFFFFFFLL || a.band > 0x7FFFFFFFLL
+      || a.W > 0x7FFFFFFFLL || a.n_iter > 0x7FFFFFFFLL
+      || a.lanes.B != a.B || a.lanes.L < 0) {
+    return -1;
   }
-  if (entry_bytes == 4) {
-    return launch_walk_c<int32_t>(v, m, l, G, B, band, W, n_iter, runs, s);
+  const int G = static_cast<int>(a.G), B = static_cast<int>(a.B);
+  const int band = static_cast<int>(a.band), W = static_cast<int>(a.W);
+  const int n_iter = static_cast<int>(a.n_iter);
+  const int eb = static_cast<int>(a.entry_bytes);
+  if (a.lanes.wcol) {
+    return walk_c<true>(a.vdirs, a.nm, a.lanes, G, B, band, W, n_iter,
+                        a.runs, eb, stream);
   }
-  return -1;
+  return walk_c<false>(a.vdirs, a.nm, a.lanes, G, B, band, W, n_iter,
+                       a.runs, eb, stream);
 }
 
 // The gact walk over one group: tiles k_lo .. k_hi of T rows, vg (k_hi -

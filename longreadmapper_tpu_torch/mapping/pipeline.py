@@ -44,11 +44,13 @@ is two CUDA kernels (csrc/vote.cu through ops/seed_vote.py: the per-seed
 tables; the pick, the vote rows and each read's accept in one launch) and
 both walks are CUDA kernels (csrc/walk.cu: one launch a resident pass, one
 a gact tile group), and the wide seeds are picked by a rank, not a branch,
-so the step reads nothing back on the host.  The glue between them is four
-CUDA kernels (csrc/step.cu through ops/step.py): the raw encode, the
-locate with the read's strand and its target window, the walk's inputs
-from the DP's centre column, and the pack of the meta words and the
-pad-sorted run entries.
+so the step reads nothing back on the host.  The glue between them is
+CUDA kernels too (csrc/step.cu through ops/step.py): the raw encode, the
+locate with the read's strand and its target window, and the pack of the
+meta words and the pad-sorted run entries; the walk's inputs from the
+DP's centre column (G3, ops/step.lanes) have no launch of their own on
+the card: the walk kernel, or the gact walk's setup launch, computes
+each lane's from them (csrc/lanes.cuh) and writes those the pack reads.
 """
 
 from __future__ import annotations
@@ -277,20 +279,20 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
         mark("band_dp")
         narrow = Wp < cfg.W
     # ed', the narrow pass's band-short lanes (overflow bit 2) and the
-    # lanes that walk (dead lanes, unmapped or over the limit, do not)
-    ed_raw, band_short, overflow, lens_tb = lanes(wcol, lens, limit, found,
-                                                  overflow, Wp, narrow)
+    # lanes that walk (dead lanes, unmapped or over the limit, do not): on
+    # the card no launch of their own, the walk's launch computes them
+    ln = lanes(wcol, lens, limit, found, overflow, Wp, narrow)
     if cfg.use_gact:
         # tiles are rematerialized in groups that fit the direction budget
         run_units, saturated = gact_traceback_c(
-            q, t, ckpt, lens_tb, T, Wp, cfg.gact_band,
+            q, t, ckpt, ln, T, Wp, cfg.gact_band,
             scale=cfg.gact_runs_scale,
             group=gact_group_tiles(cfg.B, cfg.L, T, cfg.gact_band,
                                    cfg.mid_dirs_budget))
         mark("gact_walk")
     else:
         run_units = device_traceback_c(
-            vdirs, lens_tb, cfg.L, Wp, nm,
+            vdirs, ln, cfg.L, Wp, nm,
             entry_dtype=torch.int16 if cfg.tb_entry_bytes == 2
             else torch.int32)
         saturated = None
@@ -298,8 +300,8 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
     # the meta words, then the run entries pad-sorted (path order kept)
     # as little-endian bytes: the eager head in the blob, the rest in the
     # tail; a saturated gact run buffer sets overflow bit 1
-    out = pack(cfg, best, found, gi, strand, off, ed_raw, limit, band_short,
-               overflow, run_units, saturated)
+    out = pack(cfg, best, found, gi, strand, off, ln, limit, run_units,
+               saturated)
     mark("pack")
     return out
 

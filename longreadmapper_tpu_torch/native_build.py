@@ -55,7 +55,7 @@ SOURCES = {
     "band_scores": ("band_scores.cu", _nvcc, "*.cuh"),
     "walk": ("walk.cu", _nvcc, "*.cuh"),
     "vote": ("vote.cu", _nvcc, None),
-    "step": ("step.cu", _nvcc, None),
+    "step": ("step.cu", _nvcc, "*.cuh"),
     "sais": ("sais.cpp", _gxx, None),
     "samerge": ("samerge.cpp", _gxx, None),
     "affine": ("affine.cpp", _gxx, None),

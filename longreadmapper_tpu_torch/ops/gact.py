@@ -24,7 +24,12 @@ kernel csrc/walk.cu::gact_walk_kernel on CUDA tensors (counted in
 `gact_traceback_c.launches`), right after the group's direction kernel,
 with no host sync: a warp a lane, each lane at its own pace, the group's
 last CTA placing the lanes' pairs on the rows of the shared write
-pointer; on CPU tensors it runs the plain version
+pointer.  Before the first group one launch of csrc/step.cu::lanes_kernel
+(ops/step.py::gact_setup) writes the walk's state from each lane's walk
+length (given, or computed from G3's inputs, a step.Lanes, whose values
+for the pack it writes too) and fills the run buffer with pads;
+`gact_traceback_c_state` is the walk from that prepared state.  On CPU
+tensors it runs the plain version
 `gact_traceback_c_plain`, eager PyTorch in lock step with one host sync
 per iteration (the JAX while_loop's `any(alive)`, counted in
 `gact_traceback_c.host_syncs`).
@@ -35,7 +40,9 @@ from __future__ import annotations
 import torch
 
 from .. import native_build
+from . import step
 from .band_dp import banded_nw_dirs_tiles
+from .seed_vote import _stream
 from .traceback import OP_PAD, WALK_FUNCS, group_below, msb32
 from .wavefront import dp_rows, row0
 
@@ -118,47 +125,72 @@ def _for_each_group(q, t, ckpt, T: int, W: int, band: int, group: int,
 def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
                      scale: int = 1, group: int = 1, mark=None, iters=None):
     """Column-consuming rematerialized walk.  lens (B,) with dead lanes
-    (unmapped / over-limit) masked to 0 by the caller; `group` tiles are
-    rematerialized at a time (gact_group_tiles); `mark` as
-    _for_each_group's; `iters`, when given, an int32 (L/T, B) tensor on
-    the input's device that receives each lane's iterations in each tile.
+    (unmapped / over-limit) masked to 0 by the caller, or G3 as a
+    step.Lanes (its lens_tb); `group` tiles are rematerialized at a time
+    (gact_group_tiles); `mark` as _for_each_group's; `iters`, when given,
+    an int32 (L/T, B) tensor on the input's device that receives each
+    lane's iterations in each tile.
 
     Returns (runs (B, gact_runs_cols_c(L, T, W, scale)) int16 entries
     (count << 2 | op) in reverse path order with pad gaps between tiles,
     saturated): all lanes share one write pointer that clamps at the last
     buffer row; `saturated`, a 0-dim bool tensor on the input's device, is
     True when that row took two or more writes (every lane's runs are then
-    suspect).  On CUDA tensors one launch of gact_walk_kernel a group
-    (raises for what it does not take); on CPU tensors the plain
-    version."""
+    suspect).  On CUDA tensors one launch of step.gact_setup, then one of
+    gact_walk_kernel a group (raises for what it does not take); on CPU
+    tensors the plain version."""
     _check_counts(T, W, band)
+    given = not isinstance(lens, step.Lanes)
     if q.device.type == "cpu":
-        return gact_traceback_c_plain(q, t, ckpt, lens, T, W, band, scale,
+        return gact_traceback_c_plain(q, t, ckpt, lens if given
+                                      else lens.lens_tb, T, W, band, scale,
                                       group, mark, iters)
+    B, L = q.shape
+    dev = q.device
+    if given and (lens.device != dev or lens.shape != (B,)):
+        raise ValueError(f"lens {tuple(lens.shape)} on {lens.device}: (B,) "
+                         f"on {dev}")
+    st, buf = step.gact_setup(lens, gact_runs_cols_c(L, T, W, scale) // 2)
+    return gact_traceback_c_state(q, t, ckpt, st, buf, T, W, band, group,
+                                  mark, iters)
+
+
+def gact_traceback_c_state(q, t, ckpt, st, buf, T: int, W: int, band: int,
+                           group: int = 1, mark=None, iters=None):
+    """gact_traceback_c on CUDA tensors from its prepared state
+    (step.gact_setup): st (3B + 3) int32, each lane's (i, j, done) and the
+    shared (ptr, nsat, CTA ticket), and buf (B, 2 n_rows) int16 of pads,
+    which the walk fills.  Returns (buf, saturated)."""
+    dev = q.device
+    with step._on(dev):
+        return _gact_walk_run(native_build.load("walk", WALK_FUNCS),
+                              _stream(dev), q, t, ckpt, st, buf, T, W, band,
+                              group, mark, iters)
+
+
+def _gact_walk_run(lib, stream, q, t, ckpt, st, buf, T: int, W: int,
+                   band: int, group: int, mark, iters):
+    """gact_traceback_c_state through `lib`'s lrm_gact_walk on `stream`."""
     B, L = q.shape
     K = L // T
     dev = q.device
-    if lens.device != dev or tuple(lens.shape) != (B,):
-        raise ValueError(f"lens {tuple(lens.shape)} on {lens.device}: (B,) "
-                         f"on {dev}")
+    n_rows = buf.shape[1] // 2
+    for name, x, dtype, shape in (("st", st, torch.int32, (3 * B + 3,)),
+                                  ("buf", buf, torch.int16, (B, 2 * n_rows))):
+        if (x.dtype != dtype or x.device != dev or x.shape != shape
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
+                             f"tensor on {dev}")
     if iters is None:
         iters = torch.empty((K, B), dtype=torch.int32, device=dev)
     elif (iters.dtype != torch.int32 or iters.device != dev
           or tuple(iters.shape) != (K, B) or not iters.is_contiguous()):
         raise ValueError(f"iters must be a contiguous int32 {(K, B)} tensor "
                          f"on {dev}")
-    n_rows = gact_runs_cols_c(L, T, W, scale) // 2
-    buf = torch.full((B, n_rows, 2), OP_PAD, dtype=torch.int16, device=dev)
     # each lane's pairs, staged until the group's last CTA places them, and
     # where each of its tiles' pairs start
     stage = torch.empty((B, n_rows, 2), dtype=torch.int16, device=dev)
     starts = torch.empty((K, B), dtype=torch.int32, device=dev)
-    l32 = lens.to(torch.int32)
-    # per lane (i, j, done), then the shared (ptr, nsat) and the launch's
-    # CTA ticket
-    st = torch.cat([l32, l32, (l32 <= 0).to(torch.int32),
-                    torch.zeros(3, dtype=torch.int32, device=dev)])
-    lib = native_build.load("walk", WALK_FUNCS)
 
     def walk(k_lo, k_hi, vg, nmg):
         tiles, G = k_hi - k_lo + 1, T // 16
@@ -169,19 +201,17 @@ def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
             raise ValueError(f"gact_walk takes contiguous int32 words "
                              f"{(tiles, G, B, band)} and bitmaps; got "
                              f"{tuple(vg.shape)}, {tuple(nmg.shape)}")
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.lrm_gact_walk(vg.data_ptr(), nmg.data_ptr(),
-                                    st.data_ptr(), iters.data_ptr(),
-                                    starts.data_ptr(), stage.data_ptr(),
-                                    buf.data_ptr(), B, T, W, band, k_lo,
-                                    k_hi, n_rows, stream)
+        err = lib.lrm_gact_walk(vg.data_ptr(), nmg.data_ptr(),
+                                st.data_ptr(), iters.data_ptr(),
+                                starts.data_ptr(), stage.data_ptr(),
+                                buf.data_ptr(), B, T, W, band, k_lo, k_hi,
+                                n_rows, stream)
         if err != 0:
             raise RuntimeError(f"gact_walk kernel launch failed: error {err}")
         gact_traceback_c.launches += 1
 
     _for_each_group(q, t, ckpt, T, W, band, group, walk, mark)
-    return buf.reshape(B, -1), st[3 * B + 1] >= 2
+    return buf, st[3 * B + 1] >= 2
 
 
 gact_traceback_c.launches = 0

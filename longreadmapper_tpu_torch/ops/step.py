@@ -9,27 +9,40 @@ into the jitted step; none is a pallas_call):
                                     read's best diagonal (_seq_lookup), the
                                     read on its strand and its target window
   lanes(wcol, lens, limit, found, overflow, Wp, narrow)
-                                 -> (ed_raw, band_short, overflow, lens_tb):
-                                    the walk's inputs
-  pack(cfg, best, found, gi, strand, off, ed_raw, limit, band_short,
-       overflow, run_units, saturated)
+                                 -> Lanes: G3, each lane's (ed_raw,
+                                    band_short, overflow, lens_tb), the
+                                    walk's inputs
+  pack(cfg, best, found, gi, strand, off, lanes, limit, run_units,
+       saturated)
                                  -> dict(blob, ops_tail): the step's output
+  gact_setup(lens, n_rows)       -> (st, buf): the gact walk's state and
+                                    its run buffer of pads
 
 On a CUDA tensor each launches its hand-written kernel in csrc/step.cu
-(encode_kernel, locate_window_kernel, lanes_kernel, pack_kernel), counted
+(encode_kernel, locate_window_kernel, pack_kernel, lanes_kernel), counted
 in `<wrapper>.launches`, and raises on inputs the kernel does not take; on
 a CPU tensor each runs its plain version (`<name>_plain`: the step's
 PyTorch ops, whose `cuda_calls` count calls on the card, which the card's
-map path leaves at 0).  Over a row-sharded text (parallel/dist.py's
-ShardedRows) locate_window launches twice: the locate and the window's
-word indices, then, after the collective has gathered the words, the
-window.
+map path leaves at 0).  G3 has no launch of its own on the card: `lanes`
+checks its inputs and hands them on in a Lanes record, and the kernel
+that needs a lane's walk length computes the lane's values from the
+inputs (csrc/lanes.cuh::lane_out) and writes the three the pack reads
+into the record's tensors: walk_c_kernel on the resident path
+(ops/traceback.py), lanes_kernel, the gact walk's setup, on the gact path
+(gact_setup, ops/gact.py); each such launch counts in `lanes.launches`
+and marks the record written, and `pack` raises on a record that no launch
+has written.
+Over a row-sharded text (parallel/dist.py's ShardedRows) locate_window
+launches twice: the locate and the window's word indices, then, after
+the collective has gathered the words, the window.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+from typing import Optional
 
 import torch
 
@@ -153,6 +166,57 @@ def lanes_plain(wcol, lens, limit, found, overflow, Wp: int, narrow: bool):
 lanes_plain.cuda_calls = 0
 
 
+class LanesIn(ctypes.Structure):
+    """csrc/lanes.cuh::LanesIn: every field 8 bytes.  wcol None: lens are
+    the walk's lengths as given (no lanes)."""
+    _fields_ = [(k, ctypes.c_void_p) for k in
+                ("wcol", "lens", "limit", "found", "ovf_in", "ed_raw",
+                 "band_short", "overflow")] + [
+        (k, ctypes.c_int64) for k in ("B", "L", "Wp", "narrow")]
+
+
+@dataclasses.dataclass
+class Lanes:
+    """G3 of a step as `lanes` hands it to the walk and the pack: the
+    values of lanes_plain.  On the card lens_tb is None, `src` holds the
+    inputs' and the three other values' addresses and sizes and `keep`
+    the tensors behind them: ed_raw, band_short and overflow hold the
+    lane's values once the walk's launch (walk_c, or the gact setup) that
+    computes them has been issued, which sets `written`."""
+    ed_raw: torch.Tensor
+    band_short: torch.Tensor
+    overflow: torch.Tensor
+    lens_tb: Optional[torch.Tensor] = None
+    src: Optional[LanesIn] = None
+    keep: tuple = ()
+    written: bool = True
+
+    def __iter__(self):
+        """The four values in lanes_plain's order."""
+        return iter((self.ed_raw, self.band_short, self.overflow,
+                     self.lens_tb))
+
+
+def gact_setup_plain(lens, n_rows: int):
+    """Plain version of gact_setup: the walk state st (3B + 3) int32 (each
+    lane's i, j from its walk length and done where that is <= 0, then the
+    shared write pointer, saturated count and CTA ticket at 0) and the run
+    buffer (B, 2 n_rows) int16 of pads, built by eager ops."""
+    if isinstance(lens, Lanes):
+        lens = lens.lens_tb
+    if lens.device.type == "cuda":
+        gact_setup_plain.cuda_calls += 1
+    l32 = lens.to(I32)
+    st = torch.cat([l32, l32, (l32 <= 0).to(I32),
+                    torch.zeros(3, dtype=I32, device=lens.device)])
+    buf = torch.full((lens.shape[0], 2 * n_rows), 3, dtype=torch.int16,
+                     device=lens.device)
+    return st, buf
+
+
+gact_setup_plain.cuda_calls = 0
+
+
 def pack_head(cfg, K: int) -> int:
     """The eager head's bytes of a K-byte run row: all of it on the gact
     path, else OPS_HEAD_COLS rounded down to whole entries."""
@@ -222,12 +286,11 @@ class LocateArgs(ctypes.Structure):
         ("B", "L", "M", "n", "ntext", "p64", "loc64", "stage")]
 
 
-class LanesArgs(ctypes.Structure):
-    """csrc/step.cu::LanesArgs: every field 8 bytes."""
-    _fields_ = [(k, ctypes.c_void_p) for k in
-                ("wcol", "lens", "limit", "found", "ovf_in", "ed_raw",
-                 "band_short", "overflow", "lens_tb")] + [
-        (k, ctypes.c_int64) for k in ("B", "L", "Wp", "narrow")]
+class SetupArgs(ctypes.Structure):
+    """csrc/step.cu::SetupArgs: every field 8 bytes."""
+    _fields_ = [("lanes", LanesIn), ("st", ctypes.c_void_p),
+                ("buf", ctypes.c_void_p), ("B", ctypes.c_int64),
+                ("n_rows", ctypes.c_int64)]
 
 
 class PackArgs(ctypes.Structure):
@@ -242,8 +305,9 @@ class PackArgs(ctypes.Structure):
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p]
 STEP_FUNCS = {"lrm_encode": _ARGS, "lrm_locate_window": _ARGS,
-              "lrm_lanes": _ARGS, "lrm_pack": _ARGS}
+              "lrm_gact_setup": _ARGS, "lrm_pack": _ARGS}
 _POS = (I32, torch.int64)
+_BOOL, _I8, _I32 = (torch.bool,), (torch.int8,), (I32,)
 
 
 def _need(name: str, t, dtype, shape) -> None:
@@ -316,50 +380,65 @@ def locate_window(cfg, idx, loc, lens, codes, codes_rc):
     best diagonal `loc`: one launch of locate_window_kernel on CUDA
     tensors (two over a row-sharded text), the plain version on CPU
     tensors."""
-    if loc.device.type == "cpu":
+    dev = loc.device
+    if dev.type == "cpu":
         return locate_window_plain(cfg, idx, loc, lens, codes, codes_rc)
-    with torch.cuda.device(loc.device):
-        return _locate_window_run(_lib(), _stream(loc.device), cfg, idx,
-                                  loc, lens, codes, codes_rc)
+    with _on(dev):
+        return _locate_window_run(_lib(), _stream(dev), cfg, idx, loc, lens,
+                                  codes, codes_rc)
+
+
+def _locate_outputs(loc, B: int, L: int, pdt):
+    """locate_window's eight outputs as views of one allocation
+    (new_empty): q and t first (16-aligned, L % 16 == 0), then found and
+    strand, gi and the three positions, each at an offset of its size."""
+    pb = pdt.itemsize
+    o_gi = (2 * B * L + 2 * B + 7) & ~7
+    o_pos = (o_gi + 4 * B + 7) & ~7
+    buf = loc.new_empty((o_pos + 3 * pb * B,), dtype=torch.int8)
+    flags, words = buf.view(torch.bool), buf.view(I32)
+    pos = words if pb == 4 else buf.view(pdt)
+    off, loc_fwd, safe_loc = (pos.as_strided((B,), (1,), o_pos // pb + k * B)
+                              for k in range(3))
+    return (flags.as_strided((B,), (1,), 2 * B * L),
+            words.as_strided((B,), (1,), o_gi // 4),
+            flags.as_strided((B,), (1,), 2 * B * L + B), off, loc_fwd,
+            safe_loc, buf.as_strided((B, L), (L, 1)),
+            buf.as_strided((B, L), (L, 1), B * L))
 
 
 def _locate_window_run(lib, stream, cfg, idx, loc, lens, codes, codes_rc):
-    """locate_window through `lib`'s lrm_locate_window on `stream`."""
+    """locate_window through `lib`'s lrm_locate_window on `stream`: each
+    input checked once (dtype and shape, raising TypeError; device,
+    raising ValueError), the outputs views of one allocation."""
     B, L = cfg.B, cfg.L
     dev = loc.device
     pdt = idx.mta_start.dtype
     M = idx.mta_start.shape[0]
-    _need("loc", loc, _POS, (B,))
-    _need("lens", lens, I32, (B,))
-    _need("codes", codes, torch.int8, (B, L))
-    _need("codes_rc", codes_rc, torch.int8, (B, L))
-    _need("mta_start", idx.mta_start, _POS, (M,))
-    _need("mta_len", idx.mta_len, pdt, (M,))
     if L % 16:
         raise ValueError(f"locate_window: L {L} is not a multiple of 16")
-    ins = dict(loc=loc.contiguous(), lens=lens.contiguous(),
-               codes=codes.contiguous(), codes_rc=codes_rc.contiguous(),
-               mta_start=idx.mta_start.contiguous(),
-               mta_len=idx.mta_len.contiguous())
-    _check("locate_window", dev, ins)
-    out = dict(found=torch.empty(B, dtype=torch.bool, device=dev),
-               gi=torch.empty(B, dtype=I32, device=dev),
-               strand=torch.empty(B, dtype=torch.bool, device=dev),
-               off=torch.empty(B, dtype=pdt, device=dev),
-               loc_fwd=torch.empty(B, dtype=pdt, device=dev),
-               safe_loc=torch.empty(B, dtype=pdt, device=dev),
-               q=torch.empty((B, L), dtype=torch.int8, device=dev),
-               t=torch.empty((B, L), dtype=torch.int8, device=dev))
-    for k in ("codes", "codes_rc"):
-        _aligned(k, ins[k])
-    tp = idx.text_packed
+    ins = [loc, lens, codes, codes_rc, idx.mta_start, idx.mta_len]
+    checks = (("loc", _POS, (B,)), ("lens", _I32, (B,)),
+              ("codes", _I8, (B, L)), ("codes_rc", _I8, (B, L)),
+              ("mta_start", _POS, (M,)), ("mta_len", (pdt,), (M,)))
+    for i, (name, dtypes, shape) in enumerate(checks):
+        t = ins[i]
+        if t.dtype not in dtypes or t.shape != shape:
+            _need(name, t, dtypes, shape)
+        if t.device != dev:
+            _check("locate_window", dev, {name: t})
+        ins[i] = t.contiguous()
+    _aligned("codes", ins[2])
+    _aligned("codes_rc", ins[3])
+    out = _locate_outputs(loc, B, L, pdt)
     fields = dict(
-        loc=ins["loc"].data_ptr(), lens=ins["lens"].data_ptr(),
-        codes=ins["codes"].data_ptr(), codes_rc=ins["codes_rc"].data_ptr(),
-        start=ins["mta_start"].data_ptr(), slen=ins["mta_len"].data_ptr(),
-        **{k: t.data_ptr() for k, t in out.items()},
-        B=B, L=L, M=M, n=cfg.n, ntext=tp.shape[0],
+        loc=ins[0].data_ptr(), lens=ins[1].data_ptr(),
+        codes=ins[2].data_ptr(), codes_rc=ins[3].data_ptr(),
+        start=ins[4].data_ptr(), slen=ins[5].data_ptr(),
+        **{k: t.data_ptr() for k, t in zip(_LOCATE_OUT, out)},
+        B=B, L=L, M=M, n=cfg.n, ntext=idx.text_packed.shape[0],
         p64=int(pdt == torch.int64), loc64=int(loc.dtype == torch.int64))
+    tp = idx.text_packed
     if _sharded(idx, "text_packed"):
         # the locate and the word indices first, then the collective
         # gathers the words, then the window
@@ -373,65 +452,127 @@ def _locate_window_run(lib, stream, cfg, idx, loc, lens, codes, codes_rc):
         words, stage = tp.contiguous(), _STAGE_ALL
     if words.dtype != I32:
         raise TypeError(f"text_packed must be int32, got {words.dtype}")
-    _check("locate_window", dev, dict(text_packed=words))
+    if words.device != dev:
+        _check("locate_window", dev, dict(text_packed=words))
     _call(lib, "lrm_locate_window", LocateArgs(
         **fields, text=words.data_ptr(), widx=None, stage=stage), stream)
     locate_window.launches += 1
-    return tuple(out[k] for k in ("found", "gi", "strand", "off", "loc_fwd",
-                                  "safe_loc", "q", "t"))
+    return out
 
 
 locate_window.launches = 0
+_LOCATE_OUT = ("found", "gi", "strand", "off", "loc_fwd", "safe_loc", "q",
+               "t")
 
 
 def lanes(wcol, lens, limit, found, overflow, Wp: int, narrow: bool):
-    """(ed_raw, band_short, overflow, lens_tb), each (B,), from the DP's
-    (L+1, B) int16 centre column: one launch of lanes_kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    """G3 of a step from the DP's (L+1, B) int16 centre column, the reads'
+    lens and limits, found and the seed vote's bool overflow, as a Lanes:
+    on CPU tensors lanes_plain's four values; on CUDA tensors no launch,
+    each input checked once (dtype and shape, raising TypeError; device,
+    raising ValueError) and handed on to the walk's launch, which computes
+    the lanes' values (walk_c on a resident pass, the gact setup)."""
     if wcol.device.type == "cpu":
-        return lanes_plain(wcol, lens, limit, found, overflow, Wp, narrow)
-    with torch.cuda.device(wcol.device):
-        return _lanes_run(_lib(), _stream(wcol.device), wcol, lens, limit,
-                          found, overflow, Wp, narrow)
+        return Lanes(*lanes_plain(wcol, lens, limit, found, overflow, Wp,
+                                  narrow))
+    return _lanes_in(wcol, lens, limit, found, overflow, Wp, narrow)
 
 
-def _lanes_run(lib, stream, wcol, lens, limit, found, overflow, Wp: int,
-               narrow: bool):
-    """lanes through `lib`'s lrm_lanes on `stream`."""
+def _lanes_in(wcol, lens, limit, found, overflow, Wp: int, narrow: bool):
+    """lanes' card route on tensors of any one device: the Lanes of the
+    checked inputs and of the three tensors the walk's launch writes."""
     dev = wcol.device
-    L1, B = wcol.shape
-    _need("wcol", wcol, torch.int16, (L1, B))
-    _need("lens", lens, I32, (B,))
-    _need("limit", limit, I32, (B,))
-    _need("found", found, torch.bool, (B,))
-    _need("overflow", overflow, torch.bool, (B,))
-    ins = dict(wcol=wcol.contiguous(), lens=lens.contiguous(),
-               limit=limit.contiguous(), found=found.contiguous(),
-               ovf_in=overflow.contiguous())
-    _check("lanes", dev, ins)
-    out = dict(ed_raw=torch.empty(B, dtype=I32, device=dev),
-               band_short=torch.empty(B, dtype=torch.bool, device=dev),
-               overflow=torch.empty(B, dtype=I32, device=dev),
-               lens_tb=torch.empty(B, dtype=I32, device=dev))
-    _call(lib, "lrm_lanes", LanesArgs(
-        **{k: t.data_ptr() for k, t in ins.items()},
-        **{k: t.data_ptr() for k, t in out.items()},
-        B=B, L=L1 - 1, Wp=Wp, narrow=int(narrow)), stream)
-    lanes.launches += 1
-    return tuple(out[k] for k in ("ed_raw", "band_short", "overflow",
-                                  "lens_tb"))
+    if wcol.dtype != torch.int16 or wcol.dim() != 2:
+        raise TypeError(f"wcol must be (L + 1, B) int16, got {wcol.dtype} "
+                        f"{tuple(wcol.shape)}")
+    ins = [wcol, lens, limit, found, overflow]
+    shape = (wcol.shape[1],)
+    for i, (name, dtypes) in enumerate(_LANES_IN):
+        t = ins[i]
+        if i and (t.dtype not in dtypes or t.shape != shape):
+            _need(name, t, dtypes, shape)
+        if t.device != dev:
+            _check("lanes", dev, {name: t})
+        ins[i] = t.contiguous()
+    # ed_raw, overflow and band_short, views of one allocation
+    B = shape[0]
+    out = wcol.new_empty((2 * B + (B + 3) // 4,), dtype=I32)
+    ed_raw = out.as_strided(shape, (1,))
+    ovf = out.as_strided(shape, (1,), B)
+    short = out.view(torch.bool).as_strided(shape, (1,), 8 * B)
+    src = LanesIn(*[t.data_ptr() for t in ins], ed_raw.data_ptr(),
+                  short.data_ptr(), ovf.data_ptr(), B, wcol.shape[0] - 1, Wp,
+                  int(narrow))
+    return Lanes(ed_raw, short, ovf, None, src, tuple(ins), written=False)
 
 
+# the launches that compute G3 on the card: walk_c_kernel and lanes_kernel
+# given a Lanes
 lanes.launches = 0
+_LANES_IN = (("wcol", (torch.int16,)), ("lens", _I32), ("limit", _I32),
+             ("found", _BOOL), ("overflow", _BOOL))
 
 
-def pack(cfg, best, found, gi, strand, off, ed_raw, limit, band_short,
-         overflow, run_units, saturated=None):
+def _lanes_src(ln: Lanes, B: int, dev, who: str) -> LanesIn:
+    """The card's LanesIn of `ln` for a consumer of B lanes on `dev`."""
+    if ln.src is None or ln.ed_raw.device != dev or ln.src.B != B:
+        raise ValueError(f"{who}: lanes of {ln.ed_raw.shape[0]} reads on "
+                         f"{ln.ed_raw.device}; needs {B} on {dev}")
+    return ln.src
+
+
+def gact_setup(lens, n_rows: int):
+    """(st (3B + 3) int32, buf (B, 2 n_rows) int16 of pads): the gact
+    walk's state and run buffer (ops/gact.py) from each lane's walk length,
+    a (B,) tensor (0 or less: no walk) or G3 as a Lanes, whose values for
+    the pack it writes.  One launch of lanes_kernel on CUDA tensors
+    (counted in lanes.launches given a Lanes), st and buf views of one
+    allocation; the plain version on CPU tensors."""
+    dev = lens.ed_raw.device if isinstance(lens, Lanes) else lens.device
+    if dev.type == "cpu":
+        return gact_setup_plain(lens, n_rows)
+    with _on(dev):
+        return _gact_setup_run(_lib(), _stream(dev), lens, n_rows)
+
+
+def _gact_setup_run(lib, stream, lens, n_rows: int):
+    """gact_setup through `lib`'s lrm_gact_setup on `stream`."""
+    given = not isinstance(lens, Lanes)
+    if given:
+        if lens.dim() != 1:
+            raise ValueError(f"lens must be (B,), got {tuple(lens.shape)}")
+        B, dev = lens.shape[0], lens.device
+        lens = lens.to(I32).contiguous()
+        src = LanesIn(lens=lens.data_ptr(), B=B)
+    else:
+        B, dev = lens.ed_raw.shape[0], lens.ed_raw.device
+        src = _lanes_src(lens, B, dev, "gact_setup")
+    o = -(-(3 * B + 3) // 4) * 4               # the buffer 16-aligned
+    mem = torch.empty((o + B * n_rows,), dtype=I32, device=dev)
+    st = mem.as_strided((3 * B + 3,), (1,))
+    words = mem.as_strided((B, n_rows), (n_rows, 1), o)   # a pair a word
+    _call(lib, "lrm_gact_setup", SetupArgs(
+        src, st.data_ptr(), words.data_ptr(), B, n_rows), stream)
+    if not given:
+        lanes.launches += 1
+        lens.written = True
+    return st, words.view(torch.int16)
+
+
+def pack(cfg, best, found, gi, strand, off, lanes, limit, run_units,
+         saturated=None):
     """dict(blob (B, 4 * meta_words + head) int8, ops_tail (B, K - head)
-    int8) of the step's per-read values and its (B, R) run entries: one
-    launch of pack_kernel on CUDA tensors, the plain version on CPU
-    tensors.  `saturated` is the gact walk's 0-dim bool flag (bit 1), None
-    on the resident path."""
+    int8) of the step's per-read values, G3's (a Lanes: its ed_raw,
+    band_short and overflow; raises ValueError where no walk's launch has
+    written them) and its (B, R) run entries: one launch of pack_kernel on
+    CUDA tensors, the plain version on CPU tensors.  `saturated` is the
+    gact walk's 0-dim bool flag (bit 1), None on the resident path."""
+    if not lanes.written:
+        raise ValueError("pack: no walk's launch has written the lanes' "
+                         "values; run device_traceback_c or "
+                         "gact_traceback_c on this Lanes first")
+    ed_raw, band_short, overflow = (lanes.ed_raw, lanes.band_short,
+                                    lanes.overflow)
     dev = run_units.device
     if dev.type == "cpu":
         return pack_plain(cfg, best, found, gi, strand, off, ed_raw, limit,
@@ -442,7 +583,6 @@ def pack(cfg, best, found, gi, strand, off, ed_raw, limit, band_short,
                          saturated)
 
 
-_BOOL, _I32 = (torch.bool,), (I32,)
 # the per-read inputs in PackArgs' order, with their dtypes
 _PACK_IN = (("best", _POS), ("found", _BOOL), ("gi", _I32),
             ("strand", _BOOL), ("off", _POS), ("ed_raw", _I32),

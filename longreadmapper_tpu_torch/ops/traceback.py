@@ -16,9 +16,14 @@ csrc/walk.cu::walk_c_kernel (a warp a lane over its columns in shared
 memory, the whole walk in one launch, every element of `runs` written by
 it, no host sync; counted in `device_traceback_c.launches`) on a CUDA
 tensor, and runs the plain version `device_traceback_c_plain` on a CPU
-tensor.  The plain version is eager PyTorch: torch has no unsigned 32-bit
-logical shifts, clz or popcount, so words are widened to int64 and masked
-to 32 bits, and the highest set bit is found by an exact binary search; it
+tensor.  Its lanes' lengths come as a tensor or, on the map path, as G3
+of the step glue (ops/step.py::Lanes): then the kernel computes each
+lane's values from the lanes' inputs (csrc/lanes.cuh), its length for the
+walk and the three the pack reads into the Lanes' tensors, and the launch
+also counts in `step.lanes.launches`.  The plain version is eager
+PyTorch: torch has no unsigned 32-bit logical shifts, clz or popcount, so
+words are widened to int64 and masked to 32 bits, and the highest set
+bit is found by an exact binary search; it
 reads the loop's `any(~done)` on the host every iteration (counted in
 `device_traceback_c.host_syncs`).
 """
@@ -30,6 +35,8 @@ import ctypes
 import torch
 
 from .. import native_build
+from . import step
+from .seed_vote import _stream
 
 OP_M, OP_I, OP_D, OP_PAD = 0, 1, 2, 3
 _MASK32 = 0xFFFFFFFF
@@ -37,9 +44,17 @@ _MASK32 = 0xFFFFFFFF
 # the C entries of csrc/walk.cu (the gact walk's wrapper is ops/gact.py's)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 WALK_FUNCS = {
-    "lrm_walk_c": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "lrm_walk_c_lanes": [_P, _P],
     "lrm_gact_walk": [_P] * 7 + [_I] * 7 + [_P],
 }
+
+
+class WalkCArgs(ctypes.Structure):
+    """csrc/walk.cu::WalkCArgs: every field 8 bytes."""
+    _fields_ = [(k, ctypes.c_void_p) for k in ("vdirs", "nm", "runs")] + [
+        ("lanes", step.LanesIn)] + [
+        (k, ctypes.c_int64) for k in
+        ("G", "B", "band", "W", "n_iter", "entry_bytes")]
 
 
 def traceback_c_iters(L: int, W: int) -> int:
@@ -84,13 +99,27 @@ def _check_entry_bits(L: int, W: int, band: int, entry_dtype) -> None:
 def device_traceback_c(vdirs, lens, L: int, W: int, nm,
                        entry_dtype=torch.int16):
     """vdirs (G, B, band) int32 direction words, lens (B,) (0 = skip the
-    lane), nm (ceil(G/32), B, band) int32 group bitmap.
+    lane) or G3 as a step.Lanes (its lens_tb), nm (ceil(G/32), B, band)
+    int32 group bitmap.
 
     Returns runs (B, 2 * traceback_c_iters(L, W)) of `entry_dtype`: one
     launch of csrc/walk.cu::walk_c_kernel on CUDA tensors (raises for what
     it does not take), the plain version on CPU tensors."""
-    if vdirs.device.type == "cpu":
+    dev = vdirs.device
+    if dev.type == "cpu":
+        if isinstance(lens, step.Lanes):
+            lens = lens.lens_tb
         return device_traceback_c_plain(vdirs, lens, L, W, nm, entry_dtype)
+    with step._on(dev):
+        return _walk_c_run(native_build.load("walk", WALK_FUNCS),
+                           _stream(dev), vdirs, lens, L, W, nm, entry_dtype)
+
+
+def _walk_c_run(lib, stream, vdirs, lens, L: int, W: int, nm, entry_dtype):
+    """device_traceback_c's card route through `lib`'s lrm_walk_c_lanes on
+    `stream`."""
+    given = not isinstance(lens, step.Lanes)
+    dev = vdirs.device
     G, B, band = vdirs.shape
     _check_entry_bits(L, W, band, entry_dtype)
     if entry_dtype not in (torch.int16, torch.int32):
@@ -98,29 +127,35 @@ def device_traceback_c(vdirs, lens, L: int, W: int, nm,
     if vdirs.dtype != torch.int32 or nm.dtype != torch.int32:
         raise TypeError(f"vdirs and nm must be int32, got {vdirs.dtype}, "
                         f"{nm.dtype}")
-    if nm.device != vdirs.device or lens.device != vdirs.device:
-        raise ValueError(f"vdirs on {vdirs.device}, nm on {nm.device}, lens "
-                         f"on {lens.device}: one CUDA device")
-    if (tuple(nm.shape) != (-(-G // 32), B, band) or tuple(lens.shape) != (B,)
+    lens_dev = lens.device if given else lens.ed_raw.device
+    if nm.device != dev or lens_dev != dev:
+        raise ValueError(f"vdirs on {dev}, nm on {nm.device}, lens on "
+                         f"{lens_dev}: one CUDA device")
+    if not given:
+        src = step._lanes_src(lens, B, dev, "walk_c")
+    elif lens.shape != (B,):
+        raise ValueError(f"walk_c takes lens (B,) = ({B},), got "
+                         f"{tuple(lens.shape)}")
+    else:
+        lens = lens.to(torch.int32).contiguous()
+        src = step.LanesIn(lens=lens.data_ptr(), B=B)
+    if (nm.shape != (-(-G // 32), B, band)
             or not (vdirs.is_contiguous() and nm.is_contiguous())):
         raise ValueError(f"walk_c takes contiguous vdirs (G, B, band), nm "
-                         f"(ceil(G/32), B, band), lens (B,); got "
-                         f"{tuple(vdirs.shape)}, {tuple(nm.shape)}, "
-                         f"{tuple(lens.shape)}")
+                         f"(ceil(G/32), B, band); got {tuple(vdirs.shape)}, "
+                         f"{tuple(nm.shape)}")
     n_iter = traceback_c_iters(L, W)
     # the kernel writes each lane's whole row, pads included
-    runs = torch.empty((B, 2 * n_iter), dtype=entry_dtype,
-                       device=vdirs.device)
-    lens32 = lens.to(torch.int32).contiguous()
-    lib = native_build.load("walk", WALK_FUNCS)
-    with torch.cuda.device(vdirs.device):
-        stream = torch.cuda.current_stream(vdirs.device).cuda_stream
-        err = lib.lrm_walk_c(vdirs.data_ptr(), nm.data_ptr(),
-                             lens32.data_ptr(), G, B, band, W, n_iter,
-                             runs.data_ptr(), runs.element_size(), stream)
+    runs = vdirs.new_empty((B, 2 * n_iter), dtype=entry_dtype)
+    err = lib.lrm_walk_c_lanes(ctypes.byref(WalkCArgs(
+        vdirs.data_ptr(), nm.data_ptr(), runs.data_ptr(), src, G, B, band, W,
+        n_iter, runs.element_size())), stream)
     if err != 0:
         raise RuntimeError(f"walk_c kernel launch failed: error {err}")
     device_traceback_c.launches += 1
+    if not given:
+        step.lanes.launches += 1
+        lens.written = True
     return runs
 
 

@@ -10,8 +10,12 @@ Mb genome, all made from --seed; the step glue's four kernels on each
 set's first chunk by the checkout's own `chip_smoke.glue_case` (each held
 bit-equal to its plain version; the wrapper's CUDA-event median and the
 kernel's device time from a trace, GLUE_TURNS calls each, beside
-`glue_bounds`); and `seed_tables` on each set's first
-chunk and on the 1 kb chunk of phase 3b's repeat genome (wide seeds):
+`glue_bounds`); walk_c_kernel and pack_kernel alone (a trace of 50
+calls each) on the route the checkout's step takes at the 1 kb and 10 kb
+buckets (walk_c on the lanes' inputs, or on the values of a lanes
+launch), their outputs held equal by digest; and `seed_tables` on each
+set's first chunk and on the 1 kb chunk of phase 3b's repeat genome
+(wide seeds):
 the wrapper's CUDA-event median over VOTE_TURNS calls, and the kernel's
 own device time from a torch.profiler trace of as many calls, its
 outputs' digest held equal between the checkouts.
@@ -72,6 +76,62 @@ for name, (reads, _) in sets.items():
         res = {}
         chip_smoke.glue_case("ab", name, mapper, reads, res)
         out["glue"][name] = res
+# walk_c and pack_kernel alone on the route the checkout's map_step
+# takes (walk_c on G3's inputs, a step.Lanes, where the checkout has one,
+# else on the values of its own lanes launch) at the resident buckets,
+# outputs held equal between the checkouts by digest
+from longreadmapper_tpu_torch.ops import step as S
+from longreadmapper_tpu_torch.ops.band_dp import banded_nw_dirs
+from longreadmapper_tpu_torch.ops.seed_vote import vote_rows, wide_rank
+from longreadmapper_tpu_torch.ops.traceback import device_traceback_c
+
+
+def digest(t):
+    t = t.reshape(-1).to(torch.int64)
+    return int((t * (torch.arange(t.numel(), device=t.device) % 999983
+                     + 1)).sum())
+
+
+out["carriers"] = {}
+for name, (reads, _) in sets.items():
+    if name not in ("1kb", "10kb"):
+        continue
+    L, prepped = mapper._prepare_chunk(reads[:mapper.B])
+    cfg = mapper._step_for(L)
+    _, raw, _, lens, limits = prepped[0]
+    raw, lens, limit = (torch.from_numpy(a).cuda() for a in (raw, lens,
+                                                             limits))
+    codes, codes_rc = S.encode_raw(raw, int(lens.max()))
+    tabs = seed_tables(cfg, mapper.idx, codes, lens)
+    best, ovf, _ = vote_rows(cfg, mapper.idx, lens, tabs, wide_rank(tabs[3]))
+    found, gi, strand, off, _, _, q, t = S.locate_window(
+        cfg, mapper.idx, best, lens, codes, codes_rc)
+    Wp = cfg.short_W
+    vdirs, wcol, nm = banded_nw_dirs(q, t, Wp, cfg.short_band)
+    dt = torch.int16 if cfg.tb_entry_bytes == 2 else torch.int32
+    ln = S.lanes(wcol, lens, limit, found, ovf, Wp, Wp < cfg.W)
+    head = (cfg, best, found, gi, strand, off)
+    if hasattr(S, "Lanes"):
+        walk = lambda: device_traceback_c(vdirs, ln, cfg.L, Wp, nm, dt)
+        runs = walk()
+        packf = lambda: S.pack(*head, ln, limit, runs, None)
+    else:
+        ed, short, ov, lens_tb = ln
+        walk = lambda: device_traceback_c(vdirs, lens_tb, cfg.L, Wp, nm, dt)
+        runs = walk()
+        packf = lambda: S.pack(*head, ed, limit, short, ov, runs, None)
+    res = dict(runs=digest(runs), blob=digest(packf()["blob"]))
+    for kern, fn in (("walk_c_kernel", walk), ("pack_kernel", packf)):
+        fn()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+        ts = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type.name == "CUDA" and kern in e.name]
+        res[kern] = statistics.median(ts) if ts else None
+        res[kern + "_traced"] = len(ts)
+    out["carriers"][name] = res
 del mapper
 out["tables"] = {}
 for name, (reads, L) in sets.items():
@@ -177,8 +237,16 @@ def main(argv=None) -> int:
                           f"{json.dumps(st['trace'])}", flush=True)
                 for name, st in out["glue"].items():
                     print(f"[{who}] {name} glue (wrapper ms, kernel ms): "
-                          + json.dumps({k: (v["ms"], v["kernel_ms"])
+                          + json.dumps({k: (v.get("ms"), v.get("kernel_ms"))
                                         for k, v in st.items()}), flush=True)
+                for name, st in out["carriers"].items():
+                    print(f"[{who}] {name} carriers alone (ms): "
+                          + json.dumps(st), flush=True)
+                    dig = (st["runs"], st["blob"])
+                    if digests.setdefault(name + " carriers", dig) != dig:
+                        raise AssertionError(f"{name}: the walk's runs or "
+                                             "the blob differ between the "
+                                             "checkouts")
                 for name, st in out["tables"].items():
                     print(f"[{who}] {name} seed_tables: wrapper "
                           f"{st['wrapper_ms']} ms, kernel {st['kernel_ms']} "

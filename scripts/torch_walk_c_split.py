@@ -68,12 +68,12 @@ PROBES = (
      "    atomicAdd(&g_split[4], static_cast<unsigned long long>(ts));\n"
      "    atomicAdd(&g_split[5], static_cast<unsigned long long>(tl));\n"
      "  }\n"),
-    ('extern "C" int lrm_walk_c(',
+    ('extern "C" int lrm_walk_c_lanes(',
      'extern "C" int lrm_walk_split(unsigned long long* out, int reset) {\n'
      "  if (reset) {\n    unsigned long long z[6] = {0};\n"
      "    return cudaMemcpyToSymbol(g_split, z, sizeof(z));\n  }\n"
      "  return cudaMemcpyFromSymbol(out, g_split, sizeof(g_split));\n}\n\n"
-     'extern "C" int lrm_walk_c('),
+     'extern "C" int lrm_walk_c_lanes('),
 )
 
 

@@ -20,7 +20,15 @@
     1 kb, 10 kb and 50 kb buckets' shapes (encode (2048, 1024), (200,
     10240), (40, 50176); pack (2048, 216) int16, (200, 1036) int32, (40,
     10456) int16 gact pos64), inputs made with numpy
-    (tests/_glue_inputs.py).
+    (tests/_glue_inputs.py);
+  * walk_c_kernel's start on the lanes' inputs (a step.Lanes, G3 of the
+    step glue), where thread 0 computes the walk length: LANES_VARIANTS,
+    the checkout's own ("shipped") beside the same block reading the
+    read's length again ("reload") and the window's first copies made at
+    the read's length before the walk length is known ("after",
+    "after_all", "after_early"); and the checkout's kernel on
+    lanes_plain's lens_tb ("given"), on the same resident passes as
+    walk_c's constants.
 
 Each variant is the checkout's source with those constants rewritten,
 built by nvcc with native_build's flags (all builds at once), and run in
@@ -31,7 +39,7 @@ the kernel's device time from one torch.profiler trace of VOTE_TURNS
 calls of each variant in each round).
 
   python3 scripts/torch_walk_tables_sweep.py [--rounds N] [--seed N]
-      [--parts walk_c,gact_walk,seed_tables,glue]
+      [--parts walk_c,gact_walk,seed_tables,glue,lanes]
 
 The JSON printed last holds every median (ms) with the card's name and
 power limit.
@@ -62,6 +70,61 @@ TABLE_VARIANTS = ((512, 2), (256, 4), (256, 2))
 # (kEncodeThreads, kPackRowsCta); the checkout's own first
 GLUE_VARIANTS = ((128, 8), (256, 8), (64, 8), (128, 4), (128, 16))
 VOTE_TURNS = 20
+# walk_c_kernel's kLanes block, before the window's first copies, and the
+# place after those copies where a variant puts its block
+KLANES_BLOCK = re.compile(r"  if \(kLanes\) \{\n.*?\n  \}\n(?=  int j = i;)",
+                          re.S)
+AFTER_COPIES = "  int n = 0;\n  while"
+LANE_SPECULATIVE = """  if (kLanes) {
+    int walk = 0;
+    if (lane == 0) walk = lane_out(ln, b, i);
+    if (__shfl_sync(0xffffffffu, walk, 0) != i) done = true;
+  }
+"""
+LANE_EARLY_LOADS = """  int e_ed = 0, e_lim = 0, e_f = 0, e_o = 0;
+  if (kLanes) {
+    const long long row = i < 0 ? 0 : (i > ln.L ? ln.L : i);
+    e_ed = ln.wcol[row * ln.B + b];
+    e_lim = ln.limit[b];
+    e_f = ln.found[b];
+    e_o = ln.ovf_in[b];
+  }
+"""
+# name -> (where, block): the checkout's own block ("shipped"); the same
+# reading the read's length again ("reload"); and, with the window's first
+# copies made at the read's length before the walk length is known
+# ("after": thread 0 computes it after them; "after_all": every thread
+# does; "after_early": the inputs' loads issued before the copies)
+LANES_VARIANTS = {
+    "shipped": None,
+    "reload": ("block", """  if (kLanes) {
+    int walk = 0;
+    if (lane == 0) walk = lane_out(ln, b, ln.lens[b]);
+    i = __shfl_sync(0xffffffffu, walk, 0);
+  }
+"""),
+    "after": ("after", LANE_SPECULATIVE),
+    "after_all": ("after", """  if (kLanes) {
+    const Lane l = lane_of(ln, b, i);
+    if (lane == 0) {
+      ln.ed_raw[b] = l.ed_raw;
+      ln.band_short[b] = static_cast<unsigned char>(l.band_short);
+      ln.overflow[b] = l.overflow;
+    }
+    if (l.walk_len != i) done = true;
+  }
+"""),
+    "after_early": ("early", """  if (kLanes) {
+    const bool sb = ln.narrow && e_f && e_ed >= ln.Wp && e_lim >= ln.Wp;
+    if (lane == 0) {
+      ln.ed_raw[b] = e_ed;
+      ln.band_short[b] = sb;
+      ln.overflow[b] = (e_o != 0 ? 1 : 0) | (sb ? 4 : 0);
+    }
+    if (!(e_f && e_ed <= e_lim && !sb)) done = true;
+  }
+"""),
+}
 
 
 def ring(ahead: int) -> int:
@@ -80,16 +143,39 @@ def rewrite(text: str, consts: dict) -> str:
     return text
 
 
+def lanes_edit(how, block: str):
+    """The edit of walk.cu's text that puts `block` in place of the kLanes
+    block (how "block"), or drops that block and puts `block` after the
+    window's first copies (how "after"; how "early" also issues the lane's
+    inputs' loads right after the read's length)."""
+    def edit(text):
+        text, n = KLANES_BLOCK.subn(block if how == "block" else "", text)
+        if n != 1:
+            raise AssertionError(f"{n} kLanes blocks in walk.cu")
+        if how == "block":
+            return text
+        anchor = "  int i = __ldg(ln.lens + b);\n"
+        for a in (AFTER_COPIES, anchor):
+            if text.count(a) != 1:
+                raise AssertionError(f"no one {a!r} in walk.cu")
+        text = text.replace(AFTER_COPIES, block + AFTER_COPIES)
+        if how == "early":
+            text = text.replace(anchor, anchor + LANE_EARLY_LOADS)
+        return text
+    return edit
+
+
 def build_variants(d: str, jobs: dict, edit=None) -> dict:
-    """{tag: (source name, constants)} -> {tag: library path}, every nvcc
-    started at once; `edit`, where given, rewrites each source's text
-    before its constants are."""
+    """{tag: (source name, constants[, edit])} -> {tag: library path},
+    every nvcc started at once; an edit, the job's or `edit`, rewrites
+    each source's text before its constants are."""
     from longreadmapper_tpu_torch import native_build
     procs = {}
-    for tag, (name, consts) in jobs.items():
+    for tag, (name, consts, *job_edit) in jobs.items():
         with open(native_build.source(name)) as f:
             text = f.read()
-        text = rewrite(edit(text) if edit else text, consts)
+        fix = job_edit[0] if job_edit else edit
+        text = rewrite(fix(text) if fix else text, consts)
         src = os.path.join(d, f"{tag}.cu")
         with open(src, "w") as f:
             f.write(text)
@@ -173,18 +259,19 @@ def sweep_walk(rng, libs: dict, rounds: int) -> dict:
 def traced_turns(libs: dict, functions: dict, name: str, kernel: str,
                  fn, rounds: int) -> dict:
     """{tag: median device ms of `kernel`} over one torch.profiler trace
-    of `rounds` rounds that call fn VOTE_TURNS times with each variant's
-    library loaded as `name`, in order on even rounds and in reverse on
-    odd ones."""
+    of `rounds` rounds that call fn (or fn[tag]) VOTE_TURNS times with
+    each variant's library loaded as `name`, in order on even rounds and
+    in reverse on odd ones."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     order = []
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for r in range(rounds):
             for tag in (list(libs) if r % 2 == 0 else list(libs)[::-1]):
+                call = fn[tag] if isinstance(fn, dict) else fn
                 with using(name, load(libs[tag], functions)):
                     for _ in range(VOTE_TURNS):
-                        fn()
+                        call()
                 order.append(tag)
         torch.cuda.synchronize()
     ev = sorted((e for e in prof.events() if e.device_type.name == "CUDA"
@@ -225,6 +312,55 @@ def sweep_walk_c(rng, libs: dict, rounds: int) -> dict:
             libs, WALK_FUNCS, "walk", "walk_c_kernel",
             lambda: device_traceback_c(v, lens, L, W, nm, dt), rounds)
         print(f"[sweep] walk_c {name} (B {B}, L {L}): "
+              f"{json.dumps(out[name])}", flush=True)
+        del v, nm, wcol
+    return out
+
+
+def sweep_lanes(rng, libs: dict, rounds: int) -> dict:
+    """walk_c_kernel alone on the lanes' inputs in each LANES_VARIANTS
+    build, and the shipped build on lanes_plain's lens_tb ("given"), at
+    the 1 kb and 10 kb resident passes: the reads' lengths, limits W - 1,
+    all found, no overflow, the full band (each read whose distance
+    reaches W does not walk, as chip_smoke.walk_lens); every variant's
+    runs and the lanes' values held bit-equal to lanes_plain's walk."""
+    import torch
+    import chip_smoke as smoke
+    from longreadmapper_tpu_torch.ops import step as S
+    from longreadmapper_tpu_torch.ops.band_dp import banded_nw_dirs
+    from longreadmapper_tpu_torch.ops.traceback import (WALK_FUNCS,
+                                                        device_traceback_c)
+    out = {}
+    for name, (B, L, W, band), indel in (
+            ("1kb", smoke.MAIN_SHAPE, 0.0),
+            ("10kb", smoke.WIDE_MAIN, smoke.WALK_INDEL)):
+        dt = torch.int16 if max(L, band - W) < 8192 else torch.int32
+        q, t = smoke.dp_inputs(rng, B, L, indel)
+        v, wcol, nm = banded_nw_dirs(q, t, W, band)
+        lens = (q != 4).sum(dim=1).to(torch.int32)
+        lane_args = (wcol, lens, torch.full_like(lens, W - 1),
+                     torch.ones_like(lens, dtype=torch.bool),
+                     torch.zeros_like(lens, dtype=torch.bool), W, False)
+        plain = S.lanes_plain(*lane_args)
+        ln = S.lanes(*lane_args)
+        tags = dict(libs, given=libs["lanes_shipped"])
+        fns = {tag: (lambda: device_traceback_c(v, ln, L, W, nm, dt))
+               for tag in libs}
+        fns["given"] = lambda: device_traceback_c(v, plain[3], L, W, nm, dt)
+        want = None
+        for tag in tags:                       # warm-up and bit-equality
+            with using("walk", load(tags[tag], WALK_FUNCS)):
+                runs = fns[tag]()
+            want = runs if want is None else want
+            if not (torch.equal(runs, want) and all(
+                    torch.equal(a, b) for a, b in zip(
+                        (ln.ed_raw, ln.band_short, ln.overflow),
+                        plain[:3]))):
+                raise AssertionError(f"walk_c {tag} differs at {name}")
+        out[name] = traced_turns(tags, WALK_FUNCS, "walk", "walk_c_kernel",
+                                 fns, rounds)
+        print(f"[sweep] walk_c on the lanes' inputs {name} (B {B}, L {L}, "
+              f"{int((plain[3] > 0).sum())} lanes walked): "
               f"{json.dumps(out[name])}", flush=True)
         del v, nm, wcol
     return out
@@ -287,12 +423,13 @@ def sweep_glue(seed: int, libs: dict, rounds: int) -> dict:
         raw = torch.from_numpy(G.raw_case(rng, B, L, L0)).cuda()
         v = G.to_torch(G.pack_case(rng, B, R, eb, gact), "cuda")
         cfg = G.cfg(B, L, 1000, pos64=gact, use_gact=gact, entry_bytes=eb)
-        args = (cfg, v["best"], v["found"], v["gi"], v["strand"], v["off"],
-                v["ed_raw"], v["limit"], v["band_short"], v["overflow"],
-                v["runs"], None)
+        head = (cfg, v["best"], v["found"], v["gi"], v["strand"], v["off"])
+        ln = S.Lanes(v["ed_raw"], v["band_short"], v["overflow"])
         calls = {"encode": lambda: S.encode_raw(raw, L0),
-                 "pack": lambda: S.pack(*args)}
-        want = (S.encode_raw_plain(raw, L0), S.pack_plain(*args))
+                 "pack": lambda: S.pack(*head, ln, v["limit"], v["runs"])}
+        want = (S.encode_raw_plain(raw, L0), S.pack_plain(
+            *head, v["ed_raw"], v["limit"], v["band_short"], v["overflow"],
+            v["runs"], None))
         for tag in libs:                        # warm-up and bit-equality
             with using("step", load(libs[tag], S.STEP_FUNCS)):
                 got = (calls["encode"](), calls["pack"]())
@@ -339,6 +476,10 @@ def main(argv=None) -> int:
     if "glue" in parts:
         jobs.update({f"glue_t{t}_r{r}": ("step", dict(
             kEncodeThreads=t, kPackRowsCta=r)) for t, r in GLUE_VARIANTS})
+    if "lanes" in parts:
+        jobs.update({f"lanes_{k}": ("walk", {}) + (
+            (lanes_edit(*v),) if v else ()) for k, v in
+            LANES_VARIANTS.items()})
     out = dict(card=card)
     with tempfile.TemporaryDirectory(prefix="lrm_sweep_") as d:
         libs = build_variants(d, jobs)
@@ -356,6 +497,9 @@ def main(argv=None) -> int:
                                               args.rounds)
         if "glue" in parts:
             out["glue"] = sweep_glue(args.seed, of("glue_"), args.rounds)
+        if "lanes" in parts:
+            out["lanes"] = sweep_lanes(np.random.default_rng(args.seed),
+                                       of("lanes_"), args.rounds)
     print(card)
     print(json.dumps(out))
     return 0

@@ -1,8 +1,9 @@
 """Inputs of the step glue's tests (ops/step.py: encode_raw, locate_window,
-lanes, pack), made with numpy from a seed, shared by the CPU tests
-(tests/test_torch_glue.py) and the card-only ones
-(tests/test_torch_glue_card.py).  Imports neither JAX nor conftest, so
-the card-only tests can import it where JAX is absent.
+lanes, pack, gact_setup), made with numpy from a seed, and scalar models
+of csrc/lanes.cuh::lane_of and csrc/step.cu::lanes_kernel, shared by the
+CPU tests (tests/test_torch_glue.py, tests/test_torch_walk.py) and the
+card-only ones (tests/test_torch_glue_card.py).  Imports neither JAX nor
+conftest, so the card-only tests can import it where JAX is absent.
 
 The contig tables are laid out as the .cat is (formats/catmeta.py): each
 contig's forward half then its reverse half, one after another, and the
@@ -124,6 +125,75 @@ def lanes_case(rng, B: int, L: int):
     found = rng.random(B) < 0.8
     overflow = rng.random(B) < 0.2
     return wcol, lens, limit, found, overflow
+
+
+def lanes_edges(L: int = 40, Wp: int = 64):
+    """lanes_case's arrays on crafted lanes, (len, ed at len, limit,
+    found, overflow) each: len 0 and len L, found false, ed == Wp with
+    limit == Wp (band-short when narrow), ed == Wp over a limit Wp - 1,
+    ed Wp - 1 under limit Wp, ed == limit and limit + 1, overflow set on
+    a live lane and on a dead one, ed 0 at limit 0."""
+    specs = [(0, 5, 10, True, False), (L, 7, 9, True, False),
+             (L, 3, 50, False, False), (L // 2, Wp, Wp, True, False),
+             (L // 3, Wp, Wp - 1, True, True), (L - 1, Wp - 1, Wp, True,
+                                                 False),
+             (5, 20, 20, True, True), (6, 21, 20, True, False),
+             (L, Wp + 9, 200, True, True), (0, 0, 0, True, False),
+             (1, Wp, Wp + 5, False, True)]
+    rng = np.random.default_rng(L + Wp)
+    B = len(specs)
+    wcol = rng.integers(-3, 200, (L + 1, B)).astype(np.int16)
+    lens, limit, found, overflow = (np.array(x) for x in zip(*[
+        (n, lim, f, o) for n, _, lim, f, o in specs]))
+    for b, (n, ed, *_) in enumerate(specs):
+        wcol[n, b] = ed
+    return (wcol, lens.astype(np.int32), limit.astype(np.int32),
+            found.astype(bool), overflow.astype(bool))
+
+
+def model_lane(wcol, lens, limit, found, ovf, Wp: int, narrow: bool, b):
+    """csrc/lanes.cuh::lane_of for lane b, as the CUDA is written, in
+    Python integers: (ed_raw, band_short, overflow, walk_len)."""
+    L, B = wcol.shape[0] - 1, wcol.shape[1]
+    n = int(lens[b])
+    row = 0 if n < 0 else (L if n > L else n)
+    ed = int(np.asarray(wcol).reshape(-1)[row * B + b])
+    lim = int(limit[b])
+    f = bool(found[b])
+    short = bool(narrow) and f and ed >= Wp and lim >= Wp
+    return (ed, int(short), (1 if ovf[b] else 0) | (4 if short else 0),
+            n if f and ed <= lim and not short else 0)
+
+
+def model_gact_setup(walk_len, B: int, n_rows: int, threads: int = 256,
+                     max_blocks: int = 4096):
+    """csrc/step.cu::lanes_kernel as it is written, a grid of `threads`
+    thread blocks sized as lrm_gact_setup sizes it (the fill's blocks at
+    most `max_blocks`, a thread for each lane and shared word), over
+    buffers of garbage: thread t < B writes lane t's (i, j, done) from
+    walk_len(t), threads B .. B + 2 zero the shared words, and the grid
+    fills the run buffer, four pad pairs (int32 words) at a time, then the
+    words past the last four.  Returns (st (3B + 3) int32, buf (B,
+    2 n_rows) int16)."""
+    st = np.full(3 * B + 3, -0x5A5A5A5B, np.int64)
+    words = np.full(B * n_rows, 0x5A5A5A5A, np.int64)
+    blocks = min(-(-(B * n_rows // 4) // threads), max_blocks)
+    nt = max(blocks, -(-(B + 3) // threads)) * threads
+    pad = (3 << 16) | 3
+    vecs = len(words) >> 2
+    for t in range(nt):
+        if t < B:
+            n = walk_len(t)
+            st[t] = st[B + t] = n
+            st[2 * B + t] = n <= 0
+        elif t < B + 3:
+            st[2 * B + t] = 0
+        for k in range(t, vecs, nt):
+            words[4 * k:4 * k + 4] = pad
+        for k in range(4 * vecs + t, len(words), nt):
+            words[k] = pad
+    buf = words.astype(np.uint32).view(np.int16).reshape(B, 2 * n_rows)
+    return st.astype(np.int32), buf
 
 
 def pack_case(rng, B: int, R: int, eb: int, pos64: bool):

@@ -215,10 +215,170 @@ def test_pack_is_a_stable_partition(R, eb, pos64, gact, saturated):
     c = G.cfg(9, 64, 1000, pos64=pos64, use_gact=gact, entry_bytes=eb)
     sat = None if saturated is None else torch.tensor(saturated)
     got = tstep.pack(c, v["best"], v["found"], v["gi"], v["strand"],
-                     v["off"], v["ed_raw"], v["limit"], v["band_short"],
-                     v["overflow"], v["runs"], sat)
+                     v["off"], tstep.Lanes(v["ed_raw"], v["band_short"],
+                                           v["overflow"]),
+                     v["limit"], v["runs"], sat)
     blob, tail = _pack_numpy(c, vals, saturated)
     np.testing.assert_array_equal(got["blob"].numpy(), blob)
     np.testing.assert_array_equal(got["ops_tail"].numpy(), tail)
     assert got["blob"].shape[1] == 4 * c.meta_words + min(
         R * eb, R * eb if gact else 16)
+
+
+# ---------------------------------------------------------------- G3 fused
+
+def _jax_lanes(wcol, lens, limits, found, overflow, Wp, narrow):
+    """JAX's expressions for the walk's inputs, op for op: the narrow pass
+    (longreadmapper_tpu/mapping/pipeline.py:896-910 on the gact path,
+    :972-977 on the resident one; the same bit 2 either way), alive and
+    lens_tb, ed_raw at :989."""
+    B = wcol.shape[1]
+    found = jnp.asarray(found)
+    limits = jnp.asarray(limits)
+    lens = jnp.asarray(lens)
+    wcol = jnp.asarray(wcol)
+    ed_pre = wcol[lens, jnp.arange(B)].astype(jnp.int32)
+    if narrow:
+        band_short = found & (ed_pre >= jnp.int32(Wp)) & \
+            (jnp.int32(Wp) <= limits.astype(jnp.int32))
+    else:
+        band_short = jnp.zeros_like(found)
+    overflow = jnp.asarray(overflow).astype(jnp.int32) | \
+        jnp.where(band_short, jnp.int32(4), jnp.int32(0))
+    alive = found & (ed_pre <= limits.astype(jnp.int32)) & ~band_short
+    lens_tb = jnp.where(alive, lens.astype(jnp.int32), 0)
+    ed_raw = wcol[lens, jnp.arange(B)].astype(jnp.int32)
+    return ed_raw, band_short, overflow, lens_tb
+
+
+def _lane_case(case):
+    if case == "edges":
+        return G.lanes_edges(40, 64)
+    return G.lanes_case(np.random.default_rng(7), 300, 40)
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("case", ["random", "edges"])
+def test_lane_model_matches_plain_and_jax(case, narrow):
+    """csrc/lanes.cuh::lane_of, modelled lane by lane as the CUDA is
+    written, equals lanes_plain and JAX's expressions: random lanes, and
+    len 0 and L, found false, ed == Wp at limit Wp, narrow on and off,
+    the seed vote's overflow set."""
+    arrays = _lane_case(case)
+    B = arrays[0].shape[1]
+    model = np.array([G.model_lane(*arrays, 64, narrow, b)
+                      for b in range(B)]).T
+    plain = tstep.lanes_plain(*(torch.from_numpy(a) for a in arrays), 64,
+                              narrow)
+    want = _jax_lanes(*arrays, 64, narrow)
+    for m, p, w in zip(model, plain, want):
+        np.testing.assert_array_equal(p.numpy().astype(np.int64), m)
+        np.testing.assert_array_equal(p.numpy(), np.asarray(w))
+    ed, short, ovf, walk = model
+    assert (walk > 0).any() and (walk == 0).any()
+    assert short.any() == narrow and (ovf & 1).any()
+    if case == "edges":
+        assert short[3] == narrow and not short[4] and walk[5] > 0
+        assert walk[0] == 0 and walk[2] == 0 and walk[6] == 5
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("case", ["random", "edges"])
+def test_lanes_record_on_cpu(case, narrow):
+    """On CPU tensors `lanes` is a Lanes of lanes_plain's four values, and
+    the gact setup on it equals the plain setup of its lens_tb."""
+    arrays = [torch.from_numpy(a) for a in _lane_case(case)]
+    ln = tstep.lanes(*arrays, 64, narrow)
+    assert ln.src is None and ln.written
+    for g, w in zip((ln.ed_raw, ln.band_short, ln.overflow, ln.lens_tb),
+                    tstep.lanes_plain(*arrays, 64, narrow)):
+        assert torch.equal(g, w)
+    for a, b in zip(tstep.gact_setup(ln, 9),
+                    tstep.gact_setup_plain(ln.lens_tb, 9)):
+        assert torch.equal(a, b)
+
+
+def _eager_gact_state(lens, n_rows):
+    """What ops/gact.py built before the setup kernel (its lines 151 and
+    156-160), op for op."""
+    B = lens.shape[0]
+    buf = torch.full((B, n_rows, 2), 3, dtype=torch.int16)
+    l32 = lens.to(torch.int32)
+    st = torch.cat([l32, l32, (l32 <= 0).to(torch.int32),
+                    torch.zeros(3, dtype=torch.int32)])
+    return st, buf.reshape(B, -1)
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("case,n_rows", [("random", 7), ("edges", 1),
+                                         ("edges", 33), ("given", 5)])
+def test_gact_setup_matches_the_eager_build(case, n_rows, narrow):
+    """csrc/step.cu::lanes_kernel, modelled thread by thread over garbage
+    (the walk state from lane_of's walk length, the shared words zeroed,
+    the buffer filled four pad pairs a store and the rest one at a time),
+    and gact_setup_plain, equal the eager build ops/gact.py made of
+    lanes_plain's lens_tb; and of given lengths, negative ones among
+    them (done where <= 0)."""
+    if case == "given":
+        lens = np.random.default_rng(n_rows).integers(-3, 50, 21).astype(
+            np.int32)
+        B = lens.shape[0]
+        model = G.model_gact_setup(lambda b: int(lens[b]), B, n_rows)
+        lens_tb = torch.from_numpy(lens)
+    else:
+        arrays = _lane_case(case)
+        B = arrays[0].shape[1]
+        model = G.model_gact_setup(
+            lambda b: G.model_lane(*arrays, 64, narrow, b)[3], B, n_rows)
+        lens_tb = tstep.lanes_plain(*(torch.from_numpy(a) for a in arrays),
+                                    64, narrow)[3]
+    want = _eager_gact_state(lens_tb, n_rows)
+    plain = tstep.gact_setup_plain(lens_tb, n_rows)
+    for m, p, w in zip(model, plain, want):
+        assert p.dtype == w.dtype and p.shape == w.shape
+        np.testing.assert_array_equal(m, w.numpy())
+        assert torch.equal(p, w)
+
+
+@pytest.mark.parametrize("B,n_rows,threads,max_blocks", [
+    (100, 1, 32, 1),      # 103 lane items past the fill's 32 threads
+    (62, 2, 32, 1),       # the shared words alone past them
+    (70, 9, 32, 2),       # the fill strides, the lanes do not
+    (29, 3, 16, 1)])      # lanes and shared words past the fill's grid
+def test_gact_setup_model_covers_lanes_past_the_fill_cap(B, n_rows, threads,
+                                                         max_blocks):
+    """lanes_kernel where the fill's capped grid (lrm_gact_setup caps it
+    at 4096 blocks) has fewer threads than B + 3 (past 1,048,573 lanes):
+    the launch still gives every lane and shared word a thread, so each
+    is written, equal to the eager build."""
+    lens = np.random.default_rng(B).integers(-3, 50, B).astype(np.int32)
+    model = G.model_gact_setup(lambda b: int(lens[b]), B, n_rows, threads,
+                               max_blocks)
+    assert min(-(-(B * n_rows // 4) // threads),
+               max_blocks) * threads < B + 3
+    for m, w in zip(model, _eager_gact_state(torch.from_numpy(lens),
+                                             n_rows)):
+        np.testing.assert_array_equal(m, w.numpy())
+
+
+def test_pack_refuses_lanes_no_walk_has_written():
+    """A Lanes on the card's route (lanes' values not yet computed) is
+    not written until a walk's launch computes them: pack raises rather
+    than pack the garbage; a Lanes of given values packs."""
+    B, R = 5, 12
+    vals = G.pack_case(np.random.default_rng(3), B, R, 2, False)
+    v = G.to_torch(vals)
+    c = G.cfg(B, 64, 1000)
+    arrays = [torch.from_numpy(a) for a in G.lanes_case(
+        np.random.default_rng(4), B, 40)]
+    ln = tstep._lanes_in(*arrays, 64, True)
+    assert not ln.written and ln.lens_tb is None
+    head = (c, v["best"], v["found"], v["gi"], v["strand"], v["off"])
+    with pytest.raises(ValueError, match="no walk's launch"):
+        tstep.pack(*head, ln, v["limit"], v["runs"])
+    ln.written = True
+    got = tstep.pack(*head, ln, v["limit"], v["runs"])
+    want = tstep.pack_plain(*head, ln.ed_raw, v["limit"], ln.band_short,
+                            ln.overflow, v["runs"], None)
+    for k in want:
+        assert torch.equal(got[k], want[k])

@@ -8,7 +8,9 @@ off a 16-byte boundary), with L0 0, L0 = L and L0 either side of a CTA's
 contigs, boundaries, reads of length 0, int32 wrap near 2^31 - 1, an
 int64 table above 2^32), at every sub-word offset, and over a text that
 stands for a row-sharded one (two launches, the words gathered between
-them); lanes_kernel in both modes; pack_kernel in int16 and int32
+them); G3 on its fused route in both modes (lanes_kernel, the gact walk's
+setup, from the lanes' inputs, the lanes' values it writes for the pack
+among its outputs, and from given lengths); pack_kernel in int16 and int32
 entries, pos64, the gact head and the saturation bit, down its three
 paths (a warp a row up to 64 16-byte slots; a CTA a row up to 2048; tiles
 after a count pass beyond), with rows that start off a 16-byte boundary
@@ -17,7 +19,7 @@ after a count pass beyond), with rows that start off a 16-byte boundary
 every output allocated over memory filled with garbage (torch.empty and
 Tensor.new_empty patched: the kernel must write every byte); then a
 whole raw step on the card, byte-equal to the CPU's, that launched the
-four kernels and called no plain version.
+glue's kernels (G3 in walk_c) and called no plain version.
 
 Card-only: the tests skip where torch.cuda.is_available() is false, and
 import no JAX, so they run where JAX is absent:
@@ -70,11 +72,12 @@ def _dirty(t):
     return t
 
 
-def _run(wrapper, args, garbage: bool, launches: int = 1):
+def _run(wrapper, args, garbage: bool, launches: int = 1, counter=None):
     """wrapper(*args) on the card, its outputs allocated over garbage
     bytes when `garbage` (torch.empty and Tensor.new_empty patched);
-    checks its launch count."""
-    n = wrapper.launches
+    checks the launch count of `counter` (the wrapper's by default)."""
+    counter = counter or wrapper
+    n = counter.launches
     if garbage:
         empty, new_empty = torch.empty, torch.Tensor.new_empty
         torch.empty = lambda *a, **kw: _dirty(empty(*a, **kw))
@@ -87,7 +90,7 @@ def _run(wrapper, args, garbage: bool, launches: int = 1):
             del torch.Tensor.new_empty          # the inherited one again
     else:
         got = wrapper(*args)
-    assert wrapper.launches == n + launches
+    assert counter.launches == n + launches
     return got
 
 
@@ -196,11 +199,46 @@ def test_window_kernel_at_every_offset_on_card(L, garbage):
 @pytest.mark.parametrize("B,L", [(1, 40), (3, 16), (300, 40),
                                  (2048, 1024)])
 def test_lanes_kernel_matches_plain_on_card(B, L, narrow, garbage):
+    """G3 on its fused route against lanes_plain: `lanes` launches
+    nothing; lanes_kernel (the gact walk's setup) on the Lanes writes the
+    lanes' ed_raw, band_short and overflow equal to lanes_plain's, and the
+    walk state and run buffer equal to gact_setup_plain of its lens_tb;
+    one launch counted in lanes.launches."""
     _card()
     w, lens, lim, found, ovf = G.lanes_case(np.random.default_rng(B), B, L)
     args = tuple(torch.from_numpy(x).cuda() for x in (w, lens, lim, found,
                                                       ovf)) + (64, narrow)
-    _equal(_run(tstep.lanes, args, garbage), tstep.lanes_plain(*args))
+    ln = _run(tstep.lanes, args, garbage, 0)
+    ed, short, overflow, lens_tb = tstep.lanes_plain(*args)
+    _equal(_run(tstep.gact_setup, (ln, 7), garbage, 1, tstep.lanes),
+           tstep.gact_setup_plain(lens_tb, 7))
+    _equal([ln.ed_raw, ln.band_short, ln.overflow], [ed, short, overflow])
+    assert ln.lens_tb is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("B,n_rows", [(1, 3), (3, 1), (40, 5228),
+                                      (200, 2124), (2048, 5)])
+def test_gact_setup_kernel_matches_eager_on_card(B, n_rows, given):
+    """lanes_kernel, the gact walk's setup, over garbage: st and the run
+    buffer equal the eager build (gact_setup_plain) of lanes_plain's
+    lens_tb, or of given lengths (negative ones among them); one launch,
+    counted in lanes.launches for a Lanes only."""
+    _card()
+    rng = np.random.default_rng(B + n_rows)
+    w, lens, lim, found, ovf = G.lanes_case(rng, B, 64)
+    args = tuple(torch.from_numpy(x).cuda() for x in (w, lens, lim, found,
+                                                      ovf)) + (64, True)
+    if given:
+        lens = torch.from_numpy(rng.integers(-3, 64, B).astype(
+            np.int32)).cuda()
+        got = _run(tstep.gact_setup, (lens, n_rows), True, 0, tstep.lanes)
+    else:
+        lens = tstep.lanes_plain(*args)[3]
+        got = _run(tstep.gact_setup, (tstep.lanes(*args), n_rows), True, 1,
+                   tstep.lanes)
+    _equal(got, tstep.gact_setup_plain(lens, n_rows))
 
 
 @pytest.mark.cuda
@@ -226,10 +264,74 @@ def test_pack_kernel_matches_plain_on_card(B, R, eb, pos64, gact,
                                pos64), "cuda")
     c = G.cfg(B, 64, 1000, pos64=pos64, use_gact=gact, entry_bytes=eb)
     sat = None if saturated is None else torch.tensor(saturated).cuda()
-    args = (c, v["best"], v["found"], v["gi"], v["strand"], v["off"],
-            v["ed_raw"], v["limit"], v["band_short"], v["overflow"],
-            v["runs"], sat)
-    _equal(_run(tstep.pack, args, garbage), tstep.pack_plain(*args))
+    head = (c, v["best"], v["found"], v["gi"], v["strand"], v["off"])
+    ln = tstep.Lanes(v["ed_raw"], v["band_short"], v["overflow"])
+    _equal(_run(tstep.pack, head + (ln, v["limit"], v["runs"], sat),
+                garbage),
+           tstep.pack_plain(*head, v["ed_raw"], v["limit"],
+                            v["band_short"], v["overflow"], v["runs"], sat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,eb,gact", [
+    (40, 70, 2, False),        # a warp a row
+    (40, 5000, 2, True),       # a CTA a row, the whole row eager
+    (3, 8292, 4, False)])      # tiles after a count pass
+def test_pack_of_lanes_needs_the_walk_on_card(B, R, eb, gact):
+    """A Lanes from `lanes` on the card holds no values until a walk's
+    launch writes them: pack raises on it (no launch), still raises after
+    a walk refused at its checks, and after the gact setup's launch packs
+    bit-equal to pack_plain on lanes_plain's values, on each of the
+    pack's three paths."""
+    _card()
+    v = G.to_torch(G.pack_case(np.random.default_rng(R), B, R, eb, False),
+                   "cuda")
+    c = G.cfg(B, 64, 1000, use_gact=gact, entry_bytes=eb)
+    args = tuple(torch.from_numpy(x).cuda() for x in G.lanes_case(
+        np.random.default_rng(B), B, 64)) + (64, True)
+    ln = tstep.lanes(*args)
+    head = (c, v["best"], args[3], v["gi"], v["strand"], v["off"])
+    n = tstep.pack.launches
+    with pytest.raises(ValueError, match="no walk's launch"):
+        tstep.pack(*head, ln, args[2], v["runs"])
+    # a walk refused at its checks (vdirs of another B) leaves it unwritten
+    from longreadmapper_tpu_torch.ops import traceback as ttb
+    bad = torch.zeros((4, B + 1, 128), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        ttb.device_traceback_c(bad, ln, 64, 30, bad[:1])
+    with pytest.raises(ValueError, match="no walk's launch"):
+        tstep.pack(*head, ln, args[2], v["runs"])
+    assert tstep.pack.launches == n
+    tstep.gact_setup(ln, 5)
+    ed, short, overflow, _ = tstep.lanes_plain(*args)
+    _equal(tstep.pack(*head, ln, args[2], v["runs"]),
+           tstep.pack_plain(*head, ed, args[2], short, overflow, v["runs"],
+                            None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("B", [4096 * 256 - 1, 4096 * 256 + 37])
+def test_gact_setup_kernel_past_the_fill_cap_on_card(B, given):
+    """lrm_gact_setup caps the fill's grid at 4096 blocks of 256 threads:
+    past B + 3 = 1,048,576 items the launch still gives every lane and
+    shared word a thread, and each is written over garbage, equal to the
+    eager build."""
+    _card()
+    rng = np.random.default_rng(B)
+    if given:
+        lens = torch.from_numpy(rng.integers(-3, 64, B).astype(
+            np.int32)).cuda()
+        got = _run(tstep.gact_setup, (lens, 1), True, 0, tstep.lanes)
+    else:
+        args = tuple(torch.from_numpy(x).cuda() for x in G.lanes_case(
+            rng, B, 16)) + (64, True)
+        ln = tstep.lanes(*args)
+        got = _run(tstep.gact_setup, (ln, 1), True, 1, tstep.lanes)
+        lens = tstep.lanes_plain(*args)[3]
+        _equal([ln.ed_raw, ln.band_short, ln.overflow],
+               list(tstep.lanes_plain(*args)[:3]))
+    _equal(got, tstep.gact_setup_plain(lens, 1))
 
 
 @pytest.mark.cuda

@@ -24,11 +24,15 @@ The card tests import no JAX:
         tests/test_torch_walk.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
+import _glue_inputs as G3
 from longreadmapper_tpu_torch.ops import gact as tg
+from longreadmapper_tpu_torch.ops import step as tstep
 from longreadmapper_tpu_torch.ops import traceback as ttb
 
 torch.set_num_threads(1)
@@ -209,7 +213,7 @@ class _Ring:
 
 
 def model_walk_c_warp(vdirs, nm, lens, L, W, bits=16, ahead=1, ring=4,
-                      k_groups=8, seen=None):
+                      k_groups=8, seen=None, lane_in=None):
     """walk_c_kernel as it is written: a warp a lane over the ring of its
     columns d +- ahead, each a window of walk_c_window(G, k_groups) groups
     from the lane's group down and the bitmap words over them, loaded
@@ -218,7 +222,10 @@ def model_walk_c_warp(vdirs, nm, lens, L, W, bits=16, ahead=1, ring=4,
     and the lane's whole row written at the end.  Returns runs (B, 2 * (W
     + 6)); `seen` counts the reads of the tensor's last word (lanes past
     row L), of groups below a window, the loads kept in flight and the
-    bitmap bits taken past G."""
+    bitmap bits taken past G.  `lane_in`, the lanes' inputs (wcol, lens,
+    limit, found, overflow, Wp, narrow), stands for lens as the kernel's
+    kLanes form takes them: thread 0 of the warp computes the walk length
+    (csrc/lanes.cuh::lane_of) and the warp takes it by shuffle."""
     G, B, band = vdirs.shape
     nbm = nm.shape[0]
     K = walk_c_window(G, k_groups)
@@ -231,7 +238,8 @@ def model_walk_c_warp(vdirs, nm, lens, L, W, bits=16, ahead=1, ring=4,
         seen.setdefault(k, 0)
     runs = np.full((B, 2 * n_iter), -99, np.int64)   # every element written
     for b in range(B):
-        i = j = int(lens[b])
+        i = j = (G3.model_lane(*lane_in, b)[3] if lane_in is not None
+                 else int(lens[b]))
         done = i <= 0
         tail = v[-1] if not done and ((i - 1) >> 4) >= G else 0
         r = _Ring(ring, v, nmw, b, B, band, G, tail, seen)
@@ -577,6 +585,48 @@ def _random_words(rng, G, B, band, sparse):
             torch.from_numpy(nm.astype(np.int32)))
 
 
+def _lane_inputs(seed, wcol, lens, W, narrow):
+    """The lanes' inputs of a pass (numpy): its centre column and lengths,
+    limits from 1 under the eds to 3 over, lane 1 unfound, overflow at
+    random; a narrow pass at Wp just above the median ed."""
+    rng = np.random.default_rng(100 + seed)
+    B = lens.shape[0]
+    ed = wcol[lens, np.arange(B)].astype(np.int32)
+    Wp = int(np.median(ed)) + 1 if narrow else W
+    found = np.ones(B, bool)
+    found[1] = False
+    return (wcol, lens, ed + rng.integers(-1, 4, B).astype(np.int32),
+            found, rng.random(B) < 0.3, Wp, narrow)
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("L,W,band,B,wide,seed", WALK_C_CASES)
+def test_walk_c_warp_model_on_lanes_inputs(L, W, band, B, wide, seed,
+                                           narrow):
+    """The warp-a-lane walk taking each lane's length from the lanes'
+    inputs (thread 0's lane_of) walks lanes_plain's lens_tb: its runs equal
+    the plain walk's and JAX's on those lengths, and device_traceback_c
+    given the Lanes on the CPU equals them too."""
+    q, t, lens = _reads(seed, B, L, W)
+    from longreadmapper_tpu_torch.ops.wavefront import banded_nw_dirs_v
+    v, wc, nm = banded_nw_dirs_v(torch.from_numpy(q), torch.from_numpy(t),
+                                 W, band)
+    lane_in = _lane_inputs(seed, wc.numpy(), lens, W, narrow)
+    tin = [torch.from_numpy(np.asarray(a)) for a in lane_in[:5]]
+    lens_tb = tstep.lanes_plain(*tin, *lane_in[5:])[3]
+    dt = torch.int32 if wide else torch.int16
+    plain = ttb.device_traceback_c_plain(v, lens_tb, L, W, nm, dt).numpy()
+    model = model_walk_c_warp(v.numpy(), nm.numpy(), None, L, W,
+                              32 if wide else 16, lane_in=lane_in)
+    np.testing.assert_array_equal(model, plain)
+    np.testing.assert_array_equal(
+        plain, _jax_walk_c(v, nm, lens_tb, L, W, wide))
+    got = ttb.device_traceback_c(v, tstep.lanes(*tin, *lane_in[5:]), L, W,
+                                 nm, dt)
+    np.testing.assert_array_equal(got.numpy(), plain)
+    assert (lens_tb > 0).any() and lens_tb[1] == 0 < tin[1][1]
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_walk_c_warp_model_clamps_on_random_words(seed):
     """test_walk_c_model_clamps_on_random_words's words and lens for the
@@ -904,6 +954,58 @@ def test_walk_c_kernel_matches_plain_on_card(B, L, W, band, wide):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("B,L,W,band,wide", [
+    (2048, 1024, 102, 256, False),     # the 1 kb main shape, int16
+    (2048, 1024, 102, 256, True),      # and int32 entries
+    (200, 10240, 512, 1152, True)])    # the 10 kb resident pass
+def test_walk_c_kernel_on_lanes_inputs_on_card(B, L, W, band, wide, narrow):
+    """walk_c_kernel taking each lane's length from the lanes' inputs (a
+    step.Lanes), its runs and the lanes' values allocated over garbage:
+    runs bit-equal to the plain walk on lanes_plain's lens_tb, ed_raw,
+    band_short and overflow to lanes_plain's; one launch, counted in
+    device_traceback_c and in step.lanes."""
+    _card()
+    from _torch_parity import mutate_rows
+    from longreadmapper_tpu_torch.ops.band_dp import banded_nw_dirs
+    rng = np.random.default_rng(B + L)
+    q = rng.integers(0, 4, (B, L)).astype(np.int8)
+    t = mutate_rows(rng, q, L // 40, pad=L // 16)
+    qd, td = torch.from_numpy(q).cuda(), torch.from_numpy(t).cuda()
+    v, wc, nm = banded_nw_dirs(qd, td, W, band)
+    lens = np.full(B, L - L // 16, np.int32)
+    lens[::5] = 0
+    lane_in = _lane_inputs(B, wc.cpu().numpy(), lens, W, narrow)
+    tin = [torch.from_numpy(np.asarray(a)).cuda() for a in lane_in[:5]]
+    plain = tstep.lanes_plain(*tin, *lane_in[5:])
+    lens_tb = plain[3]
+    dt = torch.int32 if wide else torch.int16
+    n0, m0 = ttb.device_traceback_c.launches, tstep.lanes.launches
+    new_empty = torch.Tensor.new_empty
+
+    def dirty(self, *a, **kw):
+        out = new_empty(self, *a, **kw)
+        out.view(-1).view(torch.uint8).fill_(0xA5)
+        return out
+
+    torch.Tensor.new_empty = dirty
+    try:
+        ln = tstep.lanes(*tin, *lane_in[5:])
+        got = ttb.device_traceback_c(v, ln, L, W, nm, dt)
+    finally:
+        del torch.Tensor.new_empty              # the inherited one again
+    want = ttb.device_traceback_c_plain(v, lens_tb, L, W, nm, dt)
+    torch.cuda.synchronize()
+    assert ttb.device_traceback_c.launches == n0 + 1
+    assert tstep.lanes.launches == m0 + 1
+    assert torch.equal(got, want)
+    assert ln.written
+    for g, w in zip((ln.ed_raw, ln.band_short, ln.overflow), plain[:3]):
+        assert torch.equal(g, w)
+    assert (lens_tb > 0).sum() > B // 5
+
+
+@pytest.mark.cuda
 def test_walk_c_kernel_clamps_on_card():
     _card()
     rng = np.random.default_rng(5)
@@ -926,9 +1028,10 @@ def test_walk_c_kernel_clamps_on_card():
         # equal to the plain walk's runs
         runs = torch.empty((B, 2 * n_iter), dtype=dt, device="cuda")
         runs.fill_(-21846)
-        assert lib.lrm_walk_c(
-            vd.data_ptr(), nmd.data_ptr(), ld.data_ptr(), G, B, band, W,
-            n_iter, runs.data_ptr(), runs.element_size(),
+        given = tstep.LanesIn(lens=ld.data_ptr(), B=B)
+        assert lib.lrm_walk_c_lanes(ctypes.byref(ttb.WalkCArgs(
+            vd.data_ptr(), nmd.data_ptr(), runs.data_ptr(), given, G, B,
+            band, W, n_iter, runs.element_size())),
             torch.cuda.current_stream().cuda_stream) == 0
         torch.cuda.synchronize()
         assert torch.equal(runs.cpu(), want)
