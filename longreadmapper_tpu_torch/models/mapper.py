@@ -40,6 +40,7 @@ from ..index.device import DeviceIndex, IndexMeta
 from ..mapping.pipeline import MapperConfig, map_step, raw_map_step
 from .. import native_build
 from ..utils.config import Params
+from ..utils.trace import Span
 
 
 @dataclass
@@ -181,11 +182,23 @@ class TorchMapper:
         self.host_chunks = 0      # chunk parts encoded on the host (ragged)
         # mapped reads of all ranks, from the mesh's collective counter
         self.valid_global = 0
-        # wall-clock seconds per host phase: prepare = read packing,
-        # dispatch = H2D + step (enqueued: the step makes no host sync),
-        # fetch = waiting for the D2H copies, assemble = SAM building
+        self.submitted_chunks = 0  # a chunk's ordinal in its spans
+        # Seconds of the stream.  Host wall clock, each timed by a span of
+        # the same block (utils/trace.py): prepare = read packing
+        # (mapper.prepare); dispatch = H2D staging + the step's issue
+        # (mapper.dispatch; enqueued: the step makes no host sync); fetch
+        # = waiting for a part's D2H copy and the lazy tail copy
+        # (mapper.fetch); retry = both retry tiers, packing, issue and
+        # wait (mapper.retry_saturation, mapper.retry_overflow);
+        # retry_wait = the retry steps' blocking copies, a part of retry
+        # (mapper.retry.wait); assemble = SAM building (mapper.assemble).
+        # Device time by CUDA events (0 on the CPU), each read after a
+        # sync the stream makes anyway: first_pass_device = a part's first
+        # pass, its H2D copies to its blob's D2H copy; retry_device = a
+        # retry step, its H2D copies to its last kernel.
         self.phase_s = {"prepare": 0.0, "dispatch": 0.0, "fetch": 0.0,
-                        "assemble": 0.0}
+                        "retry": 0.0, "retry_wait": 0.0, "assemble": 0.0,
+                        "first_pass_device": 0.0, "retry_device": 0.0}
 
     # ------------------------------------------------------------ configs
 
@@ -358,47 +371,65 @@ class TorchMapper:
 
     # ------------------------------------------------------- device steps
 
-    def _h2d(self, *arrays):
+    def _h2d(self, *arrays, chunk=None):
         """numpy -> device tensors; through pinned memory with
         non-blocking copies on the current stream when on CUDA."""
-        if self.device.type == "cpu":
-            return [torch.from_numpy(a) for a in arrays]
-        return [torch.from_numpy(a).pin_memory().to(self.device,
-                                                    non_blocking=True)
-                for a in arrays]
+        with Span("mapper.h2d", chunk):
+            if self.device.type == "cpu":
+                return [torch.from_numpy(a) for a in arrays]
+            return [torch.from_numpy(a).pin_memory().to(self.device,
+                                                        non_blocking=True)
+                    for a in arrays]
 
-    def _run_step(self, cfg: MapperConfig, codes, codes_rc, lens, limits):
+    def _event(self):
+        """A timing CUDA event recorded on the current stream; None on the
+        CPU."""
+        if self.device.type == "cpu":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _run_step(self, cfg: MapperConfig, codes, codes_rc, lens, limits,
+                  chunk=None):
         """The step of one packed part; `codes_rc` None marks raw bytes
         (_pack_raw), whose read length is known here on the host.  Runs
         map_step on the mapper's index: under a sharded mesh every rank
         of the model group must make the same calls."""
         if codes_rc is None:
-            draw, dl, dlim = self._h2d(codes, lens, limits)
-            return raw_map_step(cfg, self.idx, draw, dl, dlim,
-                                int(lens.max()))
-        dc, drc, dl, dlim = self._h2d(codes, codes_rc, lens, limits)
-        return map_step(cfg, self.idx, dc, drc, dl, dlim)
+            draw, dl, dlim = self._h2d(codes, lens, limits, chunk=chunk)
+            with Span("mapper.step", chunk):
+                return raw_map_step(cfg, self.idx, draw, dl, dlim,
+                                    int(lens.max()))
+        dc, drc, dl, dlim = self._h2d(codes, codes_rc, lens, limits,
+                                      chunk=chunk)
+        with Span("mapper.step", chunk):
+            return map_step(cfg, self.idx, dc, drc, dl, dlim)
 
-    def _start_d2h(self, out: dict) -> dict:
+    def _start_d2h(self, out: dict, chunk=None) -> dict:
         """Queue the blob's D2H copy into pinned memory on the current
         CUDA stream (non-blocking) and record an event to wait on; the
         CIGAR tail stays on the device until a read needs it."""
-        if self.device.type == "cpu":
-            return dict(blob=out["blob"], ops_tail=out["ops_tail"],
-                        event=None)
-        blob_h = torch.empty(out["blob"].shape, dtype=out["blob"].dtype,
-                             pin_memory=True)
-        blob_h.copy_(out["blob"], non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        return dict(blob=blob_h, ops_tail=out["ops_tail"], event=ev)
+        with Span("mapper.d2h", chunk):
+            if self.device.type == "cpu":
+                return dict(blob=out["blob"], ops_tail=out["ops_tail"],
+                            event=None)
+            blob_h = torch.empty(out["blob"].shape, dtype=out["blob"].dtype,
+                                 pin_memory=True)
+            blob_h.copy_(out["blob"], non_blocking=True)
+            return dict(blob=blob_h, ops_tail=out["ops_tail"],
+                        event=self._event())
 
     @staticmethod
     def _split_blob(cfg: MapperConfig, blob: np.ndarray):
         mb = 4 * cfg.meta_words
         return np.ascontiguousarray(blob[:, :mb]).view(np.int32), blob[:, mb:]
 
-    def _dispatch_chunk(self, prepared):
+    def _dispatch_chunk(self, prepared, chunk=None):
+        """Issue the step of each part of a prepared chunk and queue its
+        D2H copy: (cfg, reads, lens, out) a part, `out` holding the host
+        blob, the device tail, the copy's event, the event the part's
+        first pass starts at and the chunk's ordinal."""
         L, prepped = prepared
         cfg = self._step_for(L)
         parts = []
@@ -407,55 +438,75 @@ class TorchMapper:
                 self.raw_chunks += 1
             else:
                 self.host_chunks += 1
+            start = self._event()
             if self.mesh is None:
-                out = self._run_step(cfg, codes, codes_rc, lens, limits)
+                out = self._run_step(cfg, codes, codes_rc, lens, limits,
+                                     chunk)
                 valid = None
             else:
                 from ..parallel.dist import sharded_map_step
-                out, valid = sharded_map_step(cfg, self.mesh)(
-                    self.idx, *self._h2d(codes, codes_rc, lens, limits))
+                step = sharded_map_step(cfg, self.mesh)
+                arrays = self._h2d(codes, codes_rc, lens, limits,
+                                   chunk=chunk)
+                with Span("mapper.step", chunk):
+                    out, valid = step(self.idx, *arrays)
             parts.append((cfg, part, lens,
-                          dict(self._start_d2h(out), valid=valid)))
+                          dict(self._start_d2h(out, chunk), valid=valid,
+                               start=start, chunk=chunk)))
         return parts
 
     def submit_chunk(self, reads: Sequence[Tuple[str, str, Optional[str]]]):
         """Pack and run the device step for up to B reads."""
-        t0 = time.perf_counter()
-        prepared = self._prepare_chunk(reads)
-        t1 = time.perf_counter()
-        out = self._dispatch_chunk(prepared)
-        self.phase_s["prepare"] += t1 - t0
-        self.phase_s["dispatch"] += time.perf_counter() - t1
-        return out
+        k = self.submitted_chunks
+        self.submitted_chunks += 1
+        with Span("mapper.prepare", k, self.phase_s, "prepare"):
+            prepared = self._prepare_chunk(reads)
+        with Span("mapper.dispatch", k, self.phase_s, "dispatch"):
+            return self._dispatch_chunk(prepared, k)
 
     def _fetch_chunk(self, pending):
         """Wait for each part's D2H copy; fetch the CIGAR tail only when
-        some read's runs reach the end of the eager head."""
+        some read's runs reach the end of the eager head; then the retry
+        tiers."""
         fetched = []
         for cfg, reads, lens, out in pending:
-            if out["event"] is not None:
-                out["event"].synchronize()
-            if out["valid"] is not None:
-                self.valid_global += int(out["valid"])
-            meta, ops = self._split_blob(cfg, out["blob"].numpy())
-            if _tail_needed(ops, cfg.tb_entry_bytes):
-                ops = np.concatenate(
-                    [ops, out["ops_tail"].cpu().numpy()], axis=1)
-            res = self._retry_saturation(cfg, reads, dict(meta=meta, ops=ops))
-            res = self._retry_overflow(cfg, reads, res)
+            k = out["chunk"]
+            with Span("mapper.fetch", k, self.phase_s, "fetch"):
+                if out["event"] is not None:
+                    out["event"].synchronize()
+                    self.phase_s["first_pass_device"] += \
+                        out["start"].elapsed_time(out["event"]) / 1e3
+                if out["valid"] is not None:
+                    self.valid_global += int(out["valid"])
+                meta, ops = self._split_blob(cfg, out["blob"].numpy())
+                if _tail_needed(ops, cfg.tb_entry_bytes):
+                    ops = np.concatenate(
+                        [ops, out["ops_tail"].cpu().numpy()], axis=1)
+            res = self._retry_saturation(cfg, reads, dict(meta=meta, ops=ops),
+                                         k)
+            res = self._retry_overflow(cfg, reads, res, k)
             fetched.append((cfg, reads, lens, res))
         return fetched
 
-    def _fetch_step(self, cfg: MapperConfig, part):
+    def _fetch_step(self, cfg: MapperConfig, part, chunk=None):
         """Run `cfg`'s step on the reads of `part` and fetch its (meta,
-        ops) in full."""
-        o = self._run_step(cfg, *self._pack_reads(part, cfg.L, cfg.B))
-        meta, ops = self._split_blob(cfg, o["blob"].cpu().numpy())
-        if ops.shape[1] and _tail_needed(ops, cfg.tb_entry_bytes):
-            ops = np.concatenate([ops, o["ops_tail"].cpu().numpy()], axis=1)
+        ops) in full.  The copies block the host: the step's device time
+        is read after them."""
+        with Span("mapper.retry.pack", chunk):
+            packed = self._pack_reads(part, cfg.L, cfg.B)
+        start = self._event()
+        o = self._run_step(cfg, *packed, chunk=chunk)
+        end = self._event()
+        with Span("mapper.retry.wait", chunk, self.phase_s, "retry_wait"):
+            meta, ops = self._split_blob(cfg, o["blob"].cpu().numpy())
+            if ops.shape[1] and _tail_needed(ops, cfg.tb_entry_bytes):
+                ops = np.concatenate([ops, o["ops_tail"].cpu().numpy()],
+                                     axis=1)
+        if start is not None:
+            self.phase_s["retry_device"] += start.elapsed_time(end) / 1e3
         return meta, ops
 
-    def _retry_saturation(self, cfg: MapperConfig, reads, out):
+    def _retry_saturation(self, cfg: MapperConfig, reads, out, chunk=None):
         """Re-walk a gact chunk whose shared run buffer saturated (bit 1,
         ops/gact.gact_traceback_c) through the 4x-buffer tier.  The flag is
         chunk-wide (the clamped last buffer row may hold any lane's runs),
@@ -468,11 +519,13 @@ class TorchMapper:
         if not cfg.use_gact or not (
                 out["meta"][:len(reads), cfg.meta_words - 1] & 2).any():
             return out
-        meta, ops = self._fetch_step(self._sat_step_for(cfg.L), reads)
+        with Span("mapper.retry_saturation", chunk, self.phase_s, "retry"):
+            meta, ops = self._fetch_step(self._sat_step_for(cfg.L), reads,
+                                         chunk)
         self.retried_sat_chunks += 1
         return dict(out, meta=meta, ops=ops)
 
-    def _retry_overflow(self, cfg: MapperConfig, reads, out):
+    def _retry_overflow(self, cfg: MapperConfig, reads, out, chunk=None):
         """Re-map reads flagged with vote overflow (bit 0) or a narrow-band
         ed (bit 2) through the exact-everything tier and splice their rows
         (meta with the real flag, run bytes) in, their run entries widened
@@ -485,21 +538,23 @@ class TorchMapper:
         flagged = np.flatnonzero(meta[:len(reads), cfg.meta_words - 1] & 5)
         if flagged.size == 0:
             return out
-        cfg_r = self._retry_step_for(cfg.L)
-        meta = meta.copy()
-        ops = np.asarray(out["ops"]).copy()
-        for s in range(0, flagged.size, cfg_r.B):
-            sel = flagged[s:s + cfg_r.B]
-            meta_r, ops_r = self._fetch_step(cfg_r, [reads[i] for i in sel])
-            ops_r = _widen_entries(ops_r, cfg_r.tb_entry_bytes,
-                                   cfg.tb_entry_bytes)
-            if ops_r.shape[1] > ops.shape[1]:
-                pad = np.full((ops.shape[0], ops_r.shape[1] - ops.shape[1]),
-                              3, np.int8)
-                ops = np.concatenate([ops, pad], axis=1)
-            meta[sel] = meta_r[:sel.size]
-            ops[sel] = 3          # blank any leftover compact-tier bytes
-            ops[sel, :ops_r.shape[1]] = ops_r[:sel.size]
+        with Span("mapper.retry_overflow", chunk, self.phase_s, "retry"):
+            cfg_r = self._retry_step_for(cfg.L)
+            meta = meta.copy()
+            ops = np.asarray(out["ops"]).copy()
+            for s in range(0, flagged.size, cfg_r.B):
+                sel = flagged[s:s + cfg_r.B]
+                meta_r, ops_r = self._fetch_step(
+                    cfg_r, [reads[i] for i in sel], chunk)
+                ops_r = _widen_entries(ops_r, cfg_r.tb_entry_bytes,
+                                       cfg.tb_entry_bytes)
+                if ops_r.shape[1] > ops.shape[1]:
+                    pad = np.full((ops.shape[0],
+                                   ops_r.shape[1] - ops.shape[1]), 3, np.int8)
+                    ops = np.concatenate([ops, pad], axis=1)
+                meta[sel] = meta_r[:sel.size]
+                ops[sel] = 3          # blank any leftover compact-tier bytes
+                ops[sel, :ops_r.shape[1]] = ops_r[:sel.size]
         self.retried_reads += int(flagged.size)
         return dict(out, meta=meta, ops=ops)
 
@@ -510,15 +565,13 @@ class TorchMapper:
             (out["meta"][:len(reads), cfg.meta_words - 1] != 0).sum())
 
     def collect_chunk(self, pending) -> List[MapRecord]:
-        t0 = time.perf_counter()
         fetched = self._fetch_chunk(pending)
-        t1 = time.perf_counter()
+        k = pending[0][3]["chunk"]
         recs: List[MapRecord] = []
-        for cfg, reads, lens, out in fetched:
-            self._count_overflow(cfg, reads, out)
-            recs.extend(self._postprocess(cfg, reads, lens, out))
-        self.phase_s["fetch"] += t1 - t0
-        self.phase_s["assemble"] += time.perf_counter() - t1
+        with Span("mapper.assemble", k, self.phase_s, "assemble"):
+            for cfg, reads, lens, out in fetched:
+                self._count_overflow(cfg, reads, out)
+                recs.extend(self._postprocess(cfg, reads, lens, out, k))
         return recs
 
     def map_chunk(self, reads: Sequence[Tuple[str, str, Optional[str]]]
@@ -528,18 +581,16 @@ class TorchMapper:
 
     def collect_chunk_sam(self, pending) -> Tuple[str, int, int]:
         """(sam_text, n_records, n_valid) for a submitted chunk."""
-        t0 = time.perf_counter()
         fetched = self._fetch_chunk(pending)
-        t1 = time.perf_counter()
+        k = pending[0][3]["chunk"]
         text, total, valid = [], 0, 0
-        for cfg, reads, lens, out in fetched:
-            self._count_overflow(cfg, reads, out)
-            t, v = self._postprocess_sam(cfg, reads, lens, out)
-            text.append(t)
-            total += len(reads)
-            valid += v
-        self.phase_s["fetch"] += t1 - t0
-        self.phase_s["assemble"] += time.perf_counter() - t1
+        with Span("mapper.assemble", k, self.phase_s, "assemble"):
+            for cfg, reads, lens, out in fetched:
+                self._count_overflow(cfg, reads, out)
+                t, v = self._postprocess_sam(cfg, reads, lens, out, k)
+                text.append(t)
+                total += len(reads)
+                valid += v
         return "".join(text), total, valid
 
     def _stream(self, chunk_iter, collect):
@@ -577,64 +628,69 @@ class TorchMapper:
         return (meta[:, 1] != 0, meta[:, 2], meta[:, 3] != 0, meta[:, 4],
                 meta[:, 5])
 
-    def _postprocess_sam(self, cfg: MapperConfig, reads, lens, out
-                         ) -> Tuple[str, int]:
+    def _postprocess_sam(self, cfg: MapperConfig, reads, lens, out,
+                         chunk=None) -> Tuple[str, int]:
         """Chunk-vectorized SAM assembly, one f-string per record."""
         found, gi, strand, off, ed = self._meta_cols(cfg, out["meta"])
         n = len(reads)
-        cigs = _cigar_strings_batch(np.asarray(out["ops"][:n]),
-                                    cfg.tb_entry_bytes)
-        valid_l = (found & (ed >= 0))[:n].tolist()
-        strand_l = strand[:n].tolist()
-        found_l = found[:n].tolist()
-        pos_l = (off + 1)[:n].tolist()
-        ed_l = ed[:n].tolist()
-        gi_l = gi[:n].tolist()
-        names = [m.seq_name for m in self.mta]
-        comp = self._COMP
-        lines = []
-        ap = lines.append
-        n_valid = 0
-        for i, (name, seq, qual) in enumerate(reads):
-            q = qual if qual else "*"
-            if valid_l[i]:
-                n_valid += 1
-                flag = 16 if strand_l[i] else 0
-                if strand_l[i]:
-                    seq = seq.encode().translate(comp)[::-1].decode()
-                ap(f"{name}\t{flag}\t{names[gi_l[i]]}\t{pos_l[i]}\t255\t"
-                   f"{cigs[i] or '*'}\t*\t0\t0\t{seq}\t{q}\t"
-                   f"ED:I:{ed_l[i]}\n")
-            elif found_l[i]:
-                if strand_l[i]:
-                    seq = seq.encode().translate(comp)[::-1].decode()
-                ap(f"{name}\t4\t{names[gi_l[i]]}\t{pos_l[i]}\t0\t*\t*\t0\t0"
-                   f"\t{seq}\t{q}\tED:I:-1\n")
-            else:
-                ap(f"{name}\t4\t*\t1\t0\t*\t*\t0\t0\t{seq}\t{q}\tED:I:-1\n")
-        return "".join(lines), n_valid
+        with Span("mapper.assemble.cigar", chunk):
+            cigs = _cigar_strings_batch(np.asarray(out["ops"][:n]),
+                                        cfg.tb_entry_bytes)
+        with Span("mapper.assemble.records", chunk):
+            valid_l = (found & (ed >= 0))[:n].tolist()
+            strand_l = strand[:n].tolist()
+            found_l = found[:n].tolist()
+            pos_l = (off + 1)[:n].tolist()
+            ed_l = ed[:n].tolist()
+            gi_l = gi[:n].tolist()
+            names = [m.seq_name for m in self.mta]
+            comp = self._COMP
+            lines = []
+            ap = lines.append
+            n_valid = 0
+            for i, (name, seq, qual) in enumerate(reads):
+                q = qual if qual else "*"
+                if valid_l[i]:
+                    n_valid += 1
+                    flag = 16 if strand_l[i] else 0
+                    if strand_l[i]:
+                        seq = seq.encode().translate(comp)[::-1].decode()
+                    ap(f"{name}\t{flag}\t{names[gi_l[i]]}\t{pos_l[i]}\t255\t"
+                       f"{cigs[i] or '*'}\t*\t0\t0\t{seq}\t{q}\t"
+                       f"ED:I:{ed_l[i]}\n")
+                elif found_l[i]:
+                    if strand_l[i]:
+                        seq = seq.encode().translate(comp)[::-1].decode()
+                    ap(f"{name}\t4\t{names[gi_l[i]]}\t{pos_l[i]}\t0\t*\t*\t0"
+                       f"\t0\t{seq}\t{q}\tED:I:-1\n")
+                else:
+                    ap(f"{name}\t4\t*\t1\t0\t*\t*\t0\t0\t{seq}\t{q}"
+                       f"\tED:I:-1\n")
+            return "".join(lines), n_valid
 
-    def _postprocess(self, cfg: MapperConfig, reads, lens, out
-                     ) -> List[MapRecord]:
+    def _postprocess(self, cfg: MapperConfig, reads, lens, out,
+                     chunk=None) -> List[MapRecord]:
         found, gi, strand, off, ed = self._meta_cols(cfg, out["meta"])
-        all_runs = _rle_runs_batch(np.asarray(out["ops"]),
-                                   cfg.tb_entry_bytes)
+        with Span("mapper.assemble.cigar", chunk):
+            all_runs = _rle_runs_batch(np.asarray(out["ops"]),
+                                       cfg.tb_entry_bytes)
         recs: List[MapRecord] = []
-        for i, (name, seq, qual) in enumerate(reads):
-            ok = bool(found[i])
-            ed_i = int(ed[i]) if ok else -1
-            valid = ok and ed_i >= 0
-            if valid:
-                ops = all_runs[i]
-                cig = cigar_string(ops) if ops else "*"
-                flag = 16 if strand[i] else 0
-                mapq = 255
-            else:
-                cig, flag, mapq = "*", 0x4, 0
-            recs.append(MapRecord(
-                qname=name, flag=flag,
-                rname=self.mta[int(gi[i])].seq_name if ok else "*",
-                off=int(off[i]) if ok else 0, mapq=mapq, cigar=cig,
-                seq=revcomp(seq) if (ok and strand[i]) else seq,
-                qual=qual if qual else "*", ed=ed_i, valid=valid))
+        with Span("mapper.assemble.records", chunk):
+            for i, (name, seq, qual) in enumerate(reads):
+                ok = bool(found[i])
+                ed_i = int(ed[i]) if ok else -1
+                valid = ok and ed_i >= 0
+                if valid:
+                    ops = all_runs[i]
+                    cig = cigar_string(ops) if ops else "*"
+                    flag = 16 if strand[i] else 0
+                    mapq = 255
+                else:
+                    cig, flag, mapq = "*", 0x4, 0
+                recs.append(MapRecord(
+                    qname=name, flag=flag,
+                    rname=self.mta[int(gi[i])].seq_name if ok else "*",
+                    off=int(off[i]) if ok else 0, mapq=mapq, cigar=cig,
+                    seq=revcomp(seq) if (ok and strand[i]) else seq,
+                    qual=qual if qual else "*", ed=ed_i, valid=valid))
         return recs

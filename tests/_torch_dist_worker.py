@@ -87,8 +87,8 @@ def run_map():
     if cfg.get("force_sat"):
         dispatch = TorchMapper._dispatch_chunk
 
-        def saturated(self, prepared):
-            parts = dispatch(self, prepared)
+        def saturated(self, prepared, *a):
+            parts = dispatch(self, prepared, *a)
             for c, _, _, out in parts:
                 mb = 4 * c.meta_words
                 meta = out["blob"][:, :mb].contiguous().view(torch.int32)

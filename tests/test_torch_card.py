@@ -15,11 +15,13 @@ import no JAX, so they run where JAX is absent:
         tests/test_torch_card.py
 """
 
+import time
 from dataclasses import replace
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from _torch_parity import cigar_check
 from longreadmapper_tpu_torch.formats.lch import read_lch
@@ -180,6 +182,63 @@ def test_vote_overflow_tier_card_matches_cpu(tmp_path):
     assert tm.retried_reads == cpu_tm.retried_reads > 0
     assert tm.overflow_reads == cpu_tm.overflow_reads
     _check_records(text, genome, 16, 8)
+
+
+@pytest.mark.cuda
+def test_stream_device_time_by_events_on_card(tmp_path):
+    """The mapper's device keys (phase_s first_pass_device, retry_device:
+    CUDA events read after the syncs the stream makes anyway) on the
+    vote-overflow tier's stream: both above 0 and together inside the
+    stream's wall time; and a 1 kb chunk's first pass, issued behind a
+    sleeping kernel so that the card never waits for the host inside it,
+    within 10% of its kernels and copies in a torch.profiler trace."""
+    _card()
+    genome = _genome(7, 12000, motif_repeats=40)
+    fa = _index(tmp_path, genome, 6)
+    reads = _reads(8, genome, 16, 200, 0.02, lo=5000, hi=9400)
+    idx, meta, mta = load_device_index(fa, "cuda", verbose=False)
+    tm = TorchMapper(idx, meta, mta, Params(hlen=6), chunk_b=16,
+                     device="cuda")
+    first = [t for t, _, _ in tm.map_stream_sam(iter([reads]))]
+    before = dict(tm.phase_s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [t for t, _, _ in tm.map_stream_sam(iter([reads] * 4))]
+    wall = time.perf_counter() - t0
+    d = {k: tm.phase_s[k] - before[k] for k in tm.phase_s}
+    assert got == first * 4 and tm.retried_reads > 0
+    print(f"[card] overflow stream of 4 chunks: first_pass_device "
+          f"{d['first_pass_device'] * 1e3:.4f} ms, retry_device "
+          f"{d['retry_device'] * 1e3:.4f} ms, retry_wait "
+          f"{d['retry_wait'] * 1e3:.4f} ms, wall {wall * 1e3:.4f} ms")
+    assert d["first_pass_device"] > 0 and d["retry_device"] > 0
+    assert d["first_pass_device"] + d["retry_device"] <= wall
+    assert d["retry"] >= d["retry_wait"] > 0
+
+    big = TorchMapper(idx, meta, mta, Params(hlen=6), chunk_b=2048,
+                      device="cuda")
+    chunk = _reads(14, genome, 2048, 1000, 0.02)
+    big.map_chunk(chunk)
+    torch.cuda.synchronize()
+    f0 = big.phase_s["first_pass_device"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(200_000_000)
+        pending = big.submit_chunk(chunk)
+        torch.cuda.synchronize()
+    big.collect_chunk(pending)
+    event_s = big.phase_s["first_pass_device"] - f0
+    ops = sorted((e.time_range.end - e.time_range.start) / 1e6
+                 for e in prof.events()
+                 if e.device_type.name == "CUDA"
+                 and not getattr(e, "is_user_annotation", False)
+                 and not e.name.startswith("mapper."))
+    assert ops[-1] > 0.02           # the sleeping kernel, not the step's
+    traced_s = sum(ops[:-1])
+    print(f"[card] 1 kb first pass (B 2048): events {event_s * 1e3:.4f} "
+          f"ms, traced kernels and copies {traced_s * 1e3:.4f} ms in "
+          f"{len(ops) - 1} operations")
+    assert abs(event_s - traced_s) <= 0.1 * traced_s
 
 
 def _force_gact(tm):
