@@ -7,7 +7,10 @@ A chunk part whose reads all have one length ships as raw ASCII and is
 encoded on the device (pipeline.raw_map_step, the JAX mapper's raw
 variant); ragged parts and every retry tier are encoded on the host.
 `map_stream` yields each chunk's MapRecords, `map_stream_sam` its SAM
-text, both through one depth-3 submit/collect queue.
+text, both through one stream of at most three chunks in flight: each
+loop turn submits chunk c, issues chunk c-1's overflow retry (its copies
+queued behind an event) and then finishes and assembles chunk c-2, so the
+card runs c's first pass and c-1's retry while the host assembles.
 
 Under a ('data', 'model') mesh (parallel/) the mapper is one rank of ONE
 logical mapper: chunks are GLOBAL batches, each rank maps its own rows of
@@ -177,6 +180,13 @@ class TorchMapper:
         self._sat_cfgs = {}
         self.overflow_reads = 0   # reads whose final meta carries a flag
         self.retried_reads = 0    # reads re-run through the exact tier
+        self.retry_steps = 0      # exact-tier steps issued for them
+        # of those, the steps whose wait came after a stage of another
+        # chunk (a submit, an issue, a finish): the stream's overlap.
+        # _stage_seq counts the stages run; a step issued at one count
+        # and waited on at a larger one was deferred.
+        self.deferred_retry_steps = 0
+        self._stage_seq = 0
         self.retried_sat_chunks = 0   # gact chunks re-walked, 4x run buffer
         self.raw_chunks = 0       # chunk parts encoded on the device
         self.host_chunks = 0      # chunk parts encoded on the host (ragged)
@@ -188,14 +198,15 @@ class TorchMapper:
         # (mapper.prepare); dispatch = H2D staging + the step's issue
         # (mapper.dispatch; enqueued: the step makes no host sync); fetch
         # = waiting for a part's D2H copy and the lazy tail copy
-        # (mapper.fetch); retry = both retry tiers, packing, issue and
-        # wait (mapper.retry_saturation, mapper.retry_overflow);
-        # retry_wait = the retry steps' blocking copies, a part of retry
-        # (mapper.retry.wait); assemble = SAM building (mapper.assemble).
-        # Device time by CUDA events (0 on the CPU), each read after a
-        # sync the stream makes anyway: first_pass_device = a part's first
-        # pass, its H2D copies to its blob's D2H copy; retry_device = a
-        # retry step, its H2D copies to its last kernel.
+        # (mapper.fetch); retry = both retry tiers, packing, issue, wait
+        # and splice (mapper.retry_saturation, mapper.retry_overflow: the
+        # overflow tier's issue, mapper.retry.finish: its wait and
+        # splice); retry_wait = the waits for the retry steps' copies, a
+        # part of retry (mapper.retry.wait); assemble = SAM building
+        # (mapper.assemble).  Device time by CUDA events (0 on the CPU),
+        # each read after a wait the stream makes anyway: first_pass_device
+        # = a part's first pass, its H2D copies to its blob's D2H copy;
+        # retry_device = a retry step, its H2D copies to its last kernel.
         self.phase_s = {"prepare": 0.0, "dispatch": 0.0, "fetch": 0.0,
                         "retry": 0.0, "retry_wait": 0.0, "assemble": 0.0,
                         "first_pass_device": 0.0, "retry_device": 0.0}
@@ -406,18 +417,25 @@ class TorchMapper:
         with Span("mapper.step", chunk):
             return map_step(cfg, self.idx, dc, drc, dl, dlim)
 
-    def _start_d2h(self, out: dict, chunk=None) -> dict:
+    def _start_d2h(self, out: dict, chunk=None, tail: bool = False) -> dict:
         """Queue the blob's D2H copy into pinned memory on the current
-        CUDA stream (non-blocking) and record an event to wait on; the
-        CIGAR tail stays on the device until a read needs it."""
+        CUDA stream (non-blocking) and record an event to wait on.  The
+        CIGAR tail stays on the device until a read needs it; with `tail`
+        it is copied too, behind the same event, and the result holds no
+        device tensor."""
         with Span("mapper.d2h", chunk):
             if self.device.type == "cpu":
                 return dict(blob=out["blob"], ops_tail=out["ops_tail"],
                             event=None)
-            blob_h = torch.empty(out["blob"].shape, dtype=out["blob"].dtype,
-                                 pin_memory=True)
-            blob_h.copy_(out["blob"], non_blocking=True)
-            return dict(blob=blob_h, ops_tail=out["ops_tail"],
+
+            def pinned(t):
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                return h
+
+            return dict(blob=pinned(out["blob"]),
+                        ops_tail=(pinned(out["ops_tail"]) if tail
+                                  else out["ops_tail"]),
                         event=self._event())
 
     @staticmethod
@@ -459,15 +477,19 @@ class TorchMapper:
         """Pack and run the device step for up to B reads."""
         k = self.submitted_chunks
         self.submitted_chunks += 1
+        self._stage_seq += 1
         with Span("mapper.prepare", k, self.phase_s, "prepare"):
             prepared = self._prepare_chunk(reads)
         with Span("mapper.dispatch", k, self.phase_s, "dispatch"):
             return self._dispatch_chunk(prepared, k)
 
     def _fetch_chunk(self, pending):
-        """Wait for each part's D2H copy; fetch the CIGAR tail only when
-        some read's runs reach the end of the eager head; then the retry
-        tiers."""
+        """The issue stage of a submitted chunk: for each part, wait for
+        its D2H copy, fetch the CIGAR tail only when some read's runs reach
+        the end of the eager head, run the saturation tier, then issue the
+        overflow tier's steps (_retry_overflow).  Nothing here waits for an
+        overflow step: _finish_chunk does."""
+        self._stage_seq += 1
         fetched = []
         for cfg, reads, lens, out in pending:
             k = out["chunk"]
@@ -482,70 +504,104 @@ class TorchMapper:
                 if _tail_needed(ops, cfg.tb_entry_bytes):
                     ops = np.concatenate(
                         [ops, out["ops_tail"].cpu().numpy()], axis=1)
-            res = self._retry_saturation(cfg, reads, dict(meta=meta, ops=ops),
-                                         k)
+            res = self._retry_saturation(
+                cfg, reads, dict(meta=meta, ops=ops, chunk=k), k)
             res = self._retry_overflow(cfg, reads, res, k)
             fetched.append((cfg, reads, lens, res))
         return fetched
 
-    def _fetch_step(self, cfg: MapperConfig, part, chunk=None):
-        """Run `cfg`'s step on the reads of `part` and fetch its (meta,
-        ops) in full.  The copies block the host: the step's device time
-        is read after them."""
+    def _finish_chunk(self, fetched):
+        """The finish stage of an issued chunk: wait for each part's
+        overflow steps and splice their rows in (_finish_overflow)."""
+        done = [(cfg, reads, lens, self._finish_overflow(cfg, out))
+                for cfg, reads, lens, out in fetched]
+        self._stage_seq += 1
+        return done
+
+    def _issue_step(self, cfg: MapperConfig, part, chunk=None) -> dict:
+        """Run `cfg`'s step on the reads of `part` and queue its blob and
+        tail copies into pinned memory behind one event: the record holds
+        the host buffers and the step's start and end events, no device
+        tensor.  Nothing waits here."""
         with Span("mapper.retry.pack", chunk):
             packed = self._pack_reads(part, cfg.L, cfg.B)
         start = self._event()
         o = self._run_step(cfg, *packed, chunk=chunk)
         end = self._event()
+        return dict(self._start_d2h(o, chunk, tail=True), start=start,
+                    end=end)
+
+    def _finish_step(self, cfg: MapperConfig, rec: dict, chunk=None):
+        """Wait for an issued step's copies and return its (meta, ops) in
+        full; the step's device time is read after the wait."""
         with Span("mapper.retry.wait", chunk, self.phase_s, "retry_wait"):
-            meta, ops = self._split_blob(cfg, o["blob"].cpu().numpy())
+            if rec["event"] is not None:
+                rec["event"].synchronize()
+            meta, ops = self._split_blob(cfg, rec["blob"].numpy())
             if ops.shape[1] and _tail_needed(ops, cfg.tb_entry_bytes):
-                ops = np.concatenate([ops, o["ops_tail"].cpu().numpy()],
-                                     axis=1)
-        if start is not None:
-            self.phase_s["retry_device"] += start.elapsed_time(end) / 1e3
+                ops = np.concatenate([ops, rec["ops_tail"].numpy()], axis=1)
+        if rec["start"] is not None:
+            self.phase_s["retry_device"] += \
+                rec["start"].elapsed_time(rec["end"]) / 1e3
         return meta, ops
 
     def _retry_saturation(self, cfg: MapperConfig, reads, out, chunk=None):
         """Re-walk a gact chunk whose shared run buffer saturated (bit 1,
-        ops/gact.gact_traceback_c) through the 4x-buffer tier.  The flag is
-        chunk-wide (the clamped last buffer row may hold any lane's runs),
-        so the whole chunk re-runs and its meta/ops are replaced; a flag
-        that survives even 4x shows in overflow_reads.  Under a mesh a rank
-        re-runs its own rows (JAX's mesh mode leaves the flag unrecovered):
-        with a replicated index alone, with sharded tables together with
-        its model group, whose ranks hold the same rows and so the same
+        ops/gact.gact_traceback_c) through the 4x-buffer tier, at once
+        (the issue and the wait together).  The flag is chunk-wide (the
+        clamped last buffer row may hold any lane's runs), so the whole
+        chunk re-runs and its meta/ops are replaced; a flag that survives
+        even 4x shows in overflow_reads.  Under a mesh a rank re-runs its
+        own rows (JAX's mesh mode leaves the flag unrecovered): with a
+        replicated index alone, with sharded tables together with its
+        model group, whose ranks hold the same rows and so the same
         flag."""
         if not cfg.use_gact or not (
                 out["meta"][:len(reads), cfg.meta_words - 1] & 2).any():
             return out
         with Span("mapper.retry_saturation", chunk, self.phase_s, "retry"):
-            meta, ops = self._fetch_step(self._sat_step_for(cfg.L), reads,
-                                         chunk)
+            sat = self._sat_step_for(cfg.L)
+            meta, ops = self._finish_step(
+                sat, self._issue_step(sat, reads, chunk), chunk)
         self.retried_sat_chunks += 1
         return dict(out, meta=meta, ops=ops)
 
     def _retry_overflow(self, cfg: MapperConfig, reads, out, chunk=None):
-        """Re-map reads flagged with vote overflow (bit 0) or a narrow-band
-        ed (bit 2) through the exact-everything tier and splice their rows
-        (meta with the real flag, run bytes) in, their run entries widened
-        to the chunk's width, which the assembly decodes with.  Bit 1
-        (gact saturation) is not retried here: more vote slots cannot fix
-        it."""
+        """Issue the exact-everything tier's steps for the reads flagged
+        with vote overflow (bit 0) or a narrow-band ed (bit 2), at most
+        the tier's B a step; their records and row selections ride in the
+        part's `retry`, for _finish_overflow.  Bit 1 (gact saturation) is
+        not retried here: more vote slots cannot fix it."""
         if cfg.exact_slots:
             return out
-        meta = out["meta"]
-        flagged = np.flatnonzero(meta[:len(reads), cfg.meta_words - 1] & 5)
+        flagged = np.flatnonzero(out["meta"][:len(reads),
+                                             cfg.meta_words - 1] & 5)
         if flagged.size == 0:
             return out
         with Span("mapper.retry_overflow", chunk, self.phase_s, "retry"):
             cfg_r = self._retry_step_for(cfg.L)
-            meta = meta.copy()
-            ops = np.asarray(out["ops"]).copy()
+            steps = []
             for s in range(0, flagged.size, cfg_r.B):
                 sel = flagged[s:s + cfg_r.B]
-                meta_r, ops_r = self._fetch_step(
-                    cfg_r, [reads[i] for i in sel], chunk)
+                steps.append((sel, self._issue_step(
+                    cfg_r, [reads[i] for i in sel], chunk)))
+        self.retried_reads += int(flagged.size)
+        self.retry_steps += len(steps)
+        return dict(out, retry=steps, issued_at=self._stage_seq)
+
+    def _finish_overflow(self, cfg: MapperConfig, out):
+        """Wait for a part's issued overflow steps and splice their rows
+        (meta with the real flag, run bytes) in, their run entries widened
+        to the chunk's width, which the assembly decodes with."""
+        if "retry" not in out:
+            return out
+        k = out["chunk"]
+        with Span("mapper.retry.finish", k, self.phase_s, "retry"):
+            cfg_r = self._retry_step_for(cfg.L)
+            meta = out["meta"].copy()
+            ops = np.asarray(out["ops"]).copy()
+            for sel, rec in out["retry"]:
+                meta_r, ops_r = self._finish_step(cfg_r, rec, k)
                 ops_r = _widen_entries(ops_r, cfg_r.tb_entry_bytes,
                                        cfg.tb_entry_bytes)
                 if ops_r.shape[1] > ops.shape[1]:
@@ -555,8 +611,9 @@ class TorchMapper:
                 meta[sel] = meta_r[:sel.size]
                 ops[sel] = 3          # blank any leftover compact-tier bytes
                 ops[sel, :ops_r.shape[1]] = ops_r[:sel.size]
-        self.retried_reads += int(flagged.size)
-        return dict(out, meta=meta, ops=ops)
+        if self._stage_seq > out["issued_at"]:
+            self.deferred_retry_steps += len(out["retry"])
+        return dict(meta=meta, ops=ops, chunk=k)
 
     # ----------------------------------------------------------- assembly
 
@@ -564,15 +621,30 @@ class TorchMapper:
         self.overflow_reads += int(
             (out["meta"][:len(reads), cfg.meta_words - 1] != 0).sum())
 
-    def collect_chunk(self, pending) -> List[MapRecord]:
-        fetched = self._fetch_chunk(pending)
-        k = pending[0][3]["chunk"]
+    def _assemble(self, done) -> List[MapRecord]:
+        k = done[0][3]["chunk"]
         recs: List[MapRecord] = []
         with Span("mapper.assemble", k, self.phase_s, "assemble"):
-            for cfg, reads, lens, out in fetched:
+            for cfg, reads, lens, out in done:
                 self._count_overflow(cfg, reads, out)
                 recs.extend(self._postprocess(cfg, reads, lens, out, k))
         return recs
+
+    def _assemble_sam(self, done) -> Tuple[str, int, int]:
+        k = done[0][3]["chunk"]
+        text, total, valid = [], 0, 0
+        with Span("mapper.assemble", k, self.phase_s, "assemble"):
+            for cfg, reads, lens, out in done:
+                self._count_overflow(cfg, reads, out)
+                t, v = self._postprocess_sam(cfg, reads, lens, out, k)
+                text.append(t)
+                total += len(reads)
+                valid += v
+        return "".join(text), total, valid
+
+    def collect_chunk(self, pending) -> List[MapRecord]:
+        """The MapRecords of a submitted chunk."""
+        return self._assemble(self._finish_chunk(self._fetch_chunk(pending)))
 
     def map_chunk(self, reads: Sequence[Tuple[str, str, Optional[str]]]
                   ) -> List[MapRecord]:
@@ -581,37 +653,36 @@ class TorchMapper:
 
     def collect_chunk_sam(self, pending) -> Tuple[str, int, int]:
         """(sam_text, n_records, n_valid) for a submitted chunk."""
-        fetched = self._fetch_chunk(pending)
-        k = pending[0][3]["chunk"]
-        text, total, valid = [], 0, 0
-        with Span("mapper.assemble", k, self.phase_s, "assemble"):
-            for cfg, reads, lens, out in fetched:
-                self._count_overflow(cfg, reads, out)
-                t, v = self._postprocess_sam(cfg, reads, lens, out, k)
-                text.append(t)
-                total += len(reads)
-                valid += v
-        return "".join(text), total, valid
+        return self._assemble_sam(
+            self._finish_chunk(self._fetch_chunk(pending)))
 
-    def _stream(self, chunk_iter, collect):
-        """collect(pending) per chunk, in order, with a depth-3
-        submit/collect queue: each chunk's D2H copy, queued by
-        submit_chunk, lands while the next chunks' steps run."""
-        queue = deque()
+    def _stream(self, chunk_iter, assemble):
+        """assemble(finished chunk) per chunk, in order.  A loop turn
+        submits chunk c, issues chunk c-1 (its first-pass copy landed
+        while c-2's retry ran; its overflow steps now queue behind c's
+        first pass) and finishes and assembles chunk c-2: at most three
+        chunks in flight, and the card holds c's first pass and c-1's
+        retry through c-2's assembly.  At the end the remaining chunks are
+        issued, then finished, in order."""
+        submitted, issued = deque(), deque()
         for chunk in chunk_iter:
-            queue.append(self.submit_chunk(chunk))
-            if len(queue) > 2:
-                yield collect(queue.popleft())
-        while queue:
-            yield collect(queue.popleft())
+            submitted.append(self.submit_chunk(chunk))
+            if len(submitted) > 1:
+                issued.append(self._fetch_chunk(submitted.popleft()))
+            if len(issued) > 1:
+                yield assemble(self._finish_chunk(issued.popleft()))
+        while submitted:
+            issued.append(self._fetch_chunk(submitted.popleft()))
+        while issued:
+            yield assemble(self._finish_chunk(issued.popleft()))
 
     def map_stream(self, chunk_iter):
         """List[MapRecord] per chunk of an iterator of read chunks."""
-        return self._stream(chunk_iter, self.collect_chunk)
+        return self._stream(chunk_iter, self._assemble)
 
     def map_stream_sam(self, chunk_iter):
         """SAM text per chunk, (sam_text, n_records, n_valid)."""
-        return self._stream(chunk_iter, self.collect_chunk_sam)
+        return self._stream(chunk_iter, self._assemble_sam)
 
     _COMP = bytes.maketrans(b"ACGTacgt", b"TGCATGCA")
 

@@ -5,10 +5,10 @@ Loads the persisted index to the device, streams read batches through
 TorchMapper and writes SAM; logs phase timings and the final sensitivity
 valid/total.  The verbose log's `phase_s` is TorchMapper.phase_s: the host
 seconds of prepare, dispatch, fetch, retry (both retry tiers, their wait
-included), retry_wait (the retry steps' blocking copies) and assemble, and
-the card seconds of first_pass_device and retry_device (CUDA events; 0 on
-the CPU).  A torch.profiler trace taken around `run_mapping` shows the
-mapper's `mapper.*` spans beside the card's kernels
+included), retry_wait (the waits for the retry steps' copies) and
+assemble, and the card seconds of first_pass_device and retry_device
+(CUDA events; 0 on the CPU).  A torch.profiler trace taken around
+`run_mapping` shows the mapper's `mapper.*` spans beside the card's kernels
 (longreadmapper_tpu_torch/utils/trace.py).
 """
 
@@ -69,9 +69,10 @@ def run_mapping(genome_path: str, reads_path: str,
     log.vlog("phase_s %s", json.dumps(mapper.phase_s))
     log.vlog("chunks: %d raw-encoded on the device, %d host-encoded",
              mapper.raw_chunks, mapper.host_chunks)
-    log.vlog("retried reads %d, overflow reads %d, retried_sat_chunks %d",
-             mapper.retried_reads, mapper.overflow_reads,
-             mapper.retried_sat_chunks)
+    log.vlog("retried reads %d, overflow reads %d, retried_sat_chunks %d, "
+             "retry steps %d (deferred %d)", mapper.retried_reads,
+             mapper.overflow_reads, mapper.retried_sat_chunks,
+             mapper.retry_steps, mapper.deferred_retry_steps)
     if total:
         log.vlog("Sensitivity: %d/%d=%f", valid, total, valid / total)
     return valid, total

@@ -4,10 +4,10 @@ device read encode, the forced pos64 and slim layouts, the vote-overflow
 tier (bit 0: reads inside a tandem repeat overflow the compact vote
 slots) and the gact saturation tier (bit 1, forced on a submitted chunk
 as tests/test_torch_long.py forces it on the CPU); and, off the map path,
-the card-side suffix-array build and the affine scorer; and map_stream
-against map_stream_sam.  Every SAM is
-byte-identical between the devices and every CIGAR is checked against the
-genome.
+the card-side suffix-array build and the affine scorer; map_stream
+against map_stream_sam; and the stream's overflow retry running on the
+card under an earlier chunk's assembly.  Every SAM is byte-identical
+between the devices and every CIGAR is checked against the genome.
 
 Card-only: the tests skip where torch.cuda.is_available() is false, and
 import no JAX, so they run where JAX is absent:
@@ -353,3 +353,82 @@ def test_map_stream_card_matches_sam_and_cpu(tmp_path):
         out[dev] = sam
     assert out["cuda"] == out["cpu"]
     _check_records("".join(out["cuda"]), genome, 100, 97)
+
+
+@pytest.mark.cuda
+def test_stream_retry_runs_under_the_assembly_on_card(tmp_path):
+    """The stream issues chunk c-1's overflow retry before it finishes and
+    assembles chunk c-2, and waits for it a loop turn later.  50 kb reads
+    at 8% substitutions pass the first pass's half band (bit 2), so every
+    chunk retries; each assembly is held a few first passes long (a sleep
+    in it), as the 50 kb cell's assembly outlasts a first pass.  Under
+    torch.profiler, for every chunk the loop assembles, the card starts
+    the next chunk's retry step inside that chunk's mapper.assemble span
+    (its start event completes inside it, its end event had not at the
+    span's start) and runs kernels there; every retry of the stream is
+    deferred, and its SAM equals map_chunk's chunk by chunk."""
+    _card()
+    genome = _genome(21, 400000)
+    fa = _index(tmp_path, genome, 10)
+    reads = _reads(22, genome, 40, 50000, 0.08)
+    chunks = [reads[s:s + 8] for s in range(0, len(reads), 8)]
+    idx, meta, mta = load_device_index(fa, "cuda", verbose=False)
+    tm = TorchMapper(idx, meta, mta, Params(hlen=10), chunk_b=16,
+                     device="cuda")
+    tm.map_chunk(chunks[0])           # builds and loads the kernels
+    f0 = tm.phase_s["first_pass_device"]
+    want = ["".join(r.to_sam() for r in tm.map_chunk(c)) for c in chunks]
+    assert tm.retry_steps == len(chunks) + 1
+    assert tm.deferred_retry_steps == 0
+    pad = 3 * (tm.phase_s["first_pass_device"] - f0) / len(chunks) + 0.01
+
+    tm = TorchMapper(idx, meta, mta, Params(hlen=10), chunk_b=16,
+                     device="cuda")
+    issued, seen = {}, {}
+    issue, assemble = tm._issue_step, tm._assemble_sam
+    post = tm._postprocess_sam
+
+    def issue_step(cfg, part, chunk=None):
+        rec = issue(cfg, part, chunk)
+        issued.setdefault(chunk, []).append(rec)
+        return rec
+
+    def assemble_sam(done):
+        k = done[0][3]["chunk"]
+        nxt = issued.get(k + 1, [])
+        ended = [r["end"].query() for r in nxt]
+        out = assemble(done)
+        seen[k] = (ended, [r["start"].query() for r in nxt])
+        return out
+
+    def postprocess_sam(*a, **kw):
+        time.sleep(pad)
+        return post(*a, **kw)
+
+    tm._issue_step, tm._assemble_sam = issue_step, assemble_sam
+    tm._postprocess_sam = postprocess_sam
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = [t for t, _, _ in tm.map_stream_sam(iter(chunks))]
+    assert got == want
+    assert tm.deferred_retry_steps == tm.retry_steps == len(chunks)
+    n = len(chunks)
+    # the loop assembles chunks 0..n-3 with the next chunk's retry queued
+    for k in range(n - 2):
+        ended, started = seen[k]
+        assert started and not any(ended) and all(started), (k, seen[k])
+    evs = list(prof.events())
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs
+                   if e.name == "mapper.assemble"
+                   and e.device_type.name == "CPU")
+    kernels = [(e.time_range.start, e.time_range.end) for e in evs
+               if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(("mapper.", "Memcpy", "Memset"))]
+    assert len(spans) == n
+    for a, b in spans[:n - 2]:
+        busy = sum(max(0, min(b, y) - max(a, x)) for x, y in kernels)
+        print(f"[card] kernels inside an assembly span of "
+              f"{(b - a) / 1e3:.4f} ms: {busy / 1e3:.4f} ms")
+        assert busy > 0

@@ -23,15 +23,17 @@ from longreadmapper_tpu_torch.utils.config import Params
 
 torch.set_num_threads(1)
 
-# the span's nearest enclosing mapper span; None: a span of its own
+# the span's nearest enclosing mapper span; None: a span of its own.  The
+# overflow retry's issue (mapper.retry_overflow) and its finish a loop
+# turn later (mapper.retry.finish, holding the wait) are spans apart.
 PARENTS = {"mapper.prepare": {None}, "mapper.dispatch": {None},
            "mapper.fetch": {None}, "mapper.retry_overflow": {None},
-           "mapper.assemble": {None},
+           "mapper.retry.finish": {None}, "mapper.assemble": {None},
            "mapper.h2d": {"mapper.dispatch", "mapper.retry_overflow"},
            "mapper.step": {"mapper.dispatch", "mapper.retry_overflow"},
-           "mapper.d2h": {"mapper.dispatch"},
+           "mapper.d2h": {"mapper.dispatch", "mapper.retry_overflow"},
            "mapper.retry.pack": {"mapper.retry_overflow"},
-           "mapper.retry.wait": {"mapper.retry_overflow"},
+           "mapper.retry.wait": {"mapper.retry.finish"},
            "mapper.assemble.cigar": {"mapper.assemble"},
            "mapper.assemble.records": {"mapper.assemble"}}
 
@@ -108,8 +110,9 @@ def test_stream_spans_nest_and_carry_their_chunk(rep, monkeypatch):
         assert (parent and parent.name) in PARENTS[e.name], e.name
         if parent is not None:
             assert args[id(e)] == args[id(parent)], e.name
-    # both places that stage and issue a step do so in their own spans
-    for name in ("mapper.h2d", "mapper.step"):
+    # both places that stage, issue and copy back a step do so in their
+    # own spans
+    for name in ("mapper.h2d", "mapper.step", "mapper.d2h"):
         assert {_mapper_parent(e).name for e in evs if e.name == name} == \
             PARENTS[name]
     n = len(rep["chunks"])
@@ -137,14 +140,15 @@ def test_no_record_function_without_a_profiler(rep, monkeypatch):
 
 def test_retry_time_is_in_retry_not_in_fetch(rep, monkeypatch):
     delay, steps = 0.25, []
-    fetch_step = TorchMapper._fetch_step
+    for name in ("_issue_step", "_finish_step"):
+        real = getattr(TorchMapper, name)
 
-    def slow(self, *a, **k):
-        steps.append(1)
-        time.sleep(delay)
-        return fetch_step(self, *a, **k)
+        def slow(self, *a, real=real, **k):
+            steps.append(1)
+            time.sleep(delay)
+            return real(self, *a, **k)
 
-    monkeypatch.setattr(TorchMapper, "_fetch_step", slow)
+        monkeypatch.setattr(TorchMapper, name, slow)
     tm, _ = _map(rep)
     ph = tm.phase_s
     assert steps and ph["retry"] >= delay * len(steps)
