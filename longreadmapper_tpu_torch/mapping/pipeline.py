@@ -19,7 +19,9 @@ All phases are one batched tensor step.
 `map_step` returns the JAX step's two arrays byte for byte: `blob` (B,
 4 * meta_words + head) int8 = the little-endian int32 meta words of each
 read (8; 10 under pos64, whose positions ship as [lo, hi] pairs) followed
-by the eager head of the pad-sorted CIGAR run entries, and `ops_tail`.
+by the eager head of the pad-sorted CIGAR run entries, and `ops_tail`;
+beside them `vote_need`, each read's widest vote row, which JAX does not
+return: the mapper sizes a flagged read's exact vote by it.
 `raw_map_step` is the JAX raw_step: it takes the ASCII of a uniform chunk
 and encodes and reverse-complements it on the device.
 
@@ -59,15 +61,17 @@ from dataclasses import dataclass
 from fractions import Fraction
 from typing import ClassVar
 
+import numpy as np
 import torch
 
 from ..index.device import DeviceIndex, IndexMeta
 from ..ops.band_dp import banded_nw_dirs
 from ..ops.band_scores import band_checkpoints
 from ..ops.gact import gact_group_tiles, gact_traceback_c
-from ..ops.seed_vote import seed_tables, vote_rows, wide_rank
+from ..ops.seed_vote import seed_tables, vote_need, vote_rows, wide_rank
 from ..ops.step import encode_raw, lanes, locate_window, pack
 from ..ops.traceback import device_traceback_c
+from ..ops.vote import pow2_at_least
 from ..utils.config import Params
 
 I32 = torch.int32
@@ -101,6 +105,9 @@ class MapperConfig:
     short_W_override: int = 0   # resident first pass at this W (bit 2)
     pos64: bool = False         # int64 positions from split-hi tables
     slim: bool = False          # slim index layout (text_pair windows)
+    # a long bucket takes the tiled gact path whatever its direction
+    # volume: a wide vote class step runs its retry tier's path
+    tiled: bool = False
     OPS_HEAD_COLS: ClassVar[int] = 16      # eager CIGAR run bytes per read
 
     @property
@@ -149,6 +156,13 @@ class MapperConfig:
         return -(-want // 128) * 128
 
     @property
+    def vote_slots_max(self) -> int:
+        """The widest row the exact tier may vote: every seed of a phase
+        at thres - 1 occurrences (the most an informative seed has),
+        padded to a power of 2, the vote kernels' sort width."""
+        return pow2_at_least(self.max_seeds * (self.thres - 1))
+
+    @property
     def vote_slots(self) -> int:
         """Compact-tier slots: mean + 5 sigma of the background, 16-granular;
         overflowing reads re-run through the exact tier."""
@@ -171,6 +185,8 @@ class MapperConfig:
         take the tiled gact path."""
         if self.L <= self.gact_threshold:
             return False
+        if self.tiled:
+            return True
         vol = self.B * (self.L // 16) * self.short_band * 4
         return vol > self.mid_dirs_budget
 
@@ -232,15 +248,31 @@ def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens,
     seeds' rank), vote_rows (the pick, the vote and each read's accept, one
     launch on CUDA) and accept (nothing left to issue: JAX's accept ran in
     the vote's launch)."""
+    return _seed_vote_need(cfg, idx, codes, lens, mark)[:2]
+
+
+def _seed_vote_need(cfg: MapperConfig, idx: DeviceIndex, codes, lens,
+                    mark=None):
+    """_seed_vote's (best, overflow) and each read's widest row as the
+    exact tier votes it (vote_need), issued before mark("vote_rows")."""
     mark = mark or (lambda stage: None)
     tabs = seed_tables(cfg, idx, codes, lens)
     mark("seed_tables")
     rank = wide_rank(tabs[3])
     mark("narrow")
     best, overflow, _ = vote_rows(cfg, idx, lens, tabs, rank)
+    need = vote_need(cfg, tabs)
     mark("vote_rows")
     mark("accept")
-    return best, overflow
+    return best, overflow, need
+
+
+def vote_classes(need, exact: int) -> np.ndarray:
+    """The slots a read's wide vote class step gives each of its rows: 0
+    where `need` (vote_need's, each read's widest row) fits the exact
+    tier's `exact` slots, else the least power of 2 that holds it."""
+    return np.array([pow2_at_least(int(x)) if x > exact else 0
+                     for x in np.asarray(need).ravel()], dtype=np.int64)
 
 
 def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
@@ -248,7 +280,9 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
     """One device step.  codes/codes_rc (B, L) int8 (the reverse
     complement front-aligned, pad 4), lens/limits (B,) int32 on the index's
     device.  Returns dict(blob (B, 32 + head) int8, ops_tail (B, K - head)
-    int8), byte-identical to the JAX make_map_step.  `mark(stage)`, when
+    int8), byte-identical to the JAX make_map_step, and vote_need (B,)
+    int32, each read's widest vote row (ops/seed_vote.vote_need), which
+    sizes the mapper's wide vote classes.  `mark(stage)`, when
     given, is called as each stage has been issued (runtime/stages.py
     times them): seed_tables, narrow, vote_rows and accept (the seed
     vote, _seed_vote), locate_window, then band_dp + walk on the
@@ -257,7 +291,7 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
     mark = mark or (lambda stage: None)
     lens = lens.to(I32)
     limit = limits.to(I32)
-    best, overflow = _seed_vote(cfg, idx, codes, lens, mark)
+    best, overflow, need = _seed_vote_need(cfg, idx, codes, lens, mark)
 
     # the contig, strand and offset of each read's best diagonal; the read
     # on that strand (q: reverse-strand reads align their reverse
@@ -303,6 +337,7 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
     out = pack(cfg, best, found, gi, strand, off, ln, limit, run_units,
                saturated)
     mark("pack")
+    out["vote_need"] = need
     return out
 
 

@@ -40,7 +40,9 @@ from ..device import pick_device
 from ..formats.fastx import _encode_lut
 from ..formats.sam import cigar_string, sam_record
 from ..index.device import DeviceIndex, IndexMeta
-from ..mapping.pipeline import MapperConfig, map_step, raw_map_step
+from ..mapping.pipeline import (MapperConfig, map_step, raw_map_step,
+                                vote_classes)
+from ..ops.vote import pow2_at_least
 from .. import native_build
 from ..utils.config import Params
 from ..utils.trace import Span
@@ -178,9 +180,17 @@ class TorchMapper:
         self._cfgs = {}
         self._retry_cfgs = {}
         self._sat_cfgs = {}
+        self._wide_cfgs = {}
         self.overflow_reads = 0   # reads whose final meta carries a flag
         self.retried_reads = 0    # reads re-run through the exact tier
         self.retry_steps = 0      # exact-tier steps issued for them
+        # of those, the reads whose vote needs more slots than the tier's
+        # step has, re-run through a wide vote class step (_retry_overflow),
+        # the class steps issued for them, and the reads a class step still
+        # left with bit 0
+        self.wide_vote_reads = 0
+        self.wide_vote_steps = 0
+        self.wide_vote_unresolved = 0
         # of those, the steps whose wait came after a stage of another
         # chunk (a submit, an issue, a finish): the stream's overlap.
         # _stage_seq counts the stages run; a step issued at one count
@@ -202,14 +212,18 @@ class TorchMapper:
         # and splice (mapper.retry_saturation, mapper.retry_overflow: the
         # overflow tier's issue, mapper.retry.finish: its wait and
         # splice); retry_wait = the waits for the retry steps' copies, a
-        # part of retry (mapper.retry.wait); assemble = SAM building
-        # (mapper.assemble).  Device time by CUDA events (0 on the CPU),
-        # each read after a wait the stream makes anyway: first_pass_device
-        # = a part's first pass, its H2D copies to its blob's D2H copy;
-        # retry_device = a retry step, its H2D copies to its last kernel.
+        # part of retry (mapper.retry.wait); wide_vote = the issue of the
+        # wide vote class steps, a part of retry (mapper.retry.wide);
+        # assemble = SAM building (mapper.assemble).  Device time by CUDA
+        # events (0 on the CPU), each read after a wait the stream makes
+        # anyway: first_pass_device = a part's first pass, its H2D copies
+        # to its blob's D2H copy; retry_device = a retry step, its H2D
+        # copies to its last kernel; wide_vote_device = the class steps'
+        # part of retry_device.
         self.phase_s = {"prepare": 0.0, "dispatch": 0.0, "fetch": 0.0,
-                        "retry": 0.0, "retry_wait": 0.0, "assemble": 0.0,
-                        "first_pass_device": 0.0, "retry_device": 0.0}
+                        "retry": 0.0, "retry_wait": 0.0, "wide_vote": 0.0,
+                        "assemble": 0.0, "first_pass_device": 0.0,
+                        "retry_device": 0.0, "wide_vote_device": 0.0}
 
     # ------------------------------------------------------------ configs
 
@@ -258,6 +272,34 @@ class TorchMapper:
                                           short_W_override=0)
         return self._retry_cfgs[L]
 
+    # the vote scratch a wide vote class step may take (16 bytes a slot of
+    # each of its rows bounds the kernels' pairs and staged seeds, and the
+    # plain vote's per-slot temporaries)
+    WIDE_VOTE_BYTES = 256 << 20
+
+    def _wide_step_for(self, L: int, slots: int, B: int) -> MapperConfig:
+        """The retry tier's config at `slots` vote slots a row and a batch
+        of B: a wide vote class step.  Its pick keeps every wide seed of
+        its reads (wide_budget), so no row holds fewer votes than its
+        read's vote_need counts; it takes its tier's align path (tiled
+        gact where the tier's step is), so its run entries splice as the
+        tier's do."""
+        key = (L, slots, B)
+        if key not in self._wide_cfgs:
+            cfg = self._retry_step_for(L)
+            self._wide_cfgs[key] = replace(cfg, B=B, vote_budget=slots,
+                                           wide_budget=B * cfg.npos,
+                                           tiled=cfg.use_gact)
+        return self._wide_cfgs[key]
+
+    def _wide_batch(self, L: int, slots: int) -> int:
+        """The most reads a class step of `slots` slots takes: a power of
+        2 whose rows' scratch fits WIDE_VOTE_BYTES, at least 1, at most
+        the tier's batch."""
+        cfg = self._retry_step_for(L)
+        fit = self.WIDE_VOTE_BYTES // (16 * slots * cfg.phases)
+        return min(cfg.B, 1 << max(0, int(fit).bit_length() - 1))
+
     def _sat_step_for(self, L: int) -> MapperConfig:
         """4x-run-buffer gact config for chunks whose shared run buffer
         saturated (bit 1)."""
@@ -285,11 +327,12 @@ class TorchMapper:
         stream: build the CUDA kernels (native_build), then run once on
         the device every step variant that _prepare_chunk and the retry
         tiers can dispatch for each bucket, as JAX's warmup compiles them:
-        host-encoded, raw (single device) and the exact-everything retry
-        (where the first pass is compact or narrow).  Each runs on a part
-        of pad rows, which loads its kernels' modules and fills the
-        allocator's pools; no counter of the mapper moves.  Returns the
-        elapsed seconds."""
+        host-encoded, raw (single device), the exact-everything retry
+        (where the first pass is compact or narrow) and, where the first
+        pass is compact, one wide vote class step of a read at the tier's
+        widest class.  Each runs on a part of pad rows, which loads its
+        kernels' modules and fills the allocator's pools; no counter of
+        the mapper moves.  Returns the elapsed seconds."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             native_build.build(names=("band_dp", "band_scores", "walk",
@@ -302,7 +345,11 @@ class TorchMapper:
                 if not cfg.exact_slots and (
                         cfg.vote_slots < cfg.vote_slots_exact
                         or cfg.half_band):
-                    variants.append((self._retry_step_for(L), False))
+                    cfg_r = self._retry_step_for(L)
+                    variants.append((cfg_r, False))
+                    if cfg.vote_slots < cfg.vote_slots_exact:
+                        variants.append((self._wide_step_for(
+                            L, cfg_r.vote_slots_max, 1), False))
             for c, raw in variants:
                 codes = (np.zeros((c.B, L), np.uint8) if raw
                          else np.full((c.B, L), 4, np.int8))
@@ -418,14 +465,16 @@ class TorchMapper:
             return map_step(cfg, self.idx, dc, drc, dl, dlim)
 
     def _start_d2h(self, out: dict, chunk=None, tail: bool = False) -> dict:
-        """Queue the blob's D2H copy into pinned memory on the current
-        CUDA stream (non-blocking) and record an event to wait on.  The
-        CIGAR tail stays on the device until a read needs it; with `tail`
-        it is copied too, behind the same event, and the result holds no
-        device tensor."""
+        """Queue the blob's and the vote need's D2H copies into pinned
+        memory on the current CUDA stream (non-blocking) and record an
+        event to wait on.  The CIGAR tail stays on the device until a read
+        needs it; with `tail` (a retry step's) it is copied too, behind the
+        same event, the need is not (only a first pass's sizes a retry),
+        and the result holds no device tensor."""
         with Span("mapper.d2h", chunk):
             if self.device.type == "cpu":
                 return dict(blob=out["blob"], ops_tail=out["ops_tail"],
+                            need=None if tail else out["vote_need"],
                             event=None)
 
             def pinned(t):
@@ -436,6 +485,7 @@ class TorchMapper:
             return dict(blob=pinned(out["blob"]),
                         ops_tail=(pinned(out["ops_tail"]) if tail
                                   else out["ops_tail"]),
+                        need=None if tail else pinned(out["vote_need"]),
                         event=self._event())
 
     @staticmethod
@@ -505,7 +555,8 @@ class TorchMapper:
                     ops = np.concatenate(
                         [ops, out["ops_tail"].cpu().numpy()], axis=1)
             res = self._retry_saturation(
-                cfg, reads, dict(meta=meta, ops=ops, chunk=k), k)
+                cfg, reads, dict(meta=meta, ops=ops, chunk=k,
+                                 need=out["need"].numpy()), k)
             res = self._retry_overflow(cfg, reads, res, k)
             fetched.append((cfg, reads, lens, res))
         return fetched
@@ -531,9 +582,11 @@ class TorchMapper:
         return dict(self._start_d2h(o, chunk, tail=True), start=start,
                     end=end)
 
-    def _finish_step(self, cfg: MapperConfig, rec: dict, chunk=None):
+    def _finish_step(self, cfg: MapperConfig, rec: dict, chunk=None,
+                     wide: bool = False):
         """Wait for an issued step's copies and return its (meta, ops) in
-        full; the step's device time is read after the wait."""
+        full; the step's device time is read after the wait, and kept in
+        wide_vote_device too for a wide vote class step (`wide`)."""
         with Span("mapper.retry.wait", chunk, self.phase_s, "retry_wait"):
             if rec["event"] is not None:
                 rec["event"].synchronize()
@@ -541,8 +594,10 @@ class TorchMapper:
             if ops.shape[1] and _tail_needed(ops, cfg.tb_entry_bytes):
                 ops = np.concatenate([ops, rec["ops_tail"].numpy()], axis=1)
         if rec["start"] is not None:
-            self.phase_s["retry_device"] += \
-                rec["start"].elapsed_time(rec["end"]) / 1e3
+            dt = rec["start"].elapsed_time(rec["end"]) / 1e3
+            self.phase_s["retry_device"] += dt
+            if wide:
+                self.phase_s["wide_vote_device"] += dt
         return meta, ops
 
     def _retry_saturation(self, cfg: MapperConfig, reads, out, chunk=None):
@@ -570,21 +625,44 @@ class TorchMapper:
         """Issue the exact-everything tier's steps for the reads flagged
         with vote overflow (bit 0) or a narrow-band ed (bit 2), at most
         the tier's B a step; their records and row selections ride in the
-        part's `retry`, for _finish_overflow.  Bit 1 (gact saturation) is
-        not retried here: more vote slots cannot fix it."""
+        part's `retry`, for _finish_overflow.  The bit-0 reads whose widest
+        vote row (the first pass's need) passes the tier's slots take a
+        wide vote class step instead: one step a part at the power-of-2
+        class of its widest need (vote_classes), its batch padded to a
+        power of 2 over those reads (_wide_batch bounds it).  Bit 1 (gact
+        saturation) is not retried here: more vote slots cannot fix it."""
         if cfg.exact_slots:
             return out
-        flagged = np.flatnonzero(out["meta"][:len(reads),
-                                             cfg.meta_words - 1] & 5)
+        flags = out["meta"][:len(reads), cfg.meta_words - 1]
+        flagged = np.flatnonzero(flags & 5)
         if flagged.size == 0:
             return out
         with Span("mapper.retry_overflow", chunk, self.phase_s, "retry"):
             cfg_r = self._retry_step_for(cfg.L)
+            slots = vote_classes(out["need"][flagged], cfg_r.vote_slots)
+            slots[(flags[flagged] & 1) == 0] = 0
             steps = []
-            for s in range(0, flagged.size, cfg_r.B):
-                sel = flagged[s:s + cfg_r.B]
-                steps.append((sel, self._issue_step(
-                    cfg_r, [reads[i] for i in sel], chunk)))
+
+            def issue(c, sel, wide=False):
+                steps.append((c, sel, wide, self._issue_step(
+                    c, [reads[i] for i in sel], chunk)))
+
+            exact = flagged[slots == 0]
+            for s in range(0, exact.size, cfg_r.B):
+                issue(cfg_r, exact[s:s + cfg_r.B])
+            wide = flagged[slots > 0]
+            if wide.size:
+                with Span("mapper.retry.wide", chunk, self.phase_s,
+                          "wide_vote"):
+                    c = int(slots.max())
+                    bmax = self._wide_batch(cfg.L, c)
+                    for s in range(0, wide.size, bmax):
+                        sel = wide[s:s + bmax]
+                        issue(self._wide_step_for(
+                            cfg.L, c, min(bmax, pow2_at_least(sel.size))),
+                            sel, True)
+                        self.wide_vote_steps += 1
+                self.wide_vote_reads += int(wide.size)
         self.retried_reads += int(flagged.size)
         self.retry_steps += len(steps)
         return dict(out, retry=steps, issued_at=self._stage_seq)
@@ -592,16 +670,20 @@ class TorchMapper:
     def _finish_overflow(self, cfg: MapperConfig, out):
         """Wait for a part's issued overflow steps and splice their rows
         (meta with the real flag, run bytes) in, their run entries widened
-        to the chunk's width, which the assembly decodes with."""
+        to the chunk's width, which the assembly decodes with.  A read a
+        wide vote class step leaves with bit 0 counts in
+        wide_vote_unresolved."""
         if "retry" not in out:
             return out
         k = out["chunk"]
         with Span("mapper.retry.finish", k, self.phase_s, "retry"):
-            cfg_r = self._retry_step_for(cfg.L)
             meta = out["meta"].copy()
             ops = np.asarray(out["ops"]).copy()
-            for sel, rec in out["retry"]:
-                meta_r, ops_r = self._finish_step(cfg_r, rec, k)
+            for cfg_r, sel, wide, rec in out["retry"]:
+                meta_r, ops_r = self._finish_step(cfg_r, rec, k, wide)
+                if wide:
+                    self.wide_vote_unresolved += int(
+                        (meta_r[:sel.size, cfg_r.meta_words - 1] & 1).sum())
                 ops_r = _widen_entries(ops_r, cfg_r.tb_entry_bytes,
                                        cfg.tb_entry_bytes)
                 if ops_r.shape[1] > ops.shape[1]:

@@ -271,6 +271,17 @@ def vote_rows_plain(cfg, idx, k_seed, cnt, qw, wide):
 vote_rows_plain.cuda_calls = 0
 
 
+def vote_need(cfg, tabs):
+    """Each read's widest (read, phase) row as the exact tier votes it,
+    (B,) int32: a row's slots are its seeds' counts, each wide seed at its
+    narrowed count cw, as a step whose pick keeps every wide seed gives
+    them (the pick of a batch keeps the first wide_lanes, so the row a
+    step votes is never wider).  Plain PyTorch on either device."""
+    _, _, cnt12, wide, _, cw = tabs
+    return torch.where(wide, cw, cnt12).sum(1, dtype=I32).reshape(
+        -1, cfg.phases).amax(1)
+
+
 def wide_rank(wide):
     """The flat inclusive count of wide seeds, (B*P*S,) int32: a wide
     seed's rank among the chunk's wide seeds in flat order."""

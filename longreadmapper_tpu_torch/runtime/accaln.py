@@ -69,10 +69,13 @@ def run_mapping(genome_path: str, reads_path: str,
     log.vlog("phase_s %s", json.dumps(mapper.phase_s))
     log.vlog("chunks: %d raw-encoded on the device, %d host-encoded",
              mapper.raw_chunks, mapper.host_chunks)
-    log.vlog("retried reads %d, overflow reads %d, retried_sat_chunks %d, "
+    log.vlog("retried reads %d, overflow reads %d, wide vote reads %d "
+             "(steps %d, unresolved %d), retried_sat_chunks %d, "
              "retry steps %d (deferred %d)", mapper.retried_reads,
-             mapper.overflow_reads, mapper.retried_sat_chunks,
-             mapper.retry_steps, mapper.deferred_retry_steps)
+             mapper.overflow_reads, mapper.wide_vote_reads,
+             mapper.wide_vote_steps, mapper.wide_vote_unresolved,
+             mapper.retried_sat_chunks, mapper.retry_steps,
+             mapper.deferred_retry_steps)
     if total:
         log.vlog("Sensitivity: %d/%d=%f", valid, total, valid / total)
     return valid, total

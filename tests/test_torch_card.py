@@ -5,9 +5,12 @@ tier (bit 0: reads inside a tandem repeat overflow the compact vote
 slots) and the gact saturation tier (bit 1, forced on a submitted chunk
 as tests/test_torch_long.py forces it on the CPU); and, off the map path,
 the card-side suffix-array build and the affine scorer; map_stream
-against map_stream_sam; and the stream's overflow retry running on the
-card under an earlier chunk's assembly.  Every SAM is byte-identical
-between the devices and every CIGAR is checked against the genome.
+against map_stream_sam; the stream's overflow retry running on the
+card under an earlier chunk's assembly; and 10 kb and 50 kb streams over
+high-copy repeat families, whose reads take the wide vote classes,
+judged read by read by the benchmark's plain reference
+(benchmark/reference.py).  Every SAM is byte-identical between the
+devices and every CIGAR is checked against the genome.
 
 Card-only: the tests skip where torch.cuda.is_available() is false, and
 import no JAX, so they run where JAX is absent:
@@ -15,6 +18,7 @@ import no JAX, so they run where JAX is absent:
         tests/test_torch_card.py
 """
 
+import gc
 import time
 from dataclasses import replace
 
@@ -432,3 +436,91 @@ def test_stream_retry_runs_under_the_assembly_on_card(tmp_path):
         print(f"[card] kernels inside an assembly span of "
               f"{(b - a) / 1e3:.4f} ms: {busy / 1e3:.4f} ms")
         assert busy > 0
+
+
+# a genome of two contigs with copies of the yeast genome's high-copy
+# families (benchmark/configs/yeast.json): Ty1's 32 scattered, Y' and the
+# X core at contig ends
+REPEATS = {"contigs": [["c1", 300000], ["c2", 200000]], "gc": 0.383,
+           "repeats": [
+               {"family": "Ty1", "length": 5918, "copies": 32,
+                "placement": "scattered"},
+               {"family": "Yprime", "length": 6700, "copies": 4,
+                "placement": "telomeric"},
+               {"family": "X", "length": 475, "copies": 4,
+                "placement": "telomeric"}]}
+TRAFFIC = {"identity": {"mean": 0.95, "max": 0.99, "stdev": 0.025},
+           "errors": {"sub": 1 / 3, "ins": 1 / 3, "dele": 1 / 3},
+           "reverse_share": 0.5, "pool_chunks": 2, "qual": "I"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi,per", [(8193, 10240, 200),
+                                       (49153, 50176, 40)])
+def test_stream_over_high_copy_repeats_matches_reference_on_card(
+        tmp_path, monkeypatch, lo, hi, per):
+    """Two chunks of ONT-like reads over REPEATS, mapped by the stream at
+    chunk_b 2048 (10 kb: the resident first pass, the tiled exact tier;
+    50 kb: tiled throughout): every record equals the plain reference's,
+    reads take the wide vote classes and none keeps a flag.  The same
+    stream with every flagged read sent to the exact tier (the classes
+    off) takes at most the class steps' vote scratch less device memory
+    above what was allocated before it."""
+    _card()
+    from benchmark.judge import judge
+    from benchmark.reference import Reference
+    from benchmark.run import build_mapper
+    from benchmark.traffic import make_genome, make_pool, write_fasta
+    from longreadmapper_tpu_torch import native_build
+    from longreadmapper_tpu_torch.models import mapper as tmapper
+    from longreadmapper_tpu_torch.ops.vote import VOTE_FUNCS, pow2_at_least
+    g = make_genome(REPEATS, 23)
+    pool = make_pool(g, dict(TRAFFIC, chunk_reads=per, lengths=dict(
+        mean=15000, stdev=13000, min=lo, max=hi)), 23, "cuda")
+    fa = str(tmp_path / "rep.fa")
+    write_fasta(fa, g)
+    tm = build_mapper(dict(mapper=dict(seed_len=20, thres=300, hlen=12,
+                                       chunk_b=2048)), fa, "cuda")
+    tm.warmup([hi])
+    chunks = [[(f"r{i}", pool.seqs[i], pool.quals[i]) for i in
+               pool.chunk(k)] for k in range(pool.n_chunks)]
+    issued = []
+    issue = tm._issue_step
+
+    def issue_step(cfg, part, chunk=None):
+        issued.append(cfg)
+        return issue(cfg, part, chunk)
+
+    tm._issue_step = issue_step
+
+    def above_base(run):
+        """run()'s result and the device memory it took at its peak above
+        what was allocated before it (earlier tests' garbage collected)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    text, peak = above_base(lambda: "".join(
+        t for t, _, _ in tm.map_stream_sam(iter(chunks))))
+    assert tm.wide_vote_reads > 0 and tm.wide_vote_steps > 0
+    assert tm.wide_vote_unresolved == tm.overflow_reads == 0
+    rows = [line.split("\t") for line in text.splitlines()]
+    reads = [(n, s) for c in chunks for n, s, _ in c]
+    ref = Reference(g, 20, 300, "cuda")
+    counts = judge(rows, reads, ref.map_reads([s for _, s in reads]), ref)
+    assert counts["records_wrong"] == 0, counts["wrong"][:8]
+
+    lib = native_build.load("vote", VOTE_FUNCS)
+    exact = tm._retry_step_for(tm._step_for(hi).L).vote_slots
+    scratch = max(c.B * c.phases * lib.lrm_vote_scratch_bytes(
+        pow2_at_least(c.vote_slots), c.max_seeds, int(c.pos64))
+        for c in issued if c.vote_slots > exact)
+    monkeypatch.setattr(tmapper, "vote_classes",
+                        lambda need, slots: np.zeros(len(need), np.int64))
+    _, peak_exact = above_base(lambda: list(tm.map_stream_sam(iter(chunks))))
+    print(f"[card] {hi}: peak {peak} B with the classes, {peak_exact} B "
+          f"without, class scratch {scratch} B")
+    assert peak <= peak_exact + scratch

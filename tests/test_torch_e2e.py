@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from conftest import sample_reads, write_fasta, write_fastq
-from _torch_parity import HLEN, build_both, e2e_fixture
+from _torch_parity import (HLEN, assert_sam_matches_jax_or_oracle,
+                           build_both, e2e_fixture, jax_flagged_reads)
 from test_e2e import _compare
 from longreadmapper_tpu.models.mapper import TPUMapper
 from longreadmapper_tpu.oracle.refpipe import OracleMapper
@@ -119,7 +120,10 @@ def test_torch_map_stream_matches_tpu_mapper(pipe):
 
 def test_torch_sam_matches_tpu_mapper_retry_tier(tmp_path):
     """Reads inside a tandem repeat overflow the compact vote slots: both
-    mappers re-run them through the exact-slots tier, identically."""
+    mappers re-run them through the exact-slots tier, identically.  Reads
+    whose vote overflows JAX's exact tier too (JAX leaves them flagged
+    with bit 0) take the port's wide vote class steps, and are held to
+    the oracle instead."""
     rng = np.random.default_rng(5)
     rand = lambda k: "".join("ACGT"[c] for c in rng.integers(0, 4, k))
     motif = rand(60)
@@ -130,9 +134,20 @@ def test_torch_sam_matches_tpu_mapper_retry_tier(tmp_path):
     params = Params(hlen=HLEN)
     reads = _fqreads(sample_reads(rng, genome[5000:9400], 12, 200,
                                   error_rate=0.02))
-    jm, tm, want, got = _sam_both(d, params, reads, 16)
-    assert got == want
+    jm = TPUMapper(d["idx"], d["meta"], d["mta"], params, chunk_b=16)
+    flagged = jax_flagged_reads(jm)
+    tm = TorchMapper(d["tidx"], d["tmeta"], d["mta"], params, chunk_b=16,
+                     device="cpu")
+    want = list(jm.map_stream_sam(iter([reads])))
+    got = list(tm.map_stream_sam(iter([reads])))
+    assert [n for _, n, _ in got] == [n for _, n, _ in want]
+    oracle = OracleMapper(d["fmi"], d["kl"], HLEN, d["cat"], d["mta"],
+                          params)
+    assert assert_sam_matches_jax_or_oracle(
+        got[0][0], want[0][0], flagged, oracle) == len(flagged) > 0
     assert tm.retried_reads == jm.retried_reads > 0
+    assert tm.wide_vote_reads >= len(flagged)
+    assert tm.overflow_reads == tm.wide_vote_unresolved == 0
 
 
 def _artifacts(fa):
@@ -263,7 +278,8 @@ def test_run_mapping_logs_phase_times_and_retries(cli_dirs):
     phase_s = json.loads(phase[0])
     assert sorted(phase_s) == ["assemble", "dispatch", "fetch",
                                "first_pass_device", "prepare", "retry",
-                               "retry_device", "retry_wait"]
+                               "retry_device", "retry_wait", "wide_vote",
+                               "wide_vote_device"]
     assert all(v >= 0 for v in phase_s.values())
     assert sum("retried reads 0, overflow reads" in l for l in lines) == 1
 
@@ -358,8 +374,9 @@ def test_outside_slice_raises(pipe, tmp_path, monkeypatch):
 def test_warmup_runs_every_step_variant(pipe, monkeypatch):
     """warmup([256]) runs bucket 256's host-encoded, raw and exact-slots
     retry variants once each (tests/test_cli.py's JAX counterpart checks
-    that they were compiled), moves no counter, and a later map gives the
-    SAM of a mapper that never warmed up."""
+    that they were compiled) and one wide vote class step at the tier's
+    widest class, moves no counter, and a later map gives the SAM of a
+    mapper that never warmed up."""
     from longreadmapper_tpu_torch.models import mapper as tmapper
     seen = []
     host_step, raw_step = tmapper.map_step, tmapper.raw_map_step
@@ -379,11 +396,15 @@ def test_warmup_runs_every_step_variant(pipe, monkeypatch):
     tm = new()
     assert tm.warmup([200, 256]) > 0
     cfg, retry = tm._step_for(256), tm._retry_step_for(256)
+    wide = tm._wide_step_for(256, retry.vote_slots_max, 1)
     assert retry.exact_slots and not cfg.exact_slots
-    assert seen == [("host", cfg), ("raw", cfg), ("host", retry)]
+    assert wide.vote_slots == retry.vote_slots_max > retry.vote_slots
+    assert seen == [("host", cfg), ("raw", cfg), ("host", retry),
+                    ("host", wide)]
     assert list(tm._cfgs) == list(tm._retry_cfgs) == [256]
     assert (tm.raw_chunks, tm.host_chunks, tm.retried_reads,
-            tm.overflow_reads, tm.retried_sat_chunks) == (0, 0, 0, 0, 0)
+            tm.overflow_reads, tm.retried_sat_chunks, tm.wide_vote_reads,
+            tm.wide_vote_steps) == (0, 0, 0, 0, 0, 0, 0)
     assert set(tm.phase_s.values()) == {0.0}
     reads = _fqreads(sample_reads(np.random.default_rng(3), pipe["chrA"],
                                   12, 200, error_rate=0.02))

@@ -10,7 +10,9 @@ index (two launches each, the rows gathered between them), and C on both
 sides of the warp / CTA boundary (Cpad 32 to 4096; the CTA rows' accept
 by the read's last CTA, twice in a row, its counters back at 0);
 top2_votes on int32 and int64 keys, rows of 120,000 votes in global
-scratch among them; and the mapping step with no host sync, under
+scratch among them; the wide vote classes at 10 kb, rows of 2,048 to the
+exact tier's widest 262,144 slots, on reads inside a 290-copy tandem
+repeat whose rows hold ~140,000 votes; and the mapping step with no host sync, under
 torch.cuda.set_sync_debug_mode("error"); and seed_tables_kernel's CTA split
 at the long buckets' shapes (whole phase rows or slices of one a CTA) in
 every layout and both stages, codes outside 0-4 among them.
@@ -292,3 +294,57 @@ def test_map_step_makes_no_host_sync_on_card(genome_fa, load):
         out[dev] = {k: v.cpu() for k, v in step.items()}
     for k in ("blob", "ops_tail"):
         assert torch.equal(out["cuda"][k], out["cpu"][k])
+
+
+@pytest.fixture(scope="module")
+def tandem_fa(tmp_path_factory):
+    """A 33 kb genome: a 60-mer 290 times in tandem between random flanks,
+    indexed at hlen 6: a 10 kb read inside it has ~290 occurrences of
+    every seed, just under thres."""
+    rng = np.random.default_rng(9)
+    rand = lambda k: "".join("ACGT"[c] for c in rng.integers(0, 4, k))
+    genome = rand(8000) + rand(60) * 290 + rand(8000)
+    fa = str(tmp_path_factory.mktemp("wide_classes_card") / "t.fa")
+    with open(fa, "w") as f:
+        f.write(">t\n" + genome + "\n")
+    build_index(fa, Params(hlen=HLEN), verbose=False, device=None)
+    return fa, genome
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("load", [dict(), dict(force_pos_dtype="int64")])
+@pytest.mark.parametrize("slots", [32768, 65536, 262144])
+def test_vote_kernels_at_wide_classes_on_card(tandem_fa, load, slots):
+    """The vote kernels against vote_accept_plain at the wide vote classes
+    the mapper makes at the 10 kb bucket on this genome (past its exact
+    tier's 16,512 slots), up to the widest (vote_slots_max, 262,144), on
+    the mapper's class step config: four reads, two inside the tandem
+    repeat (rows of over 100,000 votes), two across its edges; the pick
+    keeps every wide seed, so a row holds what vote_need counts; twice in
+    a row."""
+    _card()
+    fa, genome = tandem_fa
+    L = 10240
+    idx, meta, mta = load_device_index(fa, "cuda", verbose=False, **load)
+    params = Params(hlen=HLEN, thres=300)
+    reads = [(f"r{i}", genome[p:p + L - 40], None)
+             for i, p in enumerate((9000, 13000, 2000, 22400))]
+    tm = TorchMapper(idx, meta, mta, params, chunk_b=4, device="cuda")
+    cfg = tm._wide_step_for(L, slots, 4)
+    assert cfg.vote_slots_max == 262144
+    assert (cfg.B, cfg.vote_slots) == (4, slots)
+    assert tm._retry_step_for(L).vote_slots < 32768
+    codes, _, lens, _ = tm._pack_reads(reads, L, 4)
+    codes = torch.from_numpy(codes).cuda()
+    lens = torch.from_numpy(lens).cuda()
+    tabs = tsv.seed_tables(cfg, idx, codes, lens)
+    _equal(tabs, tsv.seed_tables_plain(cfg, idx, codes, lens))
+    best, overflow, rows = _vote_twice(cfg, idx, lens, tabs)
+    need = tsv.vote_need(cfg, tabs)
+    assert int(need.max()) > 100000
+    assert torch.equal(rows[3].reshape(4, -1).amax(1), need)
+    # a read whose widest row fits its class keeps no bit 0
+    assert not overflow[need <= slots].any()
+    assert overflow.any() == (slots < cfg.vote_slots_max)
+    assert not rows[4].any()
+    assert (rows[0] > 0).all()

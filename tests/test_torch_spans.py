@@ -25,14 +25,20 @@ torch.set_num_threads(1)
 
 # the span's nearest enclosing mapper span; None: a span of its own.  The
 # overflow retry's issue (mapper.retry_overflow) and its finish a loop
-# turn later (mapper.retry.finish, holding the wait) are spans apart.
+# turn later (mapper.retry.finish, holding the wait) are spans apart; the
+# wide vote class steps are issued inside mapper.retry.wide.
 PARENTS = {"mapper.prepare": {None}, "mapper.dispatch": {None},
            "mapper.fetch": {None}, "mapper.retry_overflow": {None},
            "mapper.retry.finish": {None}, "mapper.assemble": {None},
-           "mapper.h2d": {"mapper.dispatch", "mapper.retry_overflow"},
-           "mapper.step": {"mapper.dispatch", "mapper.retry_overflow"},
-           "mapper.d2h": {"mapper.dispatch", "mapper.retry_overflow"},
-           "mapper.retry.pack": {"mapper.retry_overflow"},
+           "mapper.h2d": {"mapper.dispatch", "mapper.retry_overflow",
+                          "mapper.retry.wide"},
+           "mapper.step": {"mapper.dispatch", "mapper.retry_overflow",
+                           "mapper.retry.wide"},
+           "mapper.d2h": {"mapper.dispatch", "mapper.retry_overflow",
+                          "mapper.retry.wide"},
+           "mapper.retry.pack": {"mapper.retry_overflow",
+                                 "mapper.retry.wide"},
+           "mapper.retry.wide": {"mapper.retry_overflow"},
            "mapper.retry.wait": {"mapper.retry.finish"},
            "mapper.assemble.cigar": {"mapper.assemble"},
            "mapper.assemble.records": {"mapper.assemble"}}
@@ -156,3 +162,44 @@ def test_retry_time_is_in_retry_not_in_fetch(rep, monkeypatch):
     assert ph["retry"] >= ph["retry_wait"] > 0
     # no device: the CUDA events' keys stay 0
     assert ph["first_pass_device"] == ph["retry_device"] == 0.0
+
+
+class _Clock:
+    """A stand-in for a timing CUDA event on the CPU: the host clock at
+    its record, elapsed_time in ms as torch.cuda.Event gives it."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+    def synchronize(self):
+        pass
+
+
+def test_wide_vote_device_is_a_part_of_retry_device(rep, monkeypatch):
+    """The class steps' device time (phase_s wide_vote_device) is taken
+    as the retry steps' (retry_device) is, and is a part of it; the class
+    steps' issue (wide_vote) is a part of retry."""
+    monkeypatch.setattr(TorchMapper, "_event", lambda self: _Clock())
+    wide, every = [], []
+    real = TorchMapper._finish_step
+
+    def finish(self, cfg, rec, chunk=None, wide_step=False):
+        dt = rec["start"].elapsed_time(rec["end"]) / 1e3
+        every.append(dt)
+        if wide_step:
+            wide.append(dt)
+        return real(self, cfg, rec, chunk, wide_step)
+
+    monkeypatch.setattr(TorchMapper, "_finish_step", finish)
+    tm, _ = _map(rep)
+    ph = tm.phase_s
+    assert len(wide) == tm.wide_vote_steps > 0
+    assert len(every) == tm.retry_steps > len(wide)
+    assert ph["wide_vote_device"] == pytest.approx(sum(wide))
+    assert ph["retry_device"] == pytest.approx(sum(every))
+    assert 0 < ph["wide_vote_device"] < ph["retry_device"]
+    assert 0 < ph["wide_vote"] < ph["retry"]
+    assert tm.wide_vote_unresolved == tm.overflow_reads == 0

@@ -6,8 +6,11 @@ parts, four chunks over the 40x tandem repeat that retry and one of
 unique reads that retries nothing.  The stream yields what map_chunk
 gives chunk by chunk; chunk c-1's steps are issued before chunk c-2 is
 assembled, every part's before any waits, and no wait comes before the
-next chunk's dispatch; every retry of a stream is deferred, none of
-map_chunk's; the stream drains in order."""
+next chunk's dispatch; a part issues one exact-tier step and, for the
+reads whose vote passes its slots, one wide vote class step, and with
+the classes off one exact-tier step (the same reads in all); every retry
+of a stream is deferred, none of map_chunk's; the stream drains in
+order."""
 
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ import torch
 from conftest import sample_reads
 from _torch_parity import HLEN
 from longreadmapper_tpu_torch.index.device import load_device_index
+from longreadmapper_tpu_torch.models import mapper as tmapper
 from longreadmapper_tpu_torch.models.mapper import TorchMapper
 from longreadmapper_tpu_torch.runtime.accidx import build_index
 from longreadmapper_tpu_torch.utils.config import Params
@@ -59,15 +63,24 @@ def _mapper(rep):
 
 def _spy(monkeypatch):
     """(stage, chunk ordinal) of every stage and step the mapper runs, in
-    order: dispatch, fetch (the issue stage), issue (a retry step), finish
-    (the finish stage), wait (a retry step's), assemble."""
-    seen = []
+    order: dispatch, fetch (the issue stage), issue (an exact-tier retry
+    step) or issue.wide (a wide vote class step), finish (the finish
+    stage), wait or wait.wide (a retry step's), assemble.  Returns that
+    log and (tag, chunk, read names) of every retry step issued."""
+    seen, issued = [], []
 
     def spy(name, method, chunk_of):
         real = getattr(TorchMapper, method)
 
         def call(self, *a, **k):
-            seen.append((name, chunk_of(a, k)))
+            tag = name
+            if name in ("issue", "wait") and any(
+                    a[0] is c for c in self._wide_cfgs.values()):
+                tag = name + ".wide"
+            seen.append((tag, chunk_of(a, k)))
+            if name == "issue":
+                issued.append((tag, chunk_of(a, k),
+                               tuple(r[0] for r in a[1])))
             return real(self, *a, **k)
 
         monkeypatch.setattr(TorchMapper, method, call)
@@ -79,23 +92,34 @@ def _spy(monkeypatch):
     spy("wait", "_finish_step", lambda a, k: a[2])
     spy("assemble", "_assemble_sam", lambda a, k: a[0][0][3]["chunk"])
     spy("assemble", "_assemble", lambda a, k: a[0][0][3]["chunk"])
-    return seen
+    return seen, issued
 
 
-def _spied_stream(rep):
+def _spied_stream(rep, classes=True):
     """map_stream_sam over rep's chunks under the spy: (mapper, its
-    yields, the spy's log)."""
+    yields, the spy's log, the retry steps issued).  With `classes`
+    False every flagged read takes the exact tier (no wide vote class
+    step)."""
     with pytest.MonkeyPatch.context() as mp:
-        seen = _spy(mp)
+        seen, issued = _spy(mp)
+        if not classes:
+            mp.setattr(tmapper, "vote_classes",
+                       lambda need, slots: np.zeros(len(need), np.int64))
         tm = _mapper(rep)
         out = list(tm.map_stream_sam(iter(rep["chunks"])))
-    return tm, out, seen
+    return tm, out, seen, issued
 
 
 @pytest.fixture(scope="module")
 def stream(rep):
     """The whole stream of rep's five chunks, spied."""
     return _spied_stream(rep)
+
+
+@pytest.fixture(scope="module")
+def stream_exact(rep):
+    """The same stream with the wide vote classes off."""
+    return _spied_stream(rep, classes=False)
 
 
 def _stage_order(n):
@@ -126,7 +150,7 @@ def test_stream_yields_what_map_chunk_gives(rep, stream, kind):
         tm = _mapper(rep)
         assert list(tm.map_stream(iter(rep["chunks"]))) == rep["records"]
     else:
-        tm, got, _ = stream
+        tm, got, _, _ = stream
         assert [t for t, _, _ in got] == _sam(rep["records"])
         assert [n for _, n, _ in got] == [len(c) for c in rep["chunks"]]
     ref = rep["map_chunk"]
@@ -134,32 +158,76 @@ def test_stream_yields_what_map_chunk_gives(rep, stream, kind):
         ref.retried_reads, ref.retry_steps, ref.overflow_reads)
 
 
-def test_stream_issues_ahead_and_waits_behind_the_next_dispatch(
-        rep, stream):
-    tm, _, seen = stream
-    n = len(rep["chunks"])
+def _at(seen):
     at = {}
     for i, e in enumerate(seen):
         at.setdefault(e, []).append(i)
-    # every chunk but the unique one issues a step for each of its parts
-    assert [len(at.get(("issue", k), [])) for k in range(n)] == \
-        [0 if k == UNIQUE else 2 for k in range(n)]
-    assert [len(at.get(("wait", k), [])) for k in range(n)] == \
-        [0 if k == UNIQUE else 2 for k in range(n)]
+    return at
+
+
+def _counts(at, tag, n):
+    return [len(at.get((tag, k), [])) for k in range(n)]
+
+
+def _assert_issued_ahead(rep, at):
+    n = len(rep["chunks"])
     for k in range(n):
         if k == UNIQUE:
             continue
+        steps = at.get(("issue", k), []) + at.get(("issue.wide", k), [])
+        waits = at.get(("wait", k), []) + at.get(("wait.wide", k), [])
         # all of a chunk's steps are queued before any of them is waited
-        assert max(at[("issue", k)]) < min(at[("wait", k)])
+        assert max(steps) < min(waits)
         # chunk k's steps are issued before chunk k-1 is assembled
         if k >= 1:
-            assert max(at[("issue", k)]) < at[("assemble", k - 1)][0]
+            assert max(steps) < at[("assemble", k - 1)][0]
         # the next chunk's first pass, and in the loop the one after it,
         # are queued before chunk k's wait
         for j in (k + 1, k + 2):
             if j < n:
-                assert at[("dispatch", j)][0] < min(at[("wait", k)])
+                assert at[("dispatch", j)][0] < min(waits)
+
+
+def test_stream_issues_ahead_and_waits_behind_the_next_dispatch(
+        rep, stream, stream_exact):
+    tm, _, seen, issued = stream
+    n = len(rep["chunks"])
+    at = _at(seen)
+    exact, wide = _counts(at, "issue", n), _counts(at, "issue.wide", n)
+    assert _counts(at, "wait", n) == exact
+    assert _counts(at, "wait.wide", n) == wide
+    # a part issues at most one exact-tier step and one wide vote class
+    # step, and each flagged read in exactly one of them: the reads the
+    # exact tier alone retries (stream_exact), chunk by chunk
+    assert exact[UNIQUE] == wide[UNIQUE] == 0
+    assert max(exact) <= 2 and max(wide) <= 2
+    assert [min(e + w, 2) for e, w in zip(exact, wide)] == \
+        [0 if k == UNIQUE else 2 for k in range(n)]
+    for k in range(n):
+        got = [r for _, c, rs in issued if c == k for r in rs]
+        want = [r for _, c, rs in stream_exact[3] if c == k for r in rs]
+        assert sorted(got) == sorted(want)
+        assert len(set(got)) == len(got)
+    assert tm.retried_reads == stream_exact[0].retried_reads
+    assert sum(wide) == tm.wide_vote_steps > 0
+    assert tm.retry_steps - tm.wide_vote_steps == sum(exact)
+    assert tm.retried_reads > tm.wide_vote_reads > 0
+    _assert_issued_ahead(rep, at)
+
+
+def test_exact_tier_alone_issues_a_step_a_part(rep, stream_exact):
+    """With the wide vote classes off, every chunk but the unique one
+    issues one exact-tier step for each of its parts, and waits for it."""
+    tm, _, seen, _ = stream_exact
+    n = len(rep["chunks"])
+    at = _at(seen)
+    for tag in ("issue", "wait"):
+        assert _counts(at, tag, n) == \
+            [0 if k == UNIQUE else 2 for k in range(n)]
+        assert _counts(at, tag + ".wide", n) == [0] * n
     assert tm.retry_steps == 8 and tm.retried_reads > 0
+    assert tm.wide_vote_steps == tm.wide_vote_reads == 0
+    _assert_issued_ahead(rep, at)
 
 
 def test_every_stream_retry_is_deferred(rep, stream):
@@ -174,9 +242,11 @@ def test_every_stream_retry_is_deferred(rep, stream):
 @pytest.mark.parametrize("n", [1, 2, 5])
 def test_stream_drains_in_order(rep, stream, n):
     if n == len(rep["chunks"]):
-        _, out, seen = stream
+        _, out, seen, _ = stream
     else:
-        _, out, seen = _spied_stream(dict(rep, chunks=rep["chunks"][:n]))
-    assert [e for e in seen if e[0] not in ("issue", "wait")] == \
+        _, out, seen, _ = _spied_stream(dict(rep,
+                                            chunks=rep["chunks"][:n]))
+    assert [e for e in seen if e[0] not in ("issue", "wait", "issue.wide",
+                                            "wait.wide")] == \
         _stage_order(n)
     assert [t for t, _, _ in out] == _sam(rep["records"][:n])
