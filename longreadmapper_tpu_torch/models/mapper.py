@@ -28,6 +28,7 @@ emit RNAME '*'.
 
 from __future__ import annotations
 
+import ctypes
 import time
 from collections import deque
 from dataclasses import dataclass, replace
@@ -38,7 +39,7 @@ import torch
 
 from ..device import pick_device
 from ..formats.fastx import _encode_lut
-from ..formats.sam import cigar_string, sam_record
+from ..formats.sam import sam_record
 from ..index.device import DeviceIndex, IndexMeta
 from ..mapping.pipeline import (MapperConfig, map_step, raw_map_step,
                                 vote_classes)
@@ -66,7 +67,6 @@ class MapRecord:
                           self.mapq, self.cigar, self.seq, self.qual, self.ed)
 
 
-_OP_CHARS = np.frombuffer(b"MID?", dtype=np.uint8)
 _COMP_STR = str.maketrans("ACGTacgt", "TGCATGCA")
 
 
@@ -75,36 +75,50 @@ def revcomp(s: str) -> str:
     return s.translate(_COMP_STR)[::-1]
 
 
-def _rle_groups(runs: np.ndarray, entry_bytes: int = 1):
-    """Decode a whole chunk's run entries ((count << 2) | op in reverse
-    path order; 2/4-byte entries arrive as little-endian byte groups) into
-    merged forward-order groups (g_row, g_op, tot)."""
-    if entry_bytes > 1:
-        w = runs.shape[1] - runs.shape[1] % entry_bytes
-        runs = np.ascontiguousarray(runs[:, :w]).view(
-            np.int16 if entry_bytes == 2 else np.int32)
-    rev = runs[:, ::-1]
-    op = rev & 3
-    cnt = (rev >> 2).astype(np.int64)
-    valid = (op != 3) & (cnt > 0)
-    rows, cols = np.nonzero(valid)
-    if rows.size == 0:
-        return rows, rows, rows
-    ops_f = op[rows, cols]
-    cnt_f = cnt[rows, cols]
-    brk = np.empty(rows.size, dtype=bool)
-    brk[0] = True
-    brk[1:] = (rows[1:] != rows[:-1]) | (ops_f[1:] != ops_f[:-1])
-    starts = np.flatnonzero(brk)
-    return rows[starts], ops_f[starts], np.add.reduceat(cnt_f, starts)
+_CIGAR = {"lrm_cigar_batch": ([ctypes.c_void_p, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                               ctypes.c_void_p, ctypes.c_int64,
+                               ctypes.c_void_p], ctypes.c_int64)}
 
 
-def _rle_runs_batch(runs: np.ndarray,
-                    entry_bytes: int = 1) -> List[List[Tuple[int, str]]]:
-    out: List[List[Tuple[int, str]]] = [[] for _ in range(runs.shape[0])]
-    for r, o, t in zip(*_rle_groups(runs, entry_bytes)):
-        out[r].append((int(t), chr(_OP_CHARS[o])))
-    return out
+class _Cigars:
+    """Each row's CIGAR string of a part's run bytes ((count << 2) | op
+    entries of `entry_bytes` signed little-endian bytes, in reverse path
+    order; "" for a row without runs), built by one call to
+    csrc/cigar.cpp over the whole buffer.  The text buffer is kept, and
+    grown, across calls."""
+
+    def __init__(self):
+        self._text = np.empty(0, np.uint8)
+        self._ends = np.empty(0, np.int64)
+
+    def __call__(self, runs: np.ndarray, entry_bytes: int) -> List[str]:
+        if runs.ndim != 2 or runs.dtype.itemsize != 1:
+            raise ValueError(f"run bytes expected, got {runs.dtype} "
+                             f"{runs.shape}")
+        if entry_bytes not in (1, 2, 4):
+            raise ValueError(f"entry_bytes {entry_bytes}")
+        B, width = runs.shape
+        if B == 0:
+            return []
+        if runs.strides[1] != 1 or runs.strides[0] < width:
+            runs = np.ascontiguousarray(runs)
+        cap = B * (width // entry_bytes) * 11
+        if self._text.size < cap:
+            self._text = np.empty(cap, np.uint8)
+        if self._ends.size < B:
+            self._ends = np.empty(B, np.int64)
+        lib = native_build.load("cigar", _CIGAR)
+        used = lib.lrm_cigar_batch(runs.ctypes.data, B, width,
+                                   runs.strides[0], entry_bytes,
+                                   self._text.ctypes.data, cap,
+                                   self._ends.ctypes.data)
+        if used < 0:
+            raise RuntimeError(f"lrm_cigar_batch failed on a ({B}, {width}) "
+                               f"buffer of {entry_bytes}-byte entries")
+        text = self._text[:used].tobytes().decode("ascii")
+        ends = self._ends[:B].tolist()
+        return [text[a:b] for a, b in zip([0] + ends[:-1], ends)]
 
 
 def _widen_entries(ops: np.ndarray, src: int, dst: int) -> np.ndarray:
@@ -127,16 +141,6 @@ def _tail_needed(ops: np.ndarray, entry_bytes: int) -> bool:
     if ops.shape[1] < entry_bytes:
         return True
     return bool((np.asarray(ops[:, -entry_bytes]) & 3 != 3).any())
-
-
-def _cigar_strings_batch(runs: np.ndarray,
-                         entry_bytes: int = 1) -> List[str]:
-    g_row, g_op, tot = _rle_groups(runs, entry_bytes)
-    parts: List[List[str]] = [[] for _ in range(runs.shape[0])]
-    opc = "MID?"
-    for r, o, t in zip(g_row.tolist(), g_op.tolist(), tot.tolist()):
-        parts[r].append(f"{t}{opc[o]}")
-    return ["".join(p) for p in parts]
 
 
 def _bucket_len(n: int, minimum: int = 128) -> int:
@@ -203,6 +207,7 @@ class TorchMapper:
         # mapped reads of all ranks, from the mesh's collective counter
         self.valid_global = 0
         self.submitted_chunks = 0  # a chunk's ordinal in its spans
+        self._cigars = _Cigars()
         # Seconds of the stream.  Host wall clock, each timed by a span of
         # the same block (utils/trace.py): prepare = read packing
         # (mapper.prepare); dispatch = H2D staging + the step's issue
@@ -214,15 +219,17 @@ class TorchMapper:
         # splice); retry_wait = the waits for the retry steps' copies, a
         # part of retry (mapper.retry.wait); wide_vote = the issue of the
         # wide vote class steps, a part of retry (mapper.retry.wide);
-        # assemble = SAM building (mapper.assemble).  Device time by CUDA
-        # events (0 on the CPU), each read after a wait the stream makes
-        # anyway: first_pass_device = a part's first pass, its H2D copies
-        # to its blob's D2H copy; retry_device = a retry step, its H2D
-        # copies to its last kernel; wide_vote_device = the class steps'
-        # part of retry_device.
+        # assemble = SAM building (mapper.assemble); cigar = its CIGAR
+        # strings, a part of assemble (mapper.assemble.cigar).  Device
+        # time by CUDA events (0 on the CPU), each read after a wait the
+        # stream makes anyway: first_pass_device = a part's first pass,
+        # its H2D copies to its blob's D2H copy; retry_device = a retry
+        # step, its H2D copies to its last kernel; wide_vote_device = the
+        # class steps' part of retry_device.
         self.phase_s = {"prepare": 0.0, "dispatch": 0.0, "fetch": 0.0,
                         "retry": 0.0, "retry_wait": 0.0, "wide_vote": 0.0,
-                        "assemble": 0.0, "first_pass_device": 0.0,
+                        "assemble": 0.0, "cigar": 0.0,
+                        "first_pass_device": 0.0,
                         "retry_device": 0.0, "wide_vote_device": 0.0}
 
     # ------------------------------------------------------------ configs
@@ -786,9 +793,9 @@ class TorchMapper:
         """Chunk-vectorized SAM assembly, one f-string per record."""
         found, gi, strand, off, ed = self._meta_cols(cfg, out["meta"])
         n = len(reads)
-        with Span("mapper.assemble.cigar", chunk):
-            cigs = _cigar_strings_batch(np.asarray(out["ops"][:n]),
-                                        cfg.tb_entry_bytes)
+        with Span("mapper.assemble.cigar", chunk, self.phase_s, "cigar"):
+            cigs = self._cigars(np.asarray(out["ops"][:n]),
+                                cfg.tb_entry_bytes)
         with Span("mapper.assemble.records", chunk):
             valid_l = (found & (ed >= 0))[:n].tolist()
             strand_l = strand[:n].tolist()
@@ -824,9 +831,9 @@ class TorchMapper:
     def _postprocess(self, cfg: MapperConfig, reads, lens, out,
                      chunk=None) -> List[MapRecord]:
         found, gi, strand, off, ed = self._meta_cols(cfg, out["meta"])
-        with Span("mapper.assemble.cigar", chunk):
-            all_runs = _rle_runs_batch(np.asarray(out["ops"]),
-                                       cfg.tb_entry_bytes)
+        with Span("mapper.assemble.cigar", chunk, self.phase_s, "cigar"):
+            cigs = self._cigars(np.asarray(out["ops"][:len(reads)]),
+                                cfg.tb_entry_bytes)
         recs: List[MapRecord] = []
         with Span("mapper.assemble.records", chunk):
             for i, (name, seq, qual) in enumerate(reads):
@@ -834,8 +841,7 @@ class TorchMapper:
                 ed_i = int(ed[i]) if ok else -1
                 valid = ok and ed_i >= 0
                 if valid:
-                    ops = all_runs[i]
-                    cig = cigar_string(ops) if ops else "*"
+                    cig = cigs[i] or "*"
                     flag = 16 if strand[i] else 0
                     mapq = 255
                 else:

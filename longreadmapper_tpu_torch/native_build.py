@@ -1,8 +1,8 @@
 """Build and load the port's native code: the hand-written CUDA kernels (the
 banded DPs, the CIGAR walks, the seed vote and the step's glue) and the host code of the
 index build and the aligners (the suffix-array build, the external
-build's merge, the affine traceback, the banded unit-cost aligner and the
-Myers edit distance).
+build's merge, the affine traceback, the banded unit-cost aligner, the
+Myers edit distance and the SAM assembly's CIGAR strings).
 
 Each source of `SOURCES` in `csrc/` is compiled by its compiler (nvcc for
 sm_90a for the kernels, g++ for the host code) into a shared library with
@@ -61,6 +61,7 @@ SOURCES = {
     "affine": ("affine.cpp", _gxx, None),
     "align": ("align.cpp", _gxx, None),
     "myers": ("myers.cpp", _gxx, None),
+    "cigar": ("cigar.cpp", _gxx, None),
 }
 
 

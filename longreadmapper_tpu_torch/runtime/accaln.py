@@ -5,9 +5,9 @@ Loads the persisted index to the device, streams read batches through
 TorchMapper and writes SAM; logs phase timings and the final sensitivity
 valid/total.  The verbose log's `phase_s` is TorchMapper.phase_s: the host
 seconds of prepare, dispatch, fetch, retry (both retry tiers, their wait
-included), retry_wait (the waits for the retry steps' copies) and
-assemble, and the card seconds of first_pass_device and retry_device
-(CUDA events; 0 on the CPU).  A torch.profiler trace taken around
+included), retry_wait (the waits for the retry steps' copies), assemble
+and cigar (its CIGAR strings), and the card seconds of first_pass_device
+and retry_device (CUDA events; 0 on the CPU).  A torch.profiler trace taken around
 `run_mapping` shows the mapper's `mapper.*` spans beside the card's kernels
 (longreadmapper_tpu_torch/utils/trace.py).
 """

@@ -276,7 +276,7 @@ def test_run_mapping_logs_phase_times_and_retries(cli_dirs):
     phase = [l.split("phase_s ", 1)[1] for l in lines if "phase_s " in l]
     assert len(phase) == 1
     phase_s = json.loads(phase[0])
-    assert sorted(phase_s) == ["assemble", "dispatch", "fetch",
+    assert sorted(phase_s) == ["assemble", "cigar", "dispatch", "fetch",
                                "first_pass_device", "prepare", "retry",
                                "retry_device", "retry_wait", "wide_vote",
                                "wide_vote_device"]
