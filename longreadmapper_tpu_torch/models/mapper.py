@@ -10,7 +10,9 @@ variant); ragged parts and every retry tier are encoded on the host.
 text, both through one stream of at most three chunks in flight: each
 loop turn submits chunk c, issues chunk c-1's overflow retry (its copies
 queued behind an event) and then finishes and assembles chunk c-2, so the
-card runs c's first pass and c-1's retry while the host assembles.
+card runs c's first pass and c-1's retry while the host assembles.  Each
+part of a chunk rides the stream as one _Part record; each step comes
+back to the host as a _Step through one read-back (_read_back).
 
 Under a ('data', 'model') mesh (parallel/) the mapper is one rank of ONE
 logical mapper: chunks are GLOBAL batches, each rank maps its own rows of
@@ -31,7 +33,8 @@ from __future__ import annotations
 import ctypes
 import time
 from collections import deque
-from dataclasses import dataclass, replace
+from contextlib import contextmanager
+from dataclasses import dataclass, field, replace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,12 +70,44 @@ class MapRecord:
                           self.mapq, self.cigar, self.seq, self.qual, self.ed)
 
 
-_COMP_STR = str.maketrans("ACGTacgt", "TGCATGCA")
+# reverse complement: lowercase to UPPER complement (the oracle's)
+_COMP = bytes.maketrans(b"ACGTacgt", b"TGCATGCA")
 
 
-def revcomp(s: str) -> str:
-    """Reverse complement, lowercase to UPPER complement (the oracle's)."""
-    return s.translate(_COMP_STR)[::-1]
+@dataclass(slots=True, eq=False)
+class _Step:
+    """A step's output on its way to the host (TorchMapper._read_back):
+    blob (meta words, the runs' eager head) and tail, and a first pass's
+    vote need; `copied` is the event after the copies, `start`..`end` the
+    step's device time (events None on the CPU).  An overflow step also
+    has its part's rows (`sel`) and whether it is a wide vote class step."""
+    cfg: MapperConfig
+    blob: torch.Tensor
+    tail: torch.Tensor
+    need: Optional[torch.Tensor]
+    copied: Optional[torch.cuda.Event]
+    start: Optional[torch.cuda.Event]
+    end: Optional[torch.cuda.Event]
+    sel: Optional[np.ndarray] = None
+    wide: bool = False
+
+
+@dataclass(slots=True, eq=False)
+class _Part:
+    """A chunk part through the stream, updated in place by each stage:
+    dispatched (`first`; under a mesh `valid`, the collective count),
+    fetched (`meta`, `ops`, `need`; its overflow steps `retry`, issued at
+    stage `issued_at`), finished (the steps spliced into meta and ops)."""
+    cfg: MapperConfig
+    reads: Sequence[Tuple[str, str, Optional[str]]]
+    chunk: Optional[int]
+    first: Optional[_Step]
+    valid: Optional[torch.Tensor] = None
+    meta: Optional[np.ndarray] = None
+    ops: Optional[np.ndarray] = None
+    need: Optional[np.ndarray] = None
+    retry: List[_Step] = field(default_factory=list)
+    issued_at: int = 0
 
 
 _CIGAR = {"lrm_cigar_batch": ([ctypes.c_void_p, ctypes.c_int64,
@@ -134,13 +169,13 @@ def _widen_entries(ops: np.ndarray, src: int, dst: int) -> np.ndarray:
         np.int32).view(np.int8)
 
 
-def _tail_needed(ops: np.ndarray, entry_bytes: int) -> bool:
-    """True when some read's runs reach the last eager head slot (the
-    lazily fetched tail may hold more): the last entry's op bits are not
-    the pad op."""
-    if ops.shape[1] < entry_bytes:
-        return True
-    return bool((np.asarray(ops[:, -entry_bytes]) & 3 != 3).any())
+def _joined(part) -> Optional[np.ndarray]:
+    """The bases of a part whose reads all have one length L0, as one (n,
+    L0) uint8 array; None for a ragged or empty part."""
+    if not part or any(len(s) != len(part[0][1]) for _, s, _ in part):
+        return None
+    return np.frombuffer("".join(s for _, s, _ in part).encode(),
+                         np.uint8).reshape(len(part), len(part[0][1]))
 
 
 def _bucket_len(n: int, minimum: int = 128) -> int:
@@ -208,24 +243,24 @@ class TorchMapper:
         self.valid_global = 0
         self.submitted_chunks = 0  # a chunk's ordinal in its spans
         self._cigars = _Cigars()
+        self._names = [m.seq_name for m in self.mta]
         # Seconds of the stream.  Host wall clock, each timed by a span of
         # the same block (utils/trace.py): prepare = read packing
         # (mapper.prepare); dispatch = H2D staging + the step's issue
         # (mapper.dispatch; enqueued: the step makes no host sync); fetch
-        # = waiting for a part's D2H copy and the lazy tail copy
-        # (mapper.fetch); retry = both retry tiers, packing, issue, wait
-        # and splice (mapper.retry_saturation, mapper.retry_overflow: the
-        # overflow tier's issue, mapper.retry.finish: its wait and
-        # splice); retry_wait = the waits for the retry steps' copies, a
-        # part of retry (mapper.retry.wait); wide_vote = the issue of the
-        # wide vote class steps, a part of retry (mapper.retry.wide);
-        # assemble = SAM building (mapper.assemble); cigar = its CIGAR
-        # strings, a part of assemble (mapper.assemble.cigar).  Device
-        # time by CUDA events (0 on the CPU), each read after a wait the
-        # stream makes anyway: first_pass_device = a part's first pass,
-        # its H2D copies to its blob's D2H copy; retry_device = a retry
-        # step, its H2D copies to its last kernel; wide_vote_device = the
-        # class steps' part of retry_device.
+        # = a part's first-pass read-back (mapper.fetch); retry = both
+        # retry tiers, packing, issue, wait and splice
+        # (mapper.retry_saturation, mapper.retry_overflow: the overflow
+        # tier's issue, mapper.retry.finish: its wait and splice);
+        # retry_wait = the retry steps' read-backs, a part of retry
+        # (mapper.retry.wait); wide_vote = the issue of the wide vote class
+        # steps, a part of retry (mapper.retry.wide); assemble = a
+        # chunk's records (mapper.assemble); cigar = their CIGAR strings
+        # (mapper.assemble.cigar).  Device time by CUDA events (0 on the
+        # CPU), a _Step's start to end, read in _read_back after its wait:
+        # first_pass_device = a first pass, its H2D copies to its blob's
+        # D2H copy; retry_device = a retry step, its H2D copies to its
+        # last kernel; wide_vote_device = the class steps' part of it.
         self.phase_s = {"prepare": 0.0, "dispatch": 0.0, "fetch": 0.0,
                         "retry": 0.0, "retry_wait": 0.0, "wide_vote": 0.0,
                         "assemble": 0.0, "cigar": 0.0,
@@ -329,39 +364,39 @@ class TorchMapper:
                             W=W, band=band, entry_bytes=cfg.tb_entry_bytes))
         return out
 
+    def _variants(self, L: int) -> List[Tuple[MapperConfig, bool]]:
+        """(config, raw) of every step a part of bucket L can take: the
+        first pass host-encoded and, on a single device, raw
+        (_prepare_chunk); the exact tier where the first pass can flag a
+        read for it (a compact vote, bit 0, or a narrow band, bit 2), and
+        where its vote is compact one wide vote class step of a read at
+        the tier's widest class (_retry_overflow)."""
+        cfg = self._step_for(L)
+        out = [(cfg, False)] + [(cfg, True)] * (self.mesh is None)
+        compact = cfg.vote_slots < cfg.vote_slots_exact
+        if not cfg.exact_slots and (compact or cfg.half_band):
+            cfg_r = self._retry_step_for(L)
+            out.append((cfg_r, False))
+            if compact:
+                out.append((self._wide_step_for(L, cfg_r.vote_slots_max, 1),
+                            False))
+        return out
+
     def warmup(self, lengths: Sequence[int] = (256, 1024)) -> float:
         """Pay the first-use costs of the buckets of `lengths` before a
-        stream: build the CUDA kernels (native_build), then run once on
-        the device every step variant that _prepare_chunk and the retry
-        tiers can dispatch for each bucket, as JAX's warmup compiles them:
-        host-encoded, raw (single device), the exact-everything retry
-        (where the first pass is compact or narrow) and, where the first
-        pass is compact, one wide vote class step of a read at the tier's
-        widest class.  Each runs on a part of pad rows, which loads its
-        kernels' modules and fills the allocator's pools; no counter of
-        the mapper moves.  Returns the elapsed seconds."""
+        stream, as JAX's warmup compiles them: build the CUDA kernels
+        (native_build), then run each bucket's step variants (_variants)
+        once on a part of no reads, which loads their kernels' modules and
+        fills the allocator's pools; no counter moves.  Returns seconds."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             native_build.build(names=("band_dp", "band_scores", "walk",
                                       "vote", "step"))
         for L in sorted({_bucket_len(int(n)) for n in lengths}):
-            cfg = self._step_for(L)
-            variants = [(cfg, False)]
-            if self.mesh is None:
-                variants.append((cfg, True))
-                if not cfg.exact_slots and (
-                        cfg.vote_slots < cfg.vote_slots_exact
-                        or cfg.half_band):
-                    cfg_r = self._retry_step_for(L)
-                    variants.append((cfg_r, False))
-                    if cfg.vote_slots < cfg.vote_slots_exact:
-                        variants.append((self._wide_step_for(
-                            L, cfg_r.vote_slots_max, 1), False))
-            for c, raw in variants:
-                codes = (np.zeros((c.B, L), np.uint8) if raw
-                         else np.full((c.B, L), 4, np.int8))
-                lens = np.zeros(c.B, np.int32)
-                self._run_step(c, codes, None if raw else codes, lens, lens)
+            for c, raw in self._variants(L):
+                packed = (self._pack_raw(np.empty((0, 0), np.uint8), L, c.B)
+                          if raw else self._pack_codes([], None, L, c.B))
+                self._run_step(c, *packed)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
@@ -373,43 +408,44 @@ class TorchMapper:
         return ((self.params.error_rate * lens.astype(np.float64)) * 2
                 ).astype(np.int32)
 
-    def _pack_reads(self, part, L: int, n_pack: int):
+    def _pack_codes(self, part, raw: Optional[np.ndarray], L: int,
+                    n_pack: int):
         """Encode up to n_pack (name, seq, qual) reads: (codes, codes_rc,
         lens, limits) numpy arrays, the reverse complement front-aligned
-        and everything padded with code 4."""
+        and everything padded with code 4.  `raw` is the part's bytes
+        (_joined), None where its reads are ragged."""
         lut = _encode_lut().view(np.int8)
         clut = lut.copy()
         clut[lut < 4] = 3 - lut[lut < 4]   # complement; N stays 4
         lens = np.zeros(n_pack, dtype=np.int32)
-        n_part = len(part)
         codes = np.full((n_pack, L), 4, dtype=np.int8)
         codes_rc = np.full((n_pack, L), 4, dtype=np.int8)
-        if n_part > 0 and all(len(s) == len(part[0][1]) for _, s, _ in part):
-            L0 = len(part[0][1])
-            raw = np.frombuffer("".join(s for _, s, _ in part).encode(),
-                                np.uint8).reshape(n_part, L0)
-            lens[:n_part] = L0
-            codes[:n_part, :L0] = lut[raw]
-            codes_rc[:n_part, :L0] = clut[raw][:, ::-1]
+        if raw is not None:
+            n, L0 = raw.shape
+            lens[:n] = L0
+            codes[:n, :L0] = lut[raw]
+            codes_rc[:n, :L0] = clut[raw][:, ::-1]
         else:
             for i, (_, seq, _) in enumerate(part):
-                raw = np.frombuffer(seq.encode(), np.uint8)
-                lens[i] = raw.shape[0]
-                codes[i, :raw.shape[0]] = lut[raw]
-                codes_rc[i, :raw.shape[0]] = clut[raw[::-1]]
+                b = np.frombuffer(seq.encode(), np.uint8)
+                lens[i] = b.shape[0]
+                codes[i, :b.shape[0]] = lut[b]
+                codes_rc[i, :b.shape[0]] = clut[b[::-1]]
         return codes, codes_rc, lens, self._limits(lens)
 
-    def _pack_raw(self, part, L: int, n_pack: int):
-        """Raw bytes of a uniform-length part for the device encode:
+    def _pack_reads(self, part, L: int, n_pack: int):
+        """_pack_codes of a part not yet looked at (the retry tiers')."""
+        return self._pack_codes(part, _joined(part), L, n_pack)
+
+    def _pack_raw(self, raw: np.ndarray, L: int, n_pack: int):
+        """A uniform part's bytes (_joined) padded for the device encode:
         (raw, None, lens, limits), the None marking the raw variant."""
-        L0 = len(part[0][1])
-        raw = np.zeros((n_pack, L), dtype=np.uint8)
-        raw[:len(part), :L0] = np.frombuffer(
-            "".join(p[1] for p in part).encode(),
-            np.uint8).reshape(len(part), L0)
+        n, L0 = raw.shape
+        out = np.zeros((n_pack, L), dtype=np.uint8)
+        out[:n, :L0] = raw
         lens = np.zeros(n_pack, dtype=np.int32)
-        lens[:len(part)] = L0
-        return raw, None, lens, self._limits(lens)
+        lens[:n] = L0
+        return out, None, lens, self._limits(lens)
 
     def _prepare_chunk(self, reads):
         """Host-side packing (numpy) of up to B reads into parts of the
@@ -427,11 +463,12 @@ class TorchMapper:
         prepped = []
         for s in range(0, max(n_real, 1), Bg):
             part = reads[s + lo:s + hi]
-            if (self.mesh is None and part
-                    and all(len(p[1]) == len(part[0][1]) for p in part)):
-                prepped.append((part,) + self._pack_raw(part, L, cfg.B))
+            raw = _joined(part)
+            if raw is not None and self.mesh is None:
+                prepped.append((part,) + self._pack_raw(raw, L, cfg.B))
             else:
-                prepped.append((part,) + self._pack_reads(part, L, cfg.B))
+                prepped.append((part,) + self._pack_codes(part, raw, L,
+                                                          cfg.B))
         return L, prepped
 
     # ------------------------------------------------------- device steps
@@ -471,40 +508,48 @@ class TorchMapper:
         with Span("mapper.step", chunk):
             return map_step(cfg, self.idx, dc, drc, dl, dlim)
 
-    def _start_d2h(self, out: dict, chunk=None, tail: bool = False) -> dict:
-        """Queue the blob's and the vote need's D2H copies into pinned
-        memory on the current CUDA stream (non-blocking) and record an
-        event to wait on.  The CIGAR tail stays on the device until a read
-        needs it; with `tail` (a retry step's) it is copied too, behind the
-        same event, the need is not (only a first pass's sizes a retry),
-        and the result holds no device tensor."""
+    def _start_d2h(self, cfg: MapperConfig, out: dict, start, end=None,
+                   chunk=None) -> _Step:
+        """Queue a step's D2H copies behind one event, non-blocking on the
+        current stream (into pinned memory, which a non-blocking copy from
+        the card allocates; on the CPU the tensors themselves).  A first
+        pass (no `end`: its device time runs to that event) copies its blob
+        and vote need and leaves its tail on the device until a row needs
+        it; a retry step copies its blob and tail, keeping no device
+        tensor."""
         with Span("mapper.d2h", chunk):
-            if self.device.type == "cpu":
-                return dict(blob=out["blob"], ops_tail=out["ops_tail"],
-                            need=None if tail else out["vote_need"],
-                            event=None)
+            first = end is None
+            blob = out["blob"].to("cpu", non_blocking=True)
+            tail = out["ops_tail"] if first else \
+                out["ops_tail"].to("cpu", non_blocking=True)
+            need = out["vote_need"].to("cpu", non_blocking=True) if first \
+                else None
+            copied = self._event()
+            return _Step(cfg, blob, tail, need, copied, start,
+                         copied if first else end)
 
-            def pinned(t):
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                return h
+    def _read_back(self, step: _Step, *keys: str):
+        """Wait for a step's copies and add its device time to each
+        phase_s key of `keys`; return (meta, ops), the tail appended only
+        where some row's runs reach the last eager slot (not the pad op; a
+        head of no bytes has no tail, ops/step.pack_head)."""
+        if step.copied is not None:
+            step.copied.synchronize()
+        if step.start is not None and step.end is not None:
+            dt = step.start.elapsed_time(step.end) / 1e3
+            for k in keys:
+                self.phase_s[k] += dt
+        mb, eb = 4 * step.cfg.meta_words, step.cfg.tb_entry_bytes
+        blob = step.blob.numpy()
+        meta, ops = np.ascontiguousarray(blob[:, :mb]).view(np.int32), \
+            blob[:, mb:]
+        if ops.shape[1] and (ops.shape[1] < eb
+                             or (ops[:, -eb] & 3 != 3).any()):
+            ops = np.concatenate([ops, step.tail.cpu().numpy()], axis=1)
+        return meta, ops
 
-            return dict(blob=pinned(out["blob"]),
-                        ops_tail=(pinned(out["ops_tail"]) if tail
-                                  else out["ops_tail"]),
-                        need=None if tail else pinned(out["vote_need"]),
-                        event=self._event())
-
-    @staticmethod
-    def _split_blob(cfg: MapperConfig, blob: np.ndarray):
-        mb = 4 * cfg.meta_words
-        return np.ascontiguousarray(blob[:, :mb]).view(np.int32), blob[:, mb:]
-
-    def _dispatch_chunk(self, prepared, chunk=None):
-        """Issue the step of each part of a prepared chunk and queue its
-        D2H copy: (cfg, reads, lens, out) a part, `out` holding the host
-        blob, the device tail, the copy's event, the event the part's
-        first pass starts at and the chunk's ordinal."""
+    def _dispatch_chunk(self, prepared, chunk=None) -> List[_Part]:
+        """Issue each part's step and queue its D2H copy: a _Part each."""
         L, prepped = prepared
         cfg = self._step_for(L)
         parts = []
@@ -513,11 +558,10 @@ class TorchMapper:
                 self.raw_chunks += 1
             else:
                 self.host_chunks += 1
-            start = self._event()
+            start, valid = self._event(), None
             if self.mesh is None:
                 out = self._run_step(cfg, codes, codes_rc, lens, limits,
                                      chunk)
-                valid = None
             else:
                 from ..parallel.dist import sharded_map_step
                 step = sharded_map_step(cfg, self.mesh)
@@ -525,9 +569,9 @@ class TorchMapper:
                                    chunk=chunk)
                 with Span("mapper.step", chunk):
                     out, valid = step(self.idx, *arrays)
-            parts.append((cfg, part, lens,
-                          dict(self._start_d2h(out, chunk), valid=valid,
-                               start=start, chunk=chunk)))
+            parts.append(_Part(cfg, part, chunk,
+                               self._start_d2h(cfg, out, start, chunk=chunk),
+                               valid))
         return parts
 
     def submit_chunk(self, reads: Sequence[Tuple[str, str, Optional[str]]]):
@@ -540,126 +584,95 @@ class TorchMapper:
         with Span("mapper.dispatch", k, self.phase_s, "dispatch"):
             return self._dispatch_chunk(prepared, k)
 
-    def _fetch_chunk(self, pending):
-        """The issue stage of a submitted chunk: for each part, wait for
-        its D2H copy, fetch the CIGAR tail only when some read's runs reach
-        the end of the eager head, run the saturation tier, then issue the
-        overflow tier's steps (_retry_overflow).  Nothing here waits for an
-        overflow step: _finish_chunk does."""
+    def _fetch_chunk(self, parts: List[_Part]) -> List[_Part]:
+        """The issue stage of a submitted chunk: for each part, read its
+        first pass back, run the saturation tier, then issue the overflow
+        tier's steps.  Nothing here waits for one: _finish_chunk does."""
         self._stage_seq += 1
-        fetched = []
-        for cfg, reads, lens, out in pending:
-            k = out["chunk"]
-            with Span("mapper.fetch", k, self.phase_s, "fetch"):
-                if out["event"] is not None:
-                    out["event"].synchronize()
-                    self.phase_s["first_pass_device"] += \
-                        out["start"].elapsed_time(out["event"]) / 1e3
-                if out["valid"] is not None:
-                    self.valid_global += int(out["valid"])
-                meta, ops = self._split_blob(cfg, out["blob"].numpy())
-                if _tail_needed(ops, cfg.tb_entry_bytes):
-                    ops = np.concatenate(
-                        [ops, out["ops_tail"].cpu().numpy()], axis=1)
-            res = self._retry_saturation(
-                cfg, reads, dict(meta=meta, ops=ops, chunk=k,
-                                 need=out["need"].numpy()), k)
-            res = self._retry_overflow(cfg, reads, res, k)
-            fetched.append((cfg, reads, lens, res))
-        return fetched
+        for p in parts:
+            with Span("mapper.fetch", p.chunk, self.phase_s, "fetch"):
+                p.meta, p.ops = self._read_back(p.first, "first_pass_device")
+                if p.valid is not None:
+                    self.valid_global += int(p.valid)
+            p.need, p.first = p.first.need.numpy(), None
+            self._retry_saturation(p)
+            self._retry_overflow(p)
+        return parts
 
-    def _finish_chunk(self, fetched):
+    def _finish_chunk(self, parts: List[_Part]) -> List[_Part]:
         """The finish stage of an issued chunk: wait for each part's
         overflow steps and splice their rows in (_finish_overflow)."""
-        done = [(cfg, reads, lens, self._finish_overflow(cfg, out))
-                for cfg, reads, lens, out in fetched]
+        for p in parts:
+            self._finish_overflow(p)
         self._stage_seq += 1
-        return done
+        return parts
 
-    def _issue_step(self, cfg: MapperConfig, part, chunk=None) -> dict:
-        """Run `cfg`'s step on the reads of `part` and queue its blob and
-        tail copies into pinned memory behind one event: the record holds
-        the host buffers and the step's start and end events, no device
-        tensor.  Nothing waits here."""
+    def _issue_step(self, cfg: MapperConfig, part, chunk=None) -> _Step:
+        """Run `cfg`'s step on the reads of `part` and queue its copies:
+        its _Step.  Nothing waits here."""
         with Span("mapper.retry.pack", chunk):
             packed = self._pack_reads(part, cfg.L, cfg.B)
         start = self._event()
         o = self._run_step(cfg, *packed, chunk=chunk)
-        end = self._event()
-        return dict(self._start_d2h(o, chunk, tail=True), start=start,
-                    end=end)
+        return self._start_d2h(cfg, o, start, self._event(), chunk)
 
-    def _finish_step(self, cfg: MapperConfig, rec: dict, chunk=None,
-                     wide: bool = False):
-        """Wait for an issued step's copies and return its (meta, ops) in
-        full; the step's device time is read after the wait, and kept in
-        wide_vote_device too for a wide vote class step (`wide`)."""
+    def _finish_step(self, step: _Step, chunk=None):
+        """An issued retry step's (meta, ops) in full; its device time goes
+        to retry_device, and to wide_vote_device for a class step."""
         with Span("mapper.retry.wait", chunk, self.phase_s, "retry_wait"):
-            if rec["event"] is not None:
-                rec["event"].synchronize()
-            meta, ops = self._split_blob(cfg, rec["blob"].numpy())
-            if ops.shape[1] and _tail_needed(ops, cfg.tb_entry_bytes):
-                ops = np.concatenate([ops, rec["ops_tail"].numpy()], axis=1)
-        if rec["start"] is not None:
-            dt = rec["start"].elapsed_time(rec["end"]) / 1e3
-            self.phase_s["retry_device"] += dt
-            if wide:
-                self.phase_s["wide_vote_device"] += dt
-        return meta, ops
+            return self._read_back(step, "retry_device", *(
+                ("wide_vote_device",) if step.wide else ()))
 
-    def _retry_saturation(self, cfg: MapperConfig, reads, out, chunk=None):
-        """Re-walk a gact chunk whose shared run buffer saturated (bit 1,
-        ops/gact.gact_traceback_c) through the 4x-buffer tier, at once
-        (the issue and the wait together).  The flag is chunk-wide (the
-        clamped last buffer row may hold any lane's runs), so the whole
-        chunk re-runs and its meta/ops are replaced; a flag that survives
-        even 4x shows in overflow_reads.  Under a mesh a rank re-runs its
-        own rows (JAX's mesh mode leaves the flag unrecovered): with a
-        replicated index alone, with sharded tables together with its
-        model group, whose ranks hold the same rows and so the same
-        flag."""
+    def _retry_saturation(self, p: _Part) -> None:
+        """Re-walk a gact part whose shared run buffer saturated (bit 1,
+        ops/gact.gact_traceback_c) through the 4x-buffer tier, issued and
+        waited for at once.  The flag is chunk-wide (the clamped last
+        buffer row may hold any lane's runs), so the whole part re-runs; a
+        flag that survives even 4x shows in overflow_reads.  Under a mesh a
+        rank re-runs its own rows (JAX's mesh leaves the flag), with sharded
+        tables together with its model group, whose ranks share the flag."""
+        cfg = p.cfg
         if not cfg.use_gact or not (
-                out["meta"][:len(reads), cfg.meta_words - 1] & 2).any():
-            return out
-        with Span("mapper.retry_saturation", chunk, self.phase_s, "retry"):
+                p.meta[:len(p.reads), cfg.meta_words - 1] & 2).any():
+            return
+        with Span("mapper.retry_saturation", p.chunk, self.phase_s, "retry"):
             sat = self._sat_step_for(cfg.L)
-            meta, ops = self._finish_step(
-                sat, self._issue_step(sat, reads, chunk), chunk)
+            p.meta, p.ops = self._finish_step(
+                self._issue_step(sat, p.reads, p.chunk), p.chunk)
         self.retried_sat_chunks += 1
-        return dict(out, meta=meta, ops=ops)
 
-    def _retry_overflow(self, cfg: MapperConfig, reads, out, chunk=None):
-        """Issue the exact-everything tier's steps for the reads flagged
-        with vote overflow (bit 0) or a narrow-band ed (bit 2), at most
-        the tier's B a step; their records and row selections ride in the
-        part's `retry`, for _finish_overflow.  The bit-0 reads whose widest
-        vote row (the first pass's need) passes the tier's slots take a
-        wide vote class step instead: one step a part at the power-of-2
-        class of its widest need (vote_classes), its batch padded to a
-        power of 2 over those reads (_wide_batch bounds it).  Bit 1 (gact
-        saturation) is not retried here: more vote slots cannot fix it."""
+    def _retry_overflow(self, p: _Part) -> None:
+        """Issue into `retry` the exact-everything tier's steps for the
+        reads flagged with vote overflow (bit 0) or a narrow-band ed (bit
+        2), at most the tier's B a step.  The bit-0 reads whose widest vote
+        row (`need`) passes the tier's slots take instead one wide vote
+        class step a part, at the power-of-2 class of its widest need
+        (vote_classes), its batch a power of 2 (_wide_batch bounds it).
+        Bit 1 (gact saturation) is not retried here."""
+        cfg = p.cfg
         if cfg.exact_slots:
-            return out
-        flags = out["meta"][:len(reads), cfg.meta_words - 1]
+            return
+        flags = p.meta[:len(p.reads), cfg.meta_words - 1]
         flagged = np.flatnonzero(flags & 5)
         if flagged.size == 0:
-            return out
-        with Span("mapper.retry_overflow", chunk, self.phase_s, "retry"):
+            return
+        with Span("mapper.retry_overflow", p.chunk, self.phase_s, "retry"):
             cfg_r = self._retry_step_for(cfg.L)
-            slots = vote_classes(out["need"][flagged], cfg_r.vote_slots)
+            slots = vote_classes(p.need[flagged], cfg_r.vote_slots)
             slots[(flags[flagged] & 1) == 0] = 0
-            steps = []
 
             def issue(c, sel, wide=False):
-                steps.append((c, sel, wide, self._issue_step(
-                    c, [reads[i] for i in sel], chunk)))
+                step = self._issue_step(c, [p.reads[i] for i in sel],
+                                        p.chunk)
+                step.sel, step.wide = sel, wide
+                p.retry.append(step)
 
             exact = flagged[slots == 0]
             for s in range(0, exact.size, cfg_r.B):
                 issue(cfg_r, exact[s:s + cfg_r.B])
             wide = flagged[slots > 0]
             if wide.size:
-                with Span("mapper.retry.wide", chunk, self.phase_s,
+                with Span("mapper.retry.wide", p.chunk, self.phase_s,
                           "wide_vote"):
                     c = int(slots.max())
                     bmax = self._wide_batch(cfg.L, c)
@@ -671,69 +684,62 @@ class TorchMapper:
                         self.wide_vote_steps += 1
                 self.wide_vote_reads += int(wide.size)
         self.retried_reads += int(flagged.size)
-        self.retry_steps += len(steps)
-        return dict(out, retry=steps, issued_at=self._stage_seq)
+        self.retry_steps += len(p.retry)
+        p.issued_at = self._stage_seq
 
-    def _finish_overflow(self, cfg: MapperConfig, out):
-        """Wait for a part's issued overflow steps and splice their rows
-        (meta with the real flag, run bytes) in, their run entries widened
-        to the chunk's width, which the assembly decodes with.  A read a
-        wide vote class step leaves with bit 0 counts in
-        wide_vote_unresolved."""
-        if "retry" not in out:
-            return out
-        k = out["chunk"]
-        with Span("mapper.retry.finish", k, self.phase_s, "retry"):
-            meta = out["meta"].copy()
-            ops = np.asarray(out["ops"]).copy()
-            for cfg_r, sel, wide, rec in out["retry"]:
-                meta_r, ops_r = self._finish_step(cfg_r, rec, k, wide)
-                if wide:
+    def _finish_overflow(self, p: _Part) -> None:
+        """Wait for a part's overflow steps and splice their rows in, run
+        entries widened to the chunk's width; a read a wide vote class step
+        leaves with bit 0 counts in wide_vote_unresolved."""
+        if not p.retry:
+            return
+        with Span("mapper.retry.finish", p.chunk, self.phase_s, "retry"):
+            meta, ops = p.meta.copy(), p.ops.copy()
+            for step in p.retry:
+                sel, c = step.sel, step.cfg
+                meta_r, ops_r = self._finish_step(step, p.chunk)
+                if step.wide:
                     self.wide_vote_unresolved += int(
-                        (meta_r[:sel.size, cfg_r.meta_words - 1] & 1).sum())
-                ops_r = _widen_entries(ops_r, cfg_r.tb_entry_bytes,
-                                       cfg.tb_entry_bytes)
+                        (meta_r[:sel.size, c.meta_words - 1] & 1).sum())
+                ops_r = _widen_entries(ops_r, c.tb_entry_bytes,
+                                       p.cfg.tb_entry_bytes)
                 if ops_r.shape[1] > ops.shape[1]:
-                    pad = np.full((ops.shape[0],
-                                   ops_r.shape[1] - ops.shape[1]), 3, np.int8)
-                    ops = np.concatenate([ops, pad], axis=1)
+                    ops = np.pad(ops, ((0, 0), (0, ops_r.shape[1]
+                                                - ops.shape[1])),
+                                 constant_values=3)
                 meta[sel] = meta_r[:sel.size]
                 ops[sel] = 3          # blank any leftover compact-tier bytes
                 ops[sel, :ops_r.shape[1]] = ops_r[:sel.size]
-        if self._stage_seq > out["issued_at"]:
-            self.deferred_retry_steps += len(out["retry"])
-        return dict(meta=meta, ops=ops, chunk=k)
+        if self._stage_seq > p.issued_at:
+            self.deferred_retry_steps += len(p.retry)
+        # the steps' pinned buffers go now, as the need does
+        p.meta, p.ops, p.need, p.retry = meta, ops, None, []
 
     # ----------------------------------------------------------- assembly
 
-    def _count_overflow(self, cfg, reads, out) -> None:
-        self.overflow_reads += int(
-            (out["meta"][:len(reads), cfg.meta_words - 1] != 0).sum())
+    def _assemble(self, done: List[_Part], render) -> list:
+        """render(part) of each part of a finished chunk; the reads whose
+        final meta keeps a flag count in overflow_reads."""
+        outs = []
+        with Span("mapper.assemble", done[0].chunk, self.phase_s, "assemble"):
+            for p in done:
+                self.overflow_reads += int(
+                    (p.meta[:len(p.reads), p.cfg.meta_words - 1] != 0).sum())
+                outs.append(render(p))
+        return outs
 
-    def _assemble(self, done) -> List[MapRecord]:
-        k = done[0][3]["chunk"]
-        recs: List[MapRecord] = []
-        with Span("mapper.assemble", k, self.phase_s, "assemble"):
-            for cfg, reads, lens, out in done:
-                self._count_overflow(cfg, reads, out)
-                recs.extend(self._postprocess(cfg, reads, lens, out, k))
-        return recs
+    def _records(self, done: List[_Part]) -> List[MapRecord]:
+        return [r for recs in self._assemble(done, self._postprocess)
+                for r in recs]
 
-    def _assemble_sam(self, done) -> Tuple[str, int, int]:
-        k = done[0][3]["chunk"]
-        text, total, valid = [], 0, 0
-        with Span("mapper.assemble", k, self.phase_s, "assemble"):
-            for cfg, reads, lens, out in done:
-                self._count_overflow(cfg, reads, out)
-                t, v = self._postprocess_sam(cfg, reads, lens, out, k)
-                text.append(t)
-                total += len(reads)
-                valid += v
-        return "".join(text), total, valid
+    def _sam(self, done: List[_Part]) -> Tuple[str, int, int]:
+        outs = self._assemble(done, self._postprocess_sam)
+        return ("".join(t for t, _ in outs), sum(len(p.reads) for p in done),
+                sum(v for _, v in outs))
 
     def collect_chunk(self, pending) -> List[MapRecord]:
         """The MapRecords of a submitted chunk."""
-        return self._assemble(self._finish_chunk(self._fetch_chunk(pending)))
+        return self._records(self._finish_chunk(self._fetch_chunk(pending)))
 
     def map_chunk(self, reads: Sequence[Tuple[str, str, Optional[str]]]
                   ) -> List[MapRecord]:
@@ -742,8 +748,7 @@ class TorchMapper:
 
     def collect_chunk_sam(self, pending) -> Tuple[str, int, int]:
         """(sam_text, n_records, n_valid) for a submitted chunk."""
-        return self._assemble_sam(
-            self._finish_chunk(self._fetch_chunk(pending)))
+        return self._sam(self._finish_chunk(self._fetch_chunk(pending)))
 
     def _stream(self, chunk_iter, assemble):
         """assemble(finished chunk) per chunk, in order.  A loop turn
@@ -767,89 +772,72 @@ class TorchMapper:
 
     def map_stream(self, chunk_iter):
         """List[MapRecord] per chunk of an iterator of read chunks."""
-        return self._stream(chunk_iter, self._assemble)
+        return self._stream(chunk_iter, self._records)
 
     def map_stream_sam(self, chunk_iter):
         """SAM text per chunk, (sam_text, n_records, n_valid)."""
-        return self._stream(chunk_iter, self._assemble_sam)
+        return self._stream(chunk_iter, self._sam)
 
-    _COMP = bytes.maketrans(b"ACGTacgt", b"TGCATGCA")
-
-    @staticmethod
-    def _meta_cols(cfg: MapperConfig, meta: np.ndarray):
-        """(found, gi, strand, off, ed) columns of either meta layout."""
-        if cfg.pos64:
+    @contextmanager
+    def _decoded(self, p: _Part):
+        """A finished part's per-read lists, both outputs' input: found,
+        valid (found, ED >= 0), strand, contig index, POS, ED, CIGAR (""
+        without runs) and SEQ as written (reverse-complemented where found
+        on the reverse strand), yielded in its mapper.assemble.records."""
+        n = len(p.reads)
+        m = p.meta[:n]
+        if p.cfg.pos64:
             # [best_lo, best_hi, found, gi, strand, off_lo, off_hi, ed,
             #  limit, overflow]
-            off = ((meta[:, 6].astype(np.int64) << 32)
-                   | meta[:, 5].astype(np.uint32).astype(np.int64))
-            return (meta[:, 2] != 0, meta[:, 3], meta[:, 4] != 0, off,
-                    meta[:, 7])
-        return (meta[:, 1] != 0, meta[:, 2], meta[:, 3] != 0, meta[:, 4],
-                meta[:, 5])
+            off = ((m[:, 6].astype(np.int64) << 32)
+                   | m[:, 5].astype(np.uint32).astype(np.int64))
+            found, gi, strand, ed = m[:, 2] != 0, m[:, 3], m[:, 4] != 0, \
+                m[:, 7]
+        else:
+            found, gi, strand, off, ed = m[:, 1] != 0, m[:, 2], \
+                m[:, 3] != 0, m[:, 4], m[:, 5]
+        with Span("mapper.assemble.cigar", p.chunk, self.phase_s, "cigar"):
+            cigs = self._cigars(p.ops[:n], p.cfg.tb_entry_bytes)
+        with Span("mapper.assemble.records", p.chunk):
+            seqs = [s.encode().translate(_COMP)[::-1].decode() if r else s
+                    for (_, s, _), r in zip(p.reads,
+                                            (found & strand).tolist())]
+            yield (found.tolist(), (found & (ed >= 0)).tolist(),
+                   strand.tolist(), gi.tolist(), (off + 1).tolist(),
+                   ed.tolist(), cigs, seqs)
 
-    def _postprocess_sam(self, cfg: MapperConfig, reads, lens, out,
-                         chunk=None) -> Tuple[str, int]:
-        """Chunk-vectorized SAM assembly, one f-string per record."""
-        found, gi, strand, off, ed = self._meta_cols(cfg, out["meta"])
-        n = len(reads)
-        with Span("mapper.assemble.cigar", chunk, self.phase_s, "cigar"):
-            cigs = self._cigars(np.asarray(out["ops"][:n]),
-                                cfg.tb_entry_bytes)
-        with Span("mapper.assemble.records", chunk):
-            valid_l = (found & (ed >= 0))[:n].tolist()
-            strand_l = strand[:n].tolist()
-            found_l = found[:n].tolist()
-            pos_l = (off + 1)[:n].tolist()
-            ed_l = ed[:n].tolist()
-            gi_l = gi[:n].tolist()
-            names = [m.seq_name for m in self.mta]
-            comp = self._COMP
+    def _postprocess_sam(self, p: _Part) -> Tuple[str, int]:
+        """A part's SAM text, one f-string a record, and its count of
+        valid records."""
+        names = self._names
+        with self._decoded(p) as (found, valid, strand, gi, pos, ed, cigs,
+                                  seqs):
             lines = []
             ap = lines.append
-            n_valid = 0
-            for i, (name, seq, qual) in enumerate(reads):
+            for i, (name, _, qual) in enumerate(p.reads):
                 q = qual if qual else "*"
-                if valid_l[i]:
-                    n_valid += 1
-                    flag = 16 if strand_l[i] else 0
-                    if strand_l[i]:
-                        seq = seq.encode().translate(comp)[::-1].decode()
-                    ap(f"{name}\t{flag}\t{names[gi_l[i]]}\t{pos_l[i]}\t255\t"
-                       f"{cigs[i] or '*'}\t*\t0\t0\t{seq}\t{q}\t"
-                       f"ED:I:{ed_l[i]}\n")
-                elif found_l[i]:
-                    if strand_l[i]:
-                        seq = seq.encode().translate(comp)[::-1].decode()
-                    ap(f"{name}\t4\t{names[gi_l[i]]}\t{pos_l[i]}\t0\t*\t*\t0"
-                       f"\t0\t{seq}\t{q}\tED:I:-1\n")
+                if valid[i]:
+                    ap(f"{name}\t{16 if strand[i] else 0}\t{names[gi[i]]}\t"
+                       f"{pos[i]}\t255\t{cigs[i] or '*'}\t*\t0\t0\t{seqs[i]}"
+                       f"\t{q}\tED:I:{ed[i]}\n")
+                elif found[i]:
+                    ap(f"{name}\t4\t{names[gi[i]]}\t{pos[i]}\t0\t*\t*\t0"
+                       f"\t0\t{seqs[i]}\t{q}\tED:I:-1\n")
                 else:
-                    ap(f"{name}\t4\t*\t1\t0\t*\t*\t0\t0\t{seq}\t{q}"
+                    ap(f"{name}\t4\t*\t1\t0\t*\t*\t0\t0\t{seqs[i]}\t{q}"
                        f"\tED:I:-1\n")
-            return "".join(lines), n_valid
+            return "".join(lines), sum(valid)
 
-    def _postprocess(self, cfg: MapperConfig, reads, lens, out,
-                     chunk=None) -> List[MapRecord]:
-        found, gi, strand, off, ed = self._meta_cols(cfg, out["meta"])
-        with Span("mapper.assemble.cigar", chunk, self.phase_s, "cigar"):
-            cigs = self._cigars(np.asarray(out["ops"][:len(reads)]),
-                                cfg.tb_entry_bytes)
-        recs: List[MapRecord] = []
-        with Span("mapper.assemble.records", chunk):
-            for i, (name, seq, qual) in enumerate(reads):
-                ok = bool(found[i])
-                ed_i = int(ed[i]) if ok else -1
-                valid = ok and ed_i >= 0
-                if valid:
-                    cig = cigs[i] or "*"
-                    flag = 16 if strand[i] else 0
-                    mapq = 255
-                else:
-                    cig, flag, mapq = "*", 0x4, 0
-                recs.append(MapRecord(
-                    qname=name, flag=flag,
-                    rname=self.mta[int(gi[i])].seq_name if ok else "*",
-                    off=int(off[i]) if ok else 0, mapq=mapq, cigar=cig,
-                    seq=revcomp(seq) if (ok and strand[i]) else seq,
-                    qual=qual if qual else "*", ed=ed_i, valid=valid))
-        return recs
+    def _postprocess(self, p: _Part) -> List[MapRecord]:
+        """A part's MapRecords."""
+        names = self._names
+        with self._decoded(p) as (found, valid, strand, gi, pos, ed, cigs,
+                                  seqs):
+            return [MapRecord(
+                qname=name, flag=(16 if strand[i] else 0) if valid[i] else 4,
+                rname=names[gi[i]] if found[i] else "*",
+                off=pos[i] - 1 if found[i] else 0,
+                mapq=255 if valid[i] else 0,
+                cigar=(cigs[i] or "*") if valid[i] else "*", seq=seqs[i],
+                qual=qual if qual else "*", ed=ed[i] if found[i] else -1,
+                valid=valid[i]) for i, (name, _, qual) in enumerate(p.reads)]

@@ -89,11 +89,11 @@ def run_map():
 
         def saturated(self, prepared, *a):
             parts = dispatch(self, prepared, *a)
-            for c, _, _, out in parts:
-                mb = 4 * c.meta_words
-                meta = out["blob"][:, :mb].contiguous().view(torch.int32)
+            for p in parts:
+                mb = 4 * p.cfg.meta_words
+                meta = p.first.blob[:, :mb].contiguous().view(torch.int32)
                 meta[:, -1] |= 2
-                out["blob"][:, :mb] = meta.view(torch.int8)
+                p.first.blob[:, :mb] = meta.view(torch.int8)
             return parts
 
         TorchMapper._dispatch_chunk = saturated

@@ -35,7 +35,7 @@ from longreadmapper_tpu_torch.index.fmi import FMIndex
 from longreadmapper_tpu_torch.index.lchash import lc_build_device
 from longreadmapper_tpu_torch.index.sa import sa_build_device, suffix_array
 from longreadmapper_tpu_torch.mapping.pipeline import raw_map_step
-from longreadmapper_tpu_torch.models.mapper import TorchMapper
+from longreadmapper_tpu_torch.models.mapper import TorchMapper, _joined
 from longreadmapper_tpu_torch.ops.affine import affine_align, \
     banded_sw_affine
 from longreadmapper_tpu_torch.runtime.accidx import build_index
@@ -140,7 +140,7 @@ def test_raw_step_card_matches_cpu(tmp_path):
         idx, meta, mta = load_device_index(fa, dev, verbose=False)
         tm = TorchMapper(idx, meta, mta, params, chunk_b=32, device=dev)
         cfg = tm._step_for(512)
-        raw, _, lens, limits = tm._pack_raw(reads, 512, 32)
+        raw, _, lens, limits = tm._pack_raw(_joined(reads), 512, 32)
         step = raw_map_step(cfg, idx, *(torch.from_numpy(a).to(dev)
                                          for a in (raw, lens, limits)), 500)
         outs[dev] = ({k: v.cpu() for k, v in step.items()},
@@ -267,11 +267,12 @@ def test_gact_saturation_tier_card_matches_cpu(tmp_path):
         _force_gact(tm)
         base = [r.to_sam() for r in tm.map_chunk(reads)]
         pending = tm.submit_chunk(reads)
-        for cfg, _, _, out in pending:
-            if out["event"] is not None:
-                out["event"].synchronize()      # the D2H copy has landed
-            mw = 4 * cfg.meta_words
-            blob = out["blob"].numpy()           # pinned host memory
+        for part in pending:
+            first = part.first
+            if first.copied is not None:
+                first.copied.synchronize()      # the D2H copy has landed
+            mw = 4 * part.cfg.meta_words
+            blob = first.blob.numpy()           # pinned host memory
             meta_w = np.ascontiguousarray(blob[:, :mw]).view(np.int32)
             meta_w[:, -1] |= 2
             blob[:, :mw] = meta_w.view(np.int8)
@@ -389,27 +390,27 @@ def test_stream_retry_runs_under_the_assembly_on_card(tmp_path):
     tm = TorchMapper(idx, meta, mta, Params(hlen=10), chunk_b=16,
                      device="cuda")
     issued, seen = {}, {}
-    issue, assemble = tm._issue_step, tm._assemble_sam
+    issue, assemble = tm._issue_step, tm._assemble
     post = tm._postprocess_sam
 
     def issue_step(cfg, part, chunk=None):
-        rec = issue(cfg, part, chunk)
-        issued.setdefault(chunk, []).append(rec)
-        return rec
+        step = issue(cfg, part, chunk)
+        issued.setdefault(chunk, []).append(step)
+        return step
 
-    def assemble_sam(done):
-        k = done[0][3]["chunk"]
+    def assemble_chunk(done, render):
+        k = done[0].chunk
         nxt = issued.get(k + 1, [])
-        ended = [r["end"].query() for r in nxt]
-        out = assemble(done)
-        seen[k] = (ended, [r["start"].query() for r in nxt])
+        ended = [r.end.query() for r in nxt]
+        out = assemble(done, render)
+        seen[k] = (ended, [r.start.query() for r in nxt])
         return out
 
     def postprocess_sam(*a, **kw):
         time.sleep(pad)
         return post(*a, **kw)
 
-    tm._issue_step, tm._assemble_sam = issue_step, assemble_sam
+    tm._issue_step, tm._assemble = issue_step, assemble_chunk
     tm._postprocess_sam = postprocess_sam
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

@@ -265,9 +265,12 @@ def test_sam_gact_half_band_retry(g60, monkeypatch):
 
 
 def _force_saturation(pending, to_numpy):
-    """Set overflow bit 1 on every read of submitted parts."""
-    for cfg, _, _, out in pending:
-        blob = to_numpy(out["blob"])
+    """Set overflow bit 1 on every read of submitted parts: JAX's (cfg,
+    reads, lens, out) tuples or the port's records."""
+    for part in pending:
+        cfg, blob = ((part[0], part[3]["blob"]) if isinstance(part, tuple)
+                     else (part.cfg, part.first.blob))
+        blob = to_numpy(blob)
         mw = 4 * (cfg.META_WORDS if hasattr(cfg, "META_WORDS")
                   else cfg.meta_words)
         meta = np.ascontiguousarray(blob[:, :mw]).view(np.int32)

@@ -19,7 +19,7 @@ from longreadmapper_tpu.mapping import pipeline as jpipe
 from longreadmapper_tpu.models.mapper import TPUMapper
 from longreadmapper_tpu.utils.config import Params
 from longreadmapper_tpu_torch.mapping import pipeline as tpipe
-from longreadmapper_tpu_torch.models.mapper import TorchMapper
+from longreadmapper_tpu_torch.models.mapper import TorchMapper, _joined
 
 torch.set_num_threads(1)
 HLEN = 9
@@ -82,7 +82,7 @@ def test_raw_step_matches_jax_raw_step_and_host_encode(g120):
     params = g120["params"]
     tm = TorchMapper(g120["tidx"], g120["tmeta"], g120["mta"], params,
                      chunk_b=B, device="cpu")
-    raw, none, lens, limits = tm._pack_raw(reads, L, B)
+    raw, none, lens, limits = tm._pack_raw(_joined(reads), L, B)
     assert none is None and raw.dtype == np.uint8
     jc = jpipe.MapperConfig.from_params(params, g120["meta"], B, L)
     want = jpipe.make_map_step(replace(jc, raw_input=True))(

@@ -186,12 +186,12 @@ def test_wide_vote_device_is_a_part_of_retry_device(rep, monkeypatch):
     wide, every = [], []
     real = TorchMapper._finish_step
 
-    def finish(self, cfg, rec, chunk=None, wide_step=False):
-        dt = rec["start"].elapsed_time(rec["end"]) / 1e3
+    def finish(self, step, chunk=None):
+        dt = step.start.elapsed_time(step.end) / 1e3
         every.append(dt)
-        if wide_step:
+        if step.wide:
             wide.append(dt)
-        return real(self, cfg, rec, chunk, wide_step)
+        return real(self, step, chunk)
 
     monkeypatch.setattr(TorchMapper, "_finish_step", finish)
     tm, _ = _map(rep)

@@ -74,9 +74,10 @@ def _spy(monkeypatch):
 
         def call(self, *a, **k):
             tag = name
-            if name in ("issue", "wait") and any(
-                    a[0] is c for c in self._wide_cfgs.values()):
-                tag = name + ".wide"
+            if name in ("issue", "wait"):
+                cfg = a[0] if name == "issue" else a[0].cfg
+                if any(cfg is c for c in self._wide_cfgs.values()):
+                    tag = name + ".wide"
             seen.append((tag, chunk_of(a, k)))
             if name == "issue":
                 issued.append((tag, chunk_of(a, k),
@@ -86,12 +87,11 @@ def _spy(monkeypatch):
         monkeypatch.setattr(TorchMapper, method, call)
 
     spy("dispatch", "_dispatch_chunk", lambda a, k: a[1])
-    spy("fetch", "_fetch_chunk", lambda a, k: a[0][0][3]["chunk"])
+    spy("fetch", "_fetch_chunk", lambda a, k: a[0][0].chunk)
     spy("issue", "_issue_step", lambda a, k: a[2])
-    spy("finish", "_finish_chunk", lambda a, k: a[0][0][3]["chunk"])
-    spy("wait", "_finish_step", lambda a, k: a[2])
-    spy("assemble", "_assemble_sam", lambda a, k: a[0][0][3]["chunk"])
-    spy("assemble", "_assemble", lambda a, k: a[0][0][3]["chunk"])
+    spy("finish", "_finish_chunk", lambda a, k: a[0][0].chunk)
+    spy("wait", "_finish_step", lambda a, k: a[1])
+    spy("assemble", "_assemble", lambda a, k: a[0][0].chunk)
     return seen, issued
 
 
