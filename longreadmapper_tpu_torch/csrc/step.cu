@@ -32,7 +32,9 @@
 // and blob under 1 MB, a few microseconds each at 3.35 TB/s.  So the
 // designs are one pass each, with the work laid out for coalesced 16-byte
 // access and no division in a thread:
-//   encode   grid (B, chunks): a thread 16 bases, one 16-byte load of the
+//   encode   grid (B, chunks), a CTA in one row, whose read length it
+//            reads from lens, so a ragged part ships raw as a uniform one
+//            does: a thread 16 bases, one 16-byte load of the
 //            row and one 16-byte store each of codes and codes_rc; the
 //            codes by byte-wise compares in registers (__vcmpeq4), the
 //            reverse complement's 16 source bytes from two aligned loads,
@@ -69,7 +71,8 @@ struct EncodeArgs {
   const unsigned char* raw;   // (B, L) ASCII
   signed char* codes;         // (B, L)
   signed char* codes_rc;      // (B, L)
-  long long B, L, L0;
+  const int* lens;            // (B,) each row's read length L0
+  long long B, L;
 };
 
 struct LocateArgs {
@@ -205,19 +208,21 @@ __device__ __forceinline__ uint4 reversed16(uint4 x, uint4 y, int o) {
                     __byte_perm(v[0], 0, 0x0123));
 }
 
-// codes_rc is the flipped complement rolled left by L - L0: the read's L0
-// bases front-aligned, then the row's other bytes (pads or not) in reverse
+// codes_rc is the flipped complement rolled left by L - L0, L0 the row's
+// own read length (lens, clamped to [0, L]): the read's L0 bases
+// front-aligned, then the row's other bytes (pads or not) in reverse
 // order, so codes_rc[j] = comp(raw[(L0 - 1 - j) mod L]).  grid (B, chunks
-// of kEncodeThreads 16-base windows); kVec: L % 16 == 0 and every pointer
-// 16-aligned, else each thread takes its 16 bases a byte at a time.  In a
-// 16-aligned row the 16 source bytes of the window at j0 start at
-// s = (L0 - 16 - j0) mod L, at the same offset L0 % 16 in its aligned word
-// for every window, and run on into the next word (the first, past the
-// row's end).
+// of kEncodeThreads 16-base windows): a CTA is one row, so its threads
+// read one L0; kVec: L % 16 == 0 and every pointer 16-aligned, else each
+// thread takes its 16 bases a byte at a time.  In a 16-aligned row the 16
+// source bytes of the window at j0 start at s = (L0 - 16 - j0) mod L, at
+// the same offset L0 % 16 in its aligned word for every window of the
+// row, and run on into the next word (the first, past the row's end).
 template <bool kVec>
 __global__ void __launch_bounds__(kEncodeThreads)
 encode_kernel(const EncodeArgs a) {
-  const int L = static_cast<int>(a.L), L0 = static_cast<int>(a.L0);
+  const int L = static_cast<int>(a.L);
+  const int L0 = min(max(a.lens[blockIdx.x], 0), L);
   const size_t row = static_cast<size_t>(blockIdx.x) * L;
   const int j0 = 16 * (blockIdx.y * kEncodeThreads + threadIdx.x);
   const unsigned char* raw = a.raw + row;
@@ -746,7 +751,7 @@ extern "C" int lrm_encode(const EncodeArgs* args, void* stream) {
   const EncodeArgs a = *args;
   // in-row indices are 32-bit (j + L0 < 2 L)
   if (a.B <= 0 || a.B > 0x7FFFFFFFLL || a.L <= 0 || a.L > (1LL << 30)
-      || a.L0 < 0 || a.L0 > a.L) {
+      || a.lens == nullptr) {
     return -1;
   }
   const long long chunks = (a.L + 16LL * kEncodeThreads - 1)

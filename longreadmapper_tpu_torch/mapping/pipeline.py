@@ -22,8 +22,9 @@ read (8; 10 under pos64, whose positions ship as [lo, hi] pairs) followed
 by the eager head of the pad-sorted CIGAR run entries, and `ops_tail`;
 beside them `vote_need`, each read's widest vote row, which JAX does not
 return: the mapper sizes a flagged read's exact vote by it.
-`raw_map_step` is the JAX raw_step: it takes the ASCII of a uniform chunk
-and encodes and reverse-complements it on the device.
+`raw_map_step` is the JAX raw_step: it takes the ASCII of a chunk and
+encodes and reverse-complements it on the device, each row at its own
+read length (JAX's takes chunks of one length).
 
 Index layouts (index/device.py): positions are int32, or int64 joined
 from split-hi tables after each gather (pos64); the full layout gathers
@@ -342,12 +343,13 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
 
 
 def raw_map_step(cfg: MapperConfig, idx: DeviceIndex, raw, lens, limits,
-                 L0: int, mark=None):
-    """map_step of a uniform chunk shipped as raw ASCII (B, L) uint8 on
-    the index's device, its reads L0 long: the JAX raw_step.  Half the H2D
+                 mark=None):
+    """map_step of a chunk shipped as raw ASCII (B, L) uint8 on the index's
+    device, row i a read lens[i] long and zero past it, ragged or not: the
+    JAX raw_step, which takes one length, at each row's own.  Half the H2D
     bytes of the host encode's two int8 arrays; byte-identical output.
     `mark("encode")` follows the encode."""
-    codes, codes_rc = encode_raw(raw, L0)
+    codes, codes_rc = encode_raw(raw, lens)
     if mark is not None:
         mark("encode")
     return map_step(cfg, idx, codes, codes_rc, lens, limits, mark)

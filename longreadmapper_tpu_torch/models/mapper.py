@@ -3,9 +3,10 @@ longreadmapper_tpu/models/mapper.py::TPUMapper).
 
 Bundles the device-resident DeviceIndex with the mapping step (one config
 per read-length bucket) and the host post-processing (CIGAR decode + SAM).
-A chunk part whose reads all have one length ships as raw ASCII and is
-encoded on the device (pipeline.raw_map_step, the JAX mapper's raw
-variant); ragged parts and every retry tier are encoded on the host.
+On a single device every step's part, ragged or not, first pass and
+retry tiers alike, ships as raw ASCII rows and is encoded on the device
+at each row's own length (pipeline.raw_map_step, the JAX mapper's raw
+variant); only a mesh's parts are encoded on the host.
 `map_stream` yields each chunk's MapRecords, `map_stream_sam` its SAM
 text, both through one stream of at most three chunks in flight: each
 loop turn submits chunk c, issues chunk c-1's overflow retry (its copies
@@ -178,6 +179,51 @@ def _joined(part) -> Optional[np.ndarray]:
                          np.uint8).reshape(len(part), len(part[0][1]))
 
 
+def _host_codes(part, L: int, n_pack: int):
+    """Up to n_pack (name, seq, qual) reads encoded on the host: (codes,
+    codes_rc, lens), the codes (n_pack, L) int8, the reverse complement
+    front-aligned and everything padded with code 4."""
+    raw = _joined(part)
+    lut = _encode_lut().view(np.int8)
+    clut = lut.copy()
+    clut[lut < 4] = 3 - lut[lut < 4]   # complement; N stays 4
+    lens = np.zeros(n_pack, dtype=np.int32)
+    codes = np.full((n_pack, L), 4, dtype=np.int8)
+    codes_rc = np.full((n_pack, L), 4, dtype=np.int8)
+    if raw is not None:
+        n, L0 = raw.shape
+        lens[:n] = L0
+        codes[:n, :L0] = lut[raw]
+        codes_rc[:n, :L0] = clut[raw][:, ::-1]
+    else:
+        for i, (_, seq, _) in enumerate(part):
+            b = np.frombuffer(seq.encode(), np.uint8)
+            lens[i] = b.shape[0]
+            codes[i, :b.shape[0]] = lut[b]
+            codes_rc[i, :b.shape[0]] = clut[b[::-1]]
+    return codes, codes_rc, lens
+
+
+def _raw_rows(part, L: int, n_pack: int):
+    """Up to n_pack reads' bytes for the device encode, zero-padded to
+    (n_pack, L) uint8, and their lens: a part of one length is one join
+    and reshape (_joined), a ragged one a slice copy a read; no per-base
+    work."""
+    out = np.zeros((n_pack, L), dtype=np.uint8)
+    lens = np.zeros(n_pack, dtype=np.int32)
+    raw = _joined(part)
+    if raw is not None:
+        n, L0 = raw.shape
+        out[:n, :L0] = raw
+        lens[:n] = L0
+    else:
+        for i, (_, seq, _) in enumerate(part):
+            b = np.frombuffer(seq.encode(), np.uint8)
+            lens[i] = b.shape[0]
+            out[i, :b.shape[0]] = b
+    return out, lens
+
+
 def _bucket_len(n: int, minimum: int = 128) -> int:
     """Round a read length up to a bucket: powers of two to 1K, then 1K
     steps."""
@@ -237,8 +283,11 @@ class TorchMapper:
         self.deferred_retry_steps = 0
         self._stage_seq = 0
         self.retried_sat_chunks = 0   # gact chunks re-walked, 4x run buffer
-        self.raw_chunks = 0       # chunk parts encoded on the device
-        self.host_chunks = 0      # chunk parts encoded on the host (ragged)
+        # packed steps, first passes and retry steps alike, whose reads
+        # were encoded on the device (raw bytes: every step on a single
+        # device) or on the host (host codes: a mesh's)
+        self.raw_chunks = 0
+        self.host_chunks = 0
         # mapped reads of all ranks, from the mesh's collective counter
         self.valid_global = 0
         self.submitted_chunks = 0  # a chunk's ordinal in its spans
@@ -246,10 +295,11 @@ class TorchMapper:
         self._names = [m.seq_name for m in self.mta]
         # Seconds of the stream.  Host wall clock, each timed by a span of
         # the same block (utils/trace.py): prepare = read packing
-        # (mapper.prepare); dispatch = H2D staging + the step's issue
-        # (mapper.dispatch; enqueued: the step makes no host sync); fetch
-        # = a part's first-pass read-back (mapper.fetch); retry = both
-        # retry tiers, packing, issue, wait and splice
+        # (mapper.prepare); retry_pack = the retry steps' packing, a part
+        # of retry (mapper.retry.pack); dispatch = H2D staging + the
+        # step's issue (mapper.dispatch; enqueued: the step makes no host
+        # sync); fetch = a part's first-pass read-back (mapper.fetch);
+        # retry = both retry tiers, packing, issue, wait and splice
         # (mapper.retry_saturation, mapper.retry_overflow: the overflow
         # tier's issue, mapper.retry.finish: its wait and splice);
         # retry_wait = the retry steps' read-backs, a part of retry
@@ -262,8 +312,8 @@ class TorchMapper:
         # D2H copy; retry_device = a retry step, its H2D copies to its
         # last kernel; wide_vote_device = the class steps' part of it.
         self.phase_s = {"prepare": 0.0, "dispatch": 0.0, "fetch": 0.0,
-                        "retry": 0.0, "retry_wait": 0.0, "wide_vote": 0.0,
-                        "assemble": 0.0, "cigar": 0.0,
+                        "retry": 0.0, "retry_pack": 0.0, "retry_wait": 0.0,
+                        "wide_vote": 0.0, "assemble": 0.0, "cigar": 0.0,
                         "first_pass_device": 0.0,
                         "retry_device": 0.0, "wide_vote_device": 0.0}
 
@@ -364,22 +414,21 @@ class TorchMapper:
                             W=W, band=band, entry_bytes=cfg.tb_entry_bytes))
         return out
 
-    def _variants(self, L: int) -> List[Tuple[MapperConfig, bool]]:
-        """(config, raw) of every step a part of bucket L can take: the
-        first pass host-encoded and, on a single device, raw
-        (_prepare_chunk); the exact tier where the first pass can flag a
-        read for it (a compact vote, bit 0, or a narrow band, bit 2), and
-        where its vote is compact one wide vote class step of a read at
-        the tier's widest class (_retry_overflow)."""
+    def _variants(self, L: int) -> List[MapperConfig]:
+        """The config of every step a part of bucket L can take, each
+        packed as _pack packs it: the first pass (_prepare_chunk); the
+        exact tier where the first pass can flag a read for it (a compact
+        vote, bit 0, or a narrow band, bit 2), and where its vote is
+        compact one wide vote class step of a read at the tier's widest
+        class (_retry_overflow)."""
         cfg = self._step_for(L)
-        out = [(cfg, False)] + [(cfg, True)] * (self.mesh is None)
+        out = [cfg]
         compact = cfg.vote_slots < cfg.vote_slots_exact
         if not cfg.exact_slots and (compact or cfg.half_band):
             cfg_r = self._retry_step_for(L)
-            out.append((cfg_r, False))
+            out.append(cfg_r)
             if compact:
-                out.append((self._wide_step_for(L, cfg_r.vote_slots_max, 1),
-                            False))
+                out.append(self._wide_step_for(L, cfg_r.vote_slots_max, 1))
         return out
 
     def warmup(self, lengths: Sequence[int] = (256, 1024)) -> float:
@@ -393,10 +442,8 @@ class TorchMapper:
             native_build.build(names=("band_dp", "band_scores", "walk",
                                       "vote", "step"))
         for L in sorted({_bucket_len(int(n)) for n in lengths}):
-            for c, raw in self._variants(L):
-                packed = (self._pack_raw(np.empty((0, 0), np.uint8), L, c.B)
-                          if raw else self._pack_codes([], None, L, c.B))
-                self._run_step(c, *packed)
+            for c in self._variants(L):
+                self._run_step(c, *self._pack([], L, c.B))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
@@ -408,51 +455,31 @@ class TorchMapper:
         return ((self.params.error_rate * lens.astype(np.float64)) * 2
                 ).astype(np.int32)
 
-    def _pack_codes(self, part, raw: Optional[np.ndarray], L: int,
-                    n_pack: int):
-        """Encode up to n_pack (name, seq, qual) reads: (codes, codes_rc,
-        lens, limits) numpy arrays, the reverse complement front-aligned
-        and everything padded with code 4.  `raw` is the part's bytes
-        (_joined), None where its reads are ragged."""
-        lut = _encode_lut().view(np.int8)
-        clut = lut.copy()
-        clut[lut < 4] = 3 - lut[lut < 4]   # complement; N stays 4
-        lens = np.zeros(n_pack, dtype=np.int32)
-        codes = np.full((n_pack, L), 4, dtype=np.int8)
-        codes_rc = np.full((n_pack, L), 4, dtype=np.int8)
-        if raw is not None:
-            n, L0 = raw.shape
-            lens[:n] = L0
-            codes[:n, :L0] = lut[raw]
-            codes_rc[:n, :L0] = clut[raw][:, ::-1]
-        else:
-            for i, (_, seq, _) in enumerate(part):
-                b = np.frombuffer(seq.encode(), np.uint8)
-                lens[i] = b.shape[0]
-                codes[i, :b.shape[0]] = lut[b]
-                codes_rc[i, :b.shape[0]] = clut[b[::-1]]
-        return codes, codes_rc, lens, self._limits(lens)
+    def _pack(self, part, L: int, n_pack: int):
+        """A part's step input: raw bytes (_pack_raw) on a single device,
+        host codes (_pack_reads) under a mesh, whose sharded step takes
+        codes."""
+        if self.mesh is None:
+            return self._pack_raw(part, L, n_pack)
+        return self._pack_reads(part, L, n_pack)
 
     def _pack_reads(self, part, L: int, n_pack: int):
-        """_pack_codes of a part not yet looked at (the retry tiers')."""
-        return self._pack_codes(part, _joined(part), L, n_pack)
+        """Up to n_pack reads encoded on the host (_host_codes): (codes,
+        codes_rc, lens, limits)."""
+        codes, codes_rc, lens = _host_codes(part, L, n_pack)
+        return codes, codes_rc, lens, self._limits(lens)
 
-    def _pack_raw(self, raw: np.ndarray, L: int, n_pack: int):
-        """A uniform part's bytes (_joined) padded for the device encode:
+    def _pack_raw(self, part, L: int, n_pack: int):
+        """Up to n_pack reads' bytes for the device encode (_raw_rows):
         (raw, None, lens, limits), the None marking the raw variant."""
-        n, L0 = raw.shape
-        out = np.zeros((n_pack, L), dtype=np.uint8)
-        out[:n, :L0] = raw
-        lens = np.zeros(n_pack, dtype=np.int32)
-        lens[:n] = L0
-        return out, None, lens, self._limits(lens)
+        raw, lens = _raw_rows(part, L, n_pack)
+        return raw, None, lens, self._limits(lens)
 
     def _prepare_chunk(self, reads):
-        """Host-side packing (numpy) of up to B reads into parts of the
-        bucket's global batch: raw bytes for a part of one read length,
-        else host codes.  Under a mesh `reads` is the GLOBAL chunk, so
-        every rank agrees on the bucket, and each rank packs only its own
-        rows of each part (pad rows where they hold no read: the rank
+        """Host-side packing (numpy, _pack) of up to B reads into parts of
+        the bucket's global batch.  Under a mesh `reads` is the GLOBAL
+        chunk, so every rank agrees on the bucket, and each rank packs only
+        its own rows of each part (pad rows where they hold no read: the rank
         still runs the step, whose collectives its peers wait on)."""
         n_real = len(reads)
         assert n_real <= self.B
@@ -463,12 +490,7 @@ class TorchMapper:
         prepped = []
         for s in range(0, max(n_real, 1), Bg):
             part = reads[s + lo:s + hi]
-            raw = _joined(part)
-            if raw is not None and self.mesh is None:
-                prepped.append((part,) + self._pack_raw(raw, L, cfg.B))
-            else:
-                prepped.append((part,) + self._pack_codes(part, raw, L,
-                                                          cfg.B))
+            prepped.append((part,) + self._pack(part, L, cfg.B))
         return L, prepped
 
     # ------------------------------------------------------- device steps
@@ -495,14 +517,13 @@ class TorchMapper:
     def _run_step(self, cfg: MapperConfig, codes, codes_rc, lens, limits,
                   chunk=None):
         """The step of one packed part; `codes_rc` None marks raw bytes
-        (_pack_raw), whose read length is known here on the host.  Runs
+        (_pack_raw), encoded on the device at each row's length.  Runs
         map_step on the mapper's index: under a sharded mesh every rank
         of the model group must make the same calls."""
         if codes_rc is None:
             draw, dl, dlim = self._h2d(codes, lens, limits, chunk=chunk)
             with Span("mapper.step", chunk):
-                return raw_map_step(cfg, self.idx, draw, dl, dlim,
-                                    int(lens.max()))
+                return raw_map_step(cfg, self.idx, draw, dl, dlim)
         dc, drc, dl, dlim = self._h2d(codes, codes_rc, lens, limits,
                                       chunk=chunk)
         with Span("mapper.step", chunk):
@@ -554,10 +575,7 @@ class TorchMapper:
         cfg = self._step_for(L)
         parts = []
         for part, codes, codes_rc, lens, limits in prepped:
-            if codes_rc is None:
-                self.raw_chunks += 1
-            else:
-                self.host_chunks += 1
+            self._count(codes_rc)
             start, valid = self._event(), None
             if self.mesh is None:
                 out = self._run_step(cfg, codes, codes_rc, lens, limits,
@@ -607,11 +625,20 @@ class TorchMapper:
         self._stage_seq += 1
         return parts
 
+    def _count(self, codes_rc) -> None:
+        """Count a packed step in raw_chunks (`codes_rc` None: raw bytes)
+        or host_chunks."""
+        if codes_rc is None:
+            self.raw_chunks += 1
+        else:
+            self.host_chunks += 1
+
     def _issue_step(self, cfg: MapperConfig, part, chunk=None) -> _Step:
         """Run `cfg`'s step on the reads of `part` and queue its copies:
         its _Step.  Nothing waits here."""
-        with Span("mapper.retry.pack", chunk):
-            packed = self._pack_reads(part, cfg.L, cfg.B)
+        with Span("mapper.retry.pack", chunk, self.phase_s, "retry_pack"):
+            packed = self._pack(part, cfg.L, cfg.B)
+        self._count(packed[1])
         start = self._event()
         o = self._run_step(cfg, *packed, chunk=chunk)
         return self._start_d2h(cfg, o, start, self._event(), chunk)

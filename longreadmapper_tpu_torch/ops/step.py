@@ -2,7 +2,8 @@
 of longreadmapper_tpu/mapping/pipeline.py::make_map_step that XLA fuses
 into the jitted step; none is a pallas_call):
 
-  encode_raw(raw, L0)            -> (codes, codes_rc): raw_step's encode
+  encode_raw(raw, lens)          -> (codes, codes_rc): raw_step's encode,
+                                    each row at its own read length
   locate_window(cfg, idx, loc, lens, codes, codes_rc)
                                  -> (found, gi, strand, off, loc_fwd,
                                      safe_loc, q, t): the contig of each
@@ -55,11 +56,12 @@ _STAGE_ALL, _STAGE_LOCATE, _STAGE_WINDOW = 0, 1, 2
 
 # ------------------------------------------------------ the plain versions
 
-def encode_raw_plain(raw, L0: int):
-    """(codes, codes_rc) of a (B, L) uint8 ASCII chunk whose reads are all
-    L0 long (pad bytes 0): a/c/g/t of either case -> 0-3, every other byte
-    -> 4, as the host encode's table; the reverse complement front-aligned
-    with pad 4.  L0 comes from the host, so the roll costs no sync."""
+def encode_raw_plain(raw, lens):
+    """(codes, codes_rc) of a (B, L) uint8 ASCII chunk whose row i holds a
+    read lens[i] long ((B,) int32 on raw's device, clamped to [0, L]; pad
+    bytes 0): a/c/g/t of either case -> 0-3, every other byte -> 4, as the
+    host encode's table; the reverse complement front-aligned with pad 4.
+    Each row is rolled by its own length through one gather, no sync."""
     if raw.device.type == "cuda":
         encode_raw_plain.cuda_calls += 1
     u = raw | 32                                   # fold ASCII case
@@ -67,10 +69,13 @@ def encode_raw_plain(raw, L0: int):
     for c, ch in enumerate(b"acgt"):
         codes = torch.where(u == ch, c, codes)
     comp = torch.where(codes < 4, 3 - codes, codes)
-    # the flipped row holds the read at [L - L0, L); rolling it left by
-    # L - L0 front-aligns it and wraps the leading pad 4s to the tail
-    codes_rc = torch.roll(comp.flip(1), L0 - raw.shape[1], dims=1)
-    return codes, codes_rc
+    # codes_rc[i, j] = comp[i, (L0 - 1 - j) mod L]: the flipped row rolled
+    # left by L - L0, the read front-aligned and the pads wrapped to the
+    # tail
+    L = raw.shape[1]
+    L0 = lens.to(torch.int64).clamp(0, L)[:, None]
+    src = (L0 - 1 - torch.arange(L, device=raw.device)) % max(L, 1)
+    return codes, comp.gather(1, src)
 
 
 encode_raw_plain.cuda_calls = 0
@@ -272,8 +277,9 @@ pack_plain.cuda_calls = 0
 
 class EncodeArgs(ctypes.Structure):
     """csrc/step.cu::EncodeArgs: every field 8 bytes."""
-    _fields_ = [(k, ctypes.c_void_p) for k in ("raw", "codes", "codes_rc")
-                ] + [(k, ctypes.c_int64) for k in ("B", "L", "L0")]
+    _fields_ = [(k, ctypes.c_void_p) for k in ("raw", "codes", "codes_rc",
+                                               "lens")
+                ] + [(k, ctypes.c_int64) for k in ("B", "L")]
 
 
 class LocateArgs(ctypes.Structure):
@@ -339,26 +345,27 @@ def _on(dev):
     return torch.cuda.device(dev)
 
 
-def encode_raw(raw, L0: int):
+def encode_raw(raw, lens):
     """(codes, codes_rc), each (B, L) int8, of a (B, L) uint8 ASCII chunk
-    of reads L0 long: one launch of encode_kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    whose row i holds a read lens[i] long ((B,) int32 on raw's device):
+    one launch of encode_kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
     dev = raw.device
     if dev.type == "cpu":
-        return encode_raw_plain(raw, L0)
+        return encode_raw_plain(raw, lens)
     with _on(dev):
-        return _encode_run(_lib(), _stream(dev), raw, L0)
+        return _encode_run(_lib(), _stream(dev), raw, lens)
 
 
-def _encode_run(lib, stream, raw, L0: int):
+def _encode_run(lib, stream, raw, lens):
     """encode_raw through `lib`'s lrm_encode on `stream`: codes and
     codes_rc are the two halves of one allocation (new_empty)."""
     if raw.dtype != torch.uint8 or raw.dim() != 2:
         raise TypeError(f"raw must be (B, L) uint8, got {raw.dtype} "
                         f"{tuple(raw.shape)}")
     B, L = raw.shape
-    if not 0 <= L0 <= L:
-        raise ValueError(f"encode_raw: L0 {L0} outside [0, {L}]")
+    _need("lens", lens, _I32, (B,))
+    _check("encode_raw", raw.device, dict(lens=lens))
     raw = raw.contiguous()
     # new_empty and two as_strided views take less host time than
     # torch.empty and unbind (scripts/torch_glue_host.py)
@@ -367,7 +374,8 @@ def _encode_run(lib, stream, raw, L0: int):
     codes_rc = buf.as_strided((B, L), (L, 1), B * L)
     _call(lib, "lrm_encode", EncodeArgs(
         raw=raw.data_ptr(), codes=codes.data_ptr(),
-        codes_rc=codes_rc.data_ptr(), B=B, L=L, L0=L0), stream)
+        codes_rc=codes_rc.data_ptr(), lens=lens.data_ptr(), B=B, L=L),
+        stream)
     encode_raw.launches += 1
     return codes, codes_rc
 

@@ -67,7 +67,7 @@ def run_mapping(genome_path: str, reads_path: str,
     for cfg in mapper.bucket_configs():
         log.vlog("bucket %s", json.dumps(cfg))
     log.vlog("phase_s %s", json.dumps(mapper.phase_s))
-    log.vlog("chunks: %d raw-encoded on the device, %d host-encoded",
+    log.vlog("packed steps: %d raw-encoded on the device, %d host-encoded",
              mapper.raw_chunks, mapper.host_chunks)
     log.vlog("retried reads %d, overflow reads %d, wide vote reads %d "
              "(steps %d, unresolved %d), retried_sat_chunks %d, "

@@ -44,9 +44,8 @@ def _step(cfg, idx, codes, codes_rc, lens, limits, dev):
     """The step of one packed part (TorchMapper._prepare_chunk), its
     inputs uploaded once: a function of `mark`."""
     up = [torch.from_numpy(a).to(dev) for a in (codes, lens, limits)]
-    if codes_rc is None:                          # raw bytes, one length
-        L0 = int(lens.max())
-        return lambda mark=None: raw_map_step(cfg, idx, *up, L0, mark=mark)
+    if codes_rc is None:                          # raw bytes
+        return lambda mark=None: raw_map_step(cfg, idx, *up, mark=mark)
     drc = torch.from_numpy(codes_rc).to(dev)
     return lambda mark=None: map_step(cfg, idx, up[0], drc, up[1], up[2],
                                       mark=mark)

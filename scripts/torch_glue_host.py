@@ -105,6 +105,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     B, L, L0, R = 2048, 1024, 1000, 216
     raw = torch.from_numpy(G.raw_case(rng, B, L, L0)).to(dev)
+    rlens = torch.full((B,), L0, dtype=torch.int32, device=dev)
     v = G.to_torch(G.pack_case(rng, B, R, 2, False), dev)
     cfg = G.cfg(B, L, 1000)
     pargs = (cfg, v["best"], v["found"], v["gi"], v["strand"], v["off"],
@@ -119,7 +120,7 @@ def main(argv=None) -> int:
                          event_us=event_us(fn, min(n, 200)))
         print(f"[glue host] {name}: {json.dumps(out[name])}", flush=True)
 
-    whole("encode_raw", lambda: S.encode_raw(raw, L0))
+    whole("encode_raw", lambda: S.encode_raw(raw, rlens))
     whole("pack", lambda: S.pack(*pargs))
 
     # locate_window on a 4 Mb text of one contig
@@ -137,7 +138,7 @@ def main(argv=None) -> int:
     loc = torch.from_numpy(rng.integers(0, ntext - 2 * L, B).astype(
         np.int32)).to(dev)
     qlen = torch.full((B,), L0, dtype=torch.int32, device=dev)
-    codes, codes_rc = S.encode_raw(raw, L0)
+    codes, codes_rc = S.encode_raw(raw, rlens)
     largs = (lcfg, idx, loc, qlen, codes, codes_rc)
     whole("locate_window", lambda: S.locate_window(*largs))
 

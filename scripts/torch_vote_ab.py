@@ -101,7 +101,7 @@ for name, (reads, _) in sets.items():
     _, raw, _, lens, limits = prepped[0]
     raw, lens, limit = (torch.from_numpy(a).cuda() for a in (raw, lens,
                                                              limits))
-    codes, codes_rc = S.encode_raw(raw, int(lens.max()))
+    codes, codes_rc = S.encode_raw(raw, lens)
     tabs = seed_tables(cfg, mapper.idx, codes, lens)
     best, ovf, _ = vote_rows(cfg, mapper.idx, lens, tabs, wide_rank(tabs[3]))
     found, gi, strand, off, _, _, q, t = S.locate_window(

@@ -421,13 +421,14 @@ def sweep_glue(seed: int, libs: dict, rounds: int) -> dict:
             ("10kb", (200, 10240, 10000), (1036, 4, False)),
             ("50kb", (40, 50176, 50000), (10456, 2, True))):
         raw = torch.from_numpy(G.raw_case(rng, B, L, L0)).cuda()
+        rlens = torch.full((B,), L0, dtype=torch.int32, device="cuda")
         v = G.to_torch(G.pack_case(rng, B, R, eb, gact), "cuda")
         cfg = G.cfg(B, L, 1000, pos64=gact, use_gact=gact, entry_bytes=eb)
         head = (cfg, v["best"], v["found"], v["gi"], v["strand"], v["off"])
         ln = S.Lanes(v["ed_raw"], v["band_short"], v["overflow"])
-        calls = {"encode": lambda: S.encode_raw(raw, L0),
+        calls = {"encode": lambda: S.encode_raw(raw, rlens),
                  "pack": lambda: S.pack(*head, ln, v["limit"], v["runs"])}
-        want = (S.encode_raw_plain(raw, L0), S.pack_plain(
+        want = (S.encode_raw_plain(raw, rlens), S.pack_plain(
             *head, v["ed_raw"], v["limit"], v["band_short"], v["overflow"],
             v["runs"], None))
         for tag in libs:                        # warm-up and bit-equality

@@ -114,6 +114,22 @@ def raw_case(rng, B: int, L: int, L0: int):
     return raw
 
 
+# a ragged part's read lengths: 0, 1, 15-17 (one 16-base window and either
+# side of it), 2063-2065 (15-17 past a CTA's 2048-base chunk), and the
+# bucket's L
+RAGGED_LENS = (0, 1, 15, 16, 17, 2063, 2064, 2065)
+
+
+def ragged_case(rng, L: int):
+    """(name, seq, qual) reads of RAGGED_LENS and L bases, upper and lower
+    case bases, N and n among them, in a shuffled order."""
+    alphabet = np.array(list("ACGTacgtNn"))
+    lens = list(RAGGED_LENS) + [L]
+    rng.shuffle(lens)
+    return [(f"r{i}", "".join(alphabet[rng.integers(0, alphabet.size, n)]),
+             None) for i, n in enumerate(lens)]
+
+
 def lanes_case(rng, B: int, L: int):
     """(wcol (L+1, B) int16, lens, limit, found, overflow) with eds on both
     sides of the limits and of Wp 64, lens 0 and L among them."""

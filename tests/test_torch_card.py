@@ -35,7 +35,7 @@ from longreadmapper_tpu_torch.index.fmi import FMIndex
 from longreadmapper_tpu_torch.index.lchash import lc_build_device
 from longreadmapper_tpu_torch.index.sa import sa_build_device, suffix_array
 from longreadmapper_tpu_torch.mapping.pipeline import raw_map_step
-from longreadmapper_tpu_torch.models.mapper import TorchMapper, _joined
+from longreadmapper_tpu_torch.models.mapper import TorchMapper
 from longreadmapper_tpu_torch.ops.affine import affine_align, \
     banded_sw_affine
 from longreadmapper_tpu_torch.runtime.accidx import build_index
@@ -140,15 +140,17 @@ def test_raw_step_card_matches_cpu(tmp_path):
         idx, meta, mta = load_device_index(fa, dev, verbose=False)
         tm = TorchMapper(idx, meta, mta, params, chunk_b=32, device=dev)
         cfg = tm._step_for(512)
-        raw, _, lens, limits = tm._pack_raw(_joined(reads), 512, 32)
+        raw, _, lens, limits = tm._pack_raw(reads, 512, 32)
         step = raw_map_step(cfg, idx, *(torch.from_numpy(a).to(dev)
-                                         for a in (raw, lens, limits)), 500)
+                                         for a in (raw, lens, limits)))
         outs[dev] = ({k: v.cpu() for k, v in step.items()},
                      [r.to_sam() for r in tm.map_chunk(reads)], tm)
     for k in ("blob", "ops_tail"):
         assert torch.equal(outs["cuda"][0][k], outs["cpu"][0][k]), k
     assert outs["cuda"][1] == outs["cpu"][1]
-    assert outs["cuda"][2].raw_chunks == 1
+    tm = outs["cuda"][2]
+    assert (tm.raw_chunks, tm.host_chunks) == (
+        1 + tm.retry_steps + tm.retried_sat_chunks, 0)
     _check_records("".join(outs["cuda"][1]), genome, 30, 27)
 
 

@@ -278,8 +278,8 @@ def test_run_mapping_logs_phase_times_and_retries(cli_dirs):
     phase_s = json.loads(phase[0])
     assert sorted(phase_s) == ["assemble", "cigar", "dispatch", "fetch",
                                "first_pass_device", "prepare", "retry",
-                               "retry_device", "retry_wait", "wide_vote",
-                               "wide_vote_device"]
+                               "retry_device", "retry_pack", "retry_wait",
+                               "wide_vote", "wide_vote_device"]
     assert all(v >= 0 for v in phase_s.values())
     assert sum("retried reads 0, overflow reads" in l for l in lines) == 1
 
@@ -291,9 +291,10 @@ def test_stage_times_cover_every_stage(cli_dirs):
                                         background=False)))
     st = stage_times(cli_dirs["torch"], reads, chunk_b=8, device="cpu")
     assert st["timed_chunks"] == 1 and (st["B"], st["L"]) == (8, 256)
-    assert list(st["stage_ms"]) == ["seed_tables", "narrow", "vote_rows",
-                                    "accept", "locate_window", "band_dp",
-                                    "walk", "pack"]
+    # every part ships raw, ragged or not: the device encode comes first
+    assert list(st["stage_ms"]) == ["encode", "seed_tables", "narrow",
+                                    "vote_rows", "accept", "locate_window",
+                                    "band_dp", "walk", "pack"]
     assert st["seed_vote_ms"] == sum(st["stage_ms"][k] for k in (
         "seed_tables", "narrow", "vote_rows", "accept"))
     assert all(v >= 0 for v in st["stage_ms"].values()) and st["step_ms"] > 0
@@ -372,11 +373,12 @@ def test_outside_slice_raises(pipe, tmp_path, monkeypatch):
 
 
 def test_warmup_runs_every_step_variant(pipe, monkeypatch):
-    """warmup([256]) runs bucket 256's host-encoded, raw and exact-slots
-    retry variants once each (tests/test_cli.py's JAX counterpart checks
-    that they were compiled) and one wide vote class step at the tier's
-    widest class, moves no counter, and a later map gives the SAM of a
-    mapper that never warmed up."""
+    """warmup([256]) runs bucket 256's first pass and exact-slots retry
+    variants once each, raw as every step on a single device ships
+    (tests/test_cli.py's JAX counterpart checks that they were compiled),
+    and one wide vote class step at the tier's widest class, moves no
+    counter, and a later map gives the SAM of a mapper that never warmed
+    up."""
     from longreadmapper_tpu_torch.models import mapper as tmapper
     seen = []
     host_step, raw_step = tmapper.map_step, tmapper.raw_map_step
@@ -399,8 +401,7 @@ def test_warmup_runs_every_step_variant(pipe, monkeypatch):
     wide = tm._wide_step_for(256, retry.vote_slots_max, 1)
     assert retry.exact_slots and not cfg.exact_slots
     assert wide.vote_slots == retry.vote_slots_max > retry.vote_slots
-    assert seen == [("host", cfg), ("raw", cfg), ("host", retry),
-                    ("host", wide)]
+    assert seen == [("raw", cfg), ("raw", retry), ("raw", wide)]
     assert list(tm._cfgs) == list(tm._retry_cfgs) == [256]
     assert (tm.raw_chunks, tm.host_chunks, tm.retried_reads,
             tm.overflow_reads, tm.retried_sat_chunks, tm.wide_vote_reads,

@@ -5,10 +5,11 @@ boundaries between contigs and between a contig's halves, unfound reads,
 int32 positions that wrap near 2^31 - 1, and an int64 table with starts
 above 2^32 (JAX in x64 mode in a process of its own); the target window
 against the .cat codes at all 16 sub-word offsets; the raw encode against
-JAX raw_step's ops on rows with garbage past the read; the walk's inputs
-and the pack against numpy (the pack: a stable partition with the pads
-last, in int16 and int32 entries, the pos64 meta words, heads of whole
-entries and heads larger than the row).  The card holds each kernel to
+JAX raw_step's ops on rows with garbage past the read, and on a ragged
+part, each row at its own length, against the mapper's host encode; the
+walk's inputs and the pack against numpy (the pack: a stable partition
+with the pads last, in int16 and int32 entries, the pos64 meta words,
+heads of whole entries and heads larger than the row).  The card holds each kernel to
 these plain versions (tests/test_torch_glue_card.py, chip_smoke.py phase
 3c)."""
 
@@ -25,6 +26,7 @@ import jax.numpy as jnp
 
 import _glue_inputs as G
 from longreadmapper_tpu.mapping import pipeline as jpipe
+from longreadmapper_tpu_torch.models import mapper as tmapper
 from longreadmapper_tpu_torch.ops import step as tstep
 
 torch.set_num_threads(1)
@@ -141,12 +143,28 @@ def _jax_raw_encode(raw, lens, L):
     # L % 16 != 0: the kernel's per-byte edge
     (3, 50, 23), (2, 37, 37),
     # L0 15, 16 and 17 past the kernel's 2048-base chunk boundary
-    (2, 4096, 2063), (2, 4096, 2064), (2, 4096, 2065)])
+    (2, 4096, 2063), (2, 4096, 2064), (2, 4096, 2065),
+    # a ragged part, each row at its own length (L0 None): lengths 0, 1,
+    # 15-17, 2063-2065 and L, L % 16 != 0, lowercase and N
+    pytest.param(None, 4099, None, id="ragged")])
 def test_encode_raw_matches_jax_raw_step(B, L, L0):
-    raw = G.raw_case(np.random.default_rng(L0), B, L, L0)
-    lens = np.full(B, L0, np.int32)
-    want = _jax_raw_encode(jnp.asarray(raw), jnp.asarray(lens), L)
-    got = tstep.encode_raw(torch.from_numpy(raw), L0)
+    """Rows of one length L0 (garbage past it) against JAX raw_step's
+    encode, which takes one length; a ragged part's rows, as the mapper
+    packs them (_raw_rows), against its host encode (_host_codes), row
+    for row and byte for byte."""
+    if L0 is None:
+        part = G.ragged_case(np.random.default_rng(L), L)
+        raw, lens = tmapper._raw_rows(part, L, len(part) + 2)
+        codes, codes_rc, host_lens = tmapper._host_codes(part, L,
+                                                         len(part) + 2)
+        np.testing.assert_array_equal(lens, host_lens)
+        assert sorted(lens[:len(part)]) == sorted(G.RAGGED_LENS + (L,))
+        want = (codes, codes_rc)
+    else:
+        raw = G.raw_case(np.random.default_rng(L0), B, L, L0)
+        lens = np.full(B, L0, np.int32)
+        want = _jax_raw_encode(jnp.asarray(raw), jnp.asarray(lens), L)
+    got = tstep.encode_raw(torch.from_numpy(raw), torch.from_numpy(lens))
     for w, g in zip(want, got):
         assert g.dtype == torch.int8
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))

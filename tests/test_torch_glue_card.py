@@ -4,7 +4,8 @@ plain versions (ops/step.py), bit for bit, on the CPU tests' inputs
 down both of its paths (16 bases a thread where L % 16 == 0 and every
 pointer is 16-aligned; a byte at a time where L % 16 != 0 or raw starts
 off a 16-byte boundary), with L0 0, L0 = L and L0 either side of a CTA's
-2048-base chunk; locate_window_kernel on the edge tables (zero-length
+2048-base chunk, and a ragged part, each row at its own length, against
+the host encode too; locate_window_kernel on the edge tables (zero-length
 contigs, boundaries, reads of length 0, int32 wrap near 2^31 - 1, an
 int64 table above 2^32), at every sub-word offset, and over a text that
 stands for a row-sharded one (two launches, the words gathered between
@@ -39,6 +40,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _glue_inputs as G  # noqa: E402
 from longreadmapper_tpu_torch.index.device import load_device_index  # noqa
 from longreadmapper_tpu_torch.mapping import pipeline as tpipe  # noqa
+from longreadmapper_tpu_torch.models import mapper as tmapper  # noqa
 from longreadmapper_tpu_torch.models.mapper import TorchMapper  # noqa
 from longreadmapper_tpu_torch.ops import step as tstep  # noqa: E402
 from longreadmapper_tpu_torch.runtime.accidx import build_index  # noqa
@@ -125,8 +127,28 @@ def test_encode_kernel_matches_plain_on_card(B, L, L0, garbage):
     _card()
     raw = torch.from_numpy(G.raw_case(np.random.default_rng(L0), B, L,
                                       L0)).cuda()
-    got = _run(tstep.encode_raw, (raw, L0), garbage)
-    _equal(got, tstep.encode_raw_plain(raw, L0))
+    lens = torch.full((B,), L0, dtype=torch.int32, device="cuda")
+    got = _run(tstep.encode_raw, (raw, lens), garbage)
+    _equal(got, tstep.encode_raw_plain(raw, lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("garbage", [False, True])
+@pytest.mark.parametrize("L", [4096, 4099])
+def test_encode_kernel_ragged_matches_host_on_card(L, garbage):
+    """A ragged part as the mapper packs it (_raw_rows: lengths 0, 1,
+    15-17, 2063-2065 and L, two pad rows, lowercase and N), each row at
+    its own length, down both paths (L 4096: 16 bases a thread; 4099: a
+    byte a time): equal to the plain version and to the host encode
+    (_host_codes), row for row."""
+    _card()
+    part = G.ragged_case(np.random.default_rng(L), L)
+    raw, lens = tmapper._raw_rows(part, L, len(part) + 2)
+    raw, lens = torch.from_numpy(raw).cuda(), torch.from_numpy(lens).cuda()
+    got = _run(tstep.encode_raw, (raw, lens), garbage)
+    _equal(got, tstep.encode_raw_plain(raw, lens))
+    _equal(got, [torch.from_numpy(a).cuda() for a in
+                 tmapper._host_codes(part, L, len(part) + 2)[:2]])
 
 
 @pytest.mark.cuda
@@ -141,8 +163,9 @@ def test_encode_kernel_unaligned_raw_on_card(offset):
     big = torch.zeros(B * L + offset, dtype=torch.uint8, device="cuda")
     big[offset:] = raw.reshape(-1)
     raw = big[offset:].view(B, L)
-    got = _run(tstep.encode_raw, (raw, L0), True)
-    _equal(got, tstep.encode_raw_plain(raw, L0))
+    lens = torch.full((B,), L0, dtype=torch.int32, device="cuda")
+    got = _run(tstep.encode_raw, (raw, lens), True)
+    _equal(got, tstep.encode_raw_plain(raw, lens))
 
 
 def _locate_args(name, rng, B=None, L=32, sharded=False):
@@ -364,12 +387,12 @@ def test_raw_step_launches_the_glue_kernels_on_card(tmp_path):
         cfg = tm._step_for(L)
         args = [torch.from_numpy(a).to(dev) for a in (raw, lens, limits)]
         if dev == "cuda":
-            tpipe.raw_map_step(cfg, idx, *args, 200)    # builds, warms up
+            tpipe.raw_map_step(cfg, idx, *args)    # builds, warms up
             for f in WRAPPERS:
                 f.launches = 0
             for f in PLAINS:
                 f.cuda_calls = 0
-        out[dev] = tpipe.raw_map_step(cfg, idx, *args, 200)
+        out[dev] = tpipe.raw_map_step(cfg, idx, *args)
     torch.cuda.synchronize()
     for k in ("blob", "ops_tail"):
         assert torch.equal(out["cuda"][k].cpu(), out["cpu"][k]), k

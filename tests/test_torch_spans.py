@@ -160,8 +160,29 @@ def test_retry_time_is_in_retry_not_in_fetch(rep, monkeypatch):
     assert steps and ph["retry"] >= delay * len(steps)
     assert ph["fetch"] < delay
     assert ph["retry"] >= ph["retry_wait"] > 0
+    # the retry steps' packing (mapper.retry.pack) is another part of it
+    assert ph["retry"] >= ph["retry_wait"] + ph["retry_pack"]
+    assert ph["retry_pack"] > 0
     # no device: the CUDA events' keys stay 0
     assert ph["first_pass_device"] == ph["retry_device"] == 0.0
+
+
+def test_pack_ms_per_chunk_reads_prepare_and_retry_pack(rep):
+    """benchmark/metrics/mapper.pack_ms_per_chunk.py over the stream's
+    own counters: the first passes' and the retry steps' packing a chunk,
+    and nothing where the program keeps no retry_pack key."""
+    from benchmark.run import reader, snapshot
+    tm, _ = _map(rep)
+    counters = snapshot(tm)
+    run = dict(counters=counters, chunks=[{}] * len(rep["chunks"]))
+    read = reader("mapper.pack_ms_per_chunk")
+    ph = tm.phase_s
+    assert read(run) == pytest.approx(
+        (ph["prepare"] + ph["retry_pack"]) / len(rep["chunks"]) * 1e3)
+    assert read(run) > 0
+    del counters["phase.retry_pack"]
+    assert read(run) is None
+    assert read(dict(run, chunks=[])) is None
 
 
 class _Clock:
