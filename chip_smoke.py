@@ -31,8 +31,9 @@ Phases (each raises on failure; nothing is caught):
                kernel at ops/band_dp.BANDS), band_dp_wide (resident, one
                tile,
                and every tile of each gact pass of the main path: 50 kb
-               at band 5120 and 10112, the 10 kb retry at band 2176,
-               entered from the plain forward pass's checkpoints),
+               at band 5120 and 10112, 100 kb at band 10112 and 20096
+               (32 columns a thread past 16384), the 10 kb retry at band
+               2176, entered from the plain forward pass's checkpoints),
                band_scores (the checkpoints of those passes at one CTA a
                read and at the card's cluster size, and of an 8192-row
                pass, held to the plain forward pass, and the full
@@ -45,7 +46,8 @@ Phases (each raises on failure; nothing is caught):
                words at the 1 kb main shape and on band_dp_wide's at the
                10 kb resident shape (int32 entries), and on random words;
                gact_walk over every tile group of the 50 kb pass at band
-               5120 and of the 10 kb retry at band 2176, and on a weave
+               5120, of the 10 kb retry at band 2176 and of the 100 kb
+               retry at band 20096 (int32 entries), and on a weave
                that saturates its buffer at scale 1; CUDA-event medians
                of kernel and plain walk, the longest lane's iterations and
                the kernel's ns an iteration (walk_c: also the kernel alone
@@ -211,7 +213,9 @@ TILE_B, TILE_L, TILE_T, TILE_K = 40, 8192, 512, 8   # entry row ckpt[8]
 TILE_BANDS = ((2508, 5120), (5017, 10112))     # 50 kb first pass, retry
 PASS_SHAPES = ((40, 50176, 2508, 5120),        # a 50 kb gact pass: 98 tiles
                (40, 50176, 5017, 10112),       # its full-band retry
-               (200, 10240, 1024, 2176))       # the 10 kb retry: 20 tiles
+               (200, 10240, 1024, 2176),       # the 10 kb retry: 20 tiles
+               (16, 100352, 5017, 10112),      # a 100 kb pass: 196 tiles
+               (16, 100352, 10035, 20096))     # its retry: int32 entries
 DIRS_BUDGET = 1 << 30                          # MapperConfig.mid_dirs_budget
 TURNS = 5                                      # rounds of the timing turns
 # the bound: HBM at 3.35 TB/s; int32 at 132 SMs x 64 lanes x 1.98 GHz =
@@ -224,7 +228,9 @@ INT_OPS_CELL = 12
 SCORES_1KB = (128, 1024, 102, 256)             # wavefront_pallas.py:6-8
 # the walks: the column walk at the 1 kb main shape (int16 entries) and at
 # the 10 kb resident shape (int32), the gact walk over every group of the
-# 50 kb pass at band 5120 and of the 10 kb retry at 2176 (PASS_SHAPES), on
+# 50 kb pass at band 5120, of the 10 kb retry at 2176 and of the 100 kb
+# retry at 20096 (int32 entries where max(T, band - W) passes 8191;
+# PASS_SHAPES), on
 # reads with make_long_reads' indel share; a weave whose run buffer
 # saturates at scale 1 (B, L, T, W, band, C: C bases inserted at every
 # even tile start, C deleted at every odd one); walk_c on random words
@@ -697,11 +703,13 @@ def walk_bound(lane_iters: int, runs):
 
 
 def gact_walk_ms(fn, q, t, ckpt, lens, T, W, band, scale, group,
-                 iters=None):
+                 iters=None, entry_dtype=None):
     """(runs, saturated, ms): one call of gact_traceback_c or its plain
     version with a CUDA event at each mark; ms sums each group's span from
     its rematerialized words ("dirs") to the end of its walk ("walk").
-    `iters` as gact_traceback_c's (each lane's iterations a tile)."""
+    `iters` as gact_traceback_c's (each lane's iterations a tile); the run
+    entries int16, or int32 where max(T, band - W) passes 8191, as the
+    step takes them."""
     import torch
     evs = []
 
@@ -710,8 +718,11 @@ def gact_walk_ms(fn, q, t, ckpt, lens, T, W, band, scale, group,
         e.record()
         evs.append(e)
 
+    if entry_dtype is None:
+        entry_dtype = (torch.int16 if max(T, band - W) < 8192
+                       else torch.int32)
     runs, sat = fn(q, t, ckpt, lens, T, W, band, scale, group, mark,
-                   iters=iters)
+                   iters=iters, entry_dtype=entry_dtype)
     torch.cuda.synchronize()
     return runs, sat, sum(a.elapsed_time(b)
                           for a, b in zip(evs[::2], evs[1::2]))
@@ -834,7 +845,8 @@ def phase_walks(rng, res: dict) -> None:
     q, t = weave_inputs(B, L, T2, C, rng)
     cases = [(PASS_SHAPES[0], T, 1, True, None), (PASS_SHAPES[2], T, 1,
                                                    False, None),
-             ((B, L, W, band), T2, 1, False, (q, t))]
+             ((B, L, W, band), T2, 1, False, (q, t)),
+             (PASS_SHAPES[4], T, 1, False, None)]
     for (B, L, W, band), T, scale, main, qt in cases:
         q, t = qt or dp_inputs(rng, B, L, WALK_INDEL)
         ckpt, wcol = band_checkpoints(q, t, T, W, band)
@@ -842,14 +854,17 @@ def phase_walks(rng, res: dict) -> None:
         lens = (walk_lens(q, wcol, W) if qt is None else
                 torch.full((B,), L, dtype=torch.int32, device=q.device))
         group = gact_group_tiles(B, L, T, band, DIRS_BUDGET)
+        eb = 2 if max(T, band - W) < 8192 else 4
         where = (f"B={B} L={L} W={W} band={band} T={T} in groups of "
-                 f"{group}, {int((lens > 0).sum())} lanes walked")
+                 f"{group}, int{8 * eb} entries, "
+                 f"{int((lens > 0).sum())} lanes walked")
         n0 = gact_traceback_c.launches
         iters = torch.empty((L // T, B), dtype=torch.int32, device="cuda")
         iters_p = torch.empty_like(iters)
         got, sat, _ = gact_walk_ms(gact_traceback_c, q, t, ckpt, lens, T, W,
                                    band, scale, group, iters)
         assert gact_traceback_c.launches == n0 + -(-(L // T) // group)
+        assert got.element_size() == eb
         want, sat_p, _ = gact_walk_ms(gact_traceback_c_plain, q, t, ckpt,
                                       lens, T, W, band, scale, group,
                                       iters_p)

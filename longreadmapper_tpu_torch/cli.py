@@ -64,7 +64,12 @@ def main(argv=None) -> int:
                     help="skip persisting the device-layout cache")
     ia.add_argument("--quiet", action="store_true")
 
-    ma = sub.add_parser("map", help="map reads, SAM to stdout (accaln)")
+    ma = sub.add_parser(
+        "map", help="map reads, SAM to stdout (accaln)",
+        description="Map reads, SAM to stdout (accaln).  Reads to 100 kb "
+        "(the 100,352 bucket) map with no option: buckets past 2 kb take the "
+        "long-read paths, and the full-band retry of reads past ~80 kb keeps "
+        "int32 run entries.  Longer reads are untested.")
     ma.add_argument("fasta")
     ma.add_argument("reads")
     ma.add_argument("pos", nargs="*", type=int,

@@ -1,6 +1,6 @@
 // Banded unit-cost Needleman-Wunsch direction sweeps for Hopper (sm_90a):
 // the warp-per-read kernel band_dp_kernel (bands 128-512, whole pass) and
-// the CTA-per-read kernel band_dp_wide_kernel (bands up to 16384, a group
+// the CTA-per-read kernel band_dp_wide_kernel (bands up to 32768, a group
 // of tiles entered from checkpoint rows, a whole pass being one tile entered
 // from row 0; below the first).
 //
@@ -217,7 +217,7 @@ extern "C" int lrm_band_dp(const void* q, const void* t, int B, int L,
 }
 
 // ---------------------------------------------------------------------------
-// band_dp_wide_kernel: the same contract for every band up to 16384, and for
+// band_dp_wide_kernel: the same contract for every band up to 32768, and for
 // tiles of rows entered from checkpoint rows, on the CTA-per-read row core of
 // band_row.cuh (bounds, design and traps there).  The warp kernel above keeps
 // a read's whole padded target in shared memory and its band in one warp's
@@ -374,6 +374,12 @@ int dispatch_wide(const void* q, const void* t, const void* h0, int B, int L,
     case 161024:
       return launch_wide<16, 1024>(qp, tp, hp, B, L, W, band, i0, n, tiles,
                                    vp, wp, np, s);
+    case 320640:
+      return launch_wide<32, 640>(qp, tp, hp, B, L, W, band, i0, n, tiles,
+                                  vp, wp, np, s);
+    case 321024:
+      return launch_wide<32, 1024>(qp, tp, hp, B, L, W, band, i0, n, tiles,
+                                   vp, wp, np, s);
     default: return -1;
   }
 }
@@ -382,7 +388,7 @@ int dispatch_wide(const void* q, const void* t, const void* h0, int B, int L,
 
 // C interface for ctypes.  Each returns 0 on success, a cudaError_t code when
 // the launch is refused, or -1 for a shape the kernel does not take (band %
-// 128 == 0 up to 16384; 0 <= W < band; i0, n multiples of 16, 0 < n,
+// 128 == 0 up to 32768; 0 <= W < band; i0, n multiples of 16, 0 < n,
 // i0 + n * tiles <= L; h0 not null).
 //
 // `tiles` consecutive tiles of n rows, tile y entered from h0[y] (tiles, B,

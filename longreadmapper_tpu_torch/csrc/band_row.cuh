@@ -121,14 +121,16 @@ constexpr int kInf = 0x3FFF;
 constexpr int kBig = 0x7FFFFFFF;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kWindowRows = 64;   // rows of q / target staged per window
-constexpr int kMaxBand = 16384;
+constexpr int kMaxBand = 32768;
 
 // Launch shape of a band: K columns per thread and the CTA's thread cap
 // (the kernels' __launch_bounds__).  K = 4 / 8 / 16 at up to 512 threads,
 // then K = 16 at up to 640 threads for bands up to 10240 (a 640-thread
 // bound leaves 102 registers a thread, enough for K = 16 without a spill;
-// the 1024-thread bound's 64 spill) and at up to 1024 above; K = 0 for a
-// band the kernels do not take.
+// the 1024-thread bound's 64 spill) and at up to 1024 to 16384; past it
+// (the full-band retry of reads past ~80 kb) K = 32, at up to 640 threads
+// to 20480 (the 100 kb bucket's 20096) and 1024 above, whose registers
+// spill; K = 0 for a band the kernels do not take.
 struct RowShape {
   int K;
   int max_threads;
@@ -138,7 +140,8 @@ inline RowShape row_shape(int band) {
   if (band <= 0 || band % 128 != 0 || band > kMaxBand) return {0, 0};
   for (int K = 4; K <= 16; K *= 2)
     if (band <= K * 512) return {K, 512};
-  return {16, band <= 10240 ? 640 : 1024};
+  if (band <= 16384) return {16, band <= 10240 ? 640 : 1024};
+  return {32, band <= 20480 ? 640 : 1024};
 }
 
 __host__ __device__ inline int row_threads(int band, int K) {

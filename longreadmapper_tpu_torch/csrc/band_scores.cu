@@ -337,7 +337,7 @@ cudaError_t launch_probe(int clusters, int C, int threads, int rows,
 // row_shape's, the only one it takes; C > 1: cluster_k's, or 4, 8 or 16
 // where cluster_fits).  Returns 0 on success, a cudaError_t code when the
 // launch is refused, or -1 for a shape the kernel does not take (band %
-// 128 == 0 up to 16384, 0 <= W < band, T % 16 == 0 and L % T == 0 when
+// 128 == 0 up to 32768, 0 <= W < band, T % 16 == 0 and L % T == 0 when
 // T > 0).
 extern "C" int lrm_band_scores(const void* q, const void* t, int B, int L,
                                int W, int band, int T, int C, int K, void* H,
@@ -368,6 +368,10 @@ extern "C" int lrm_band_scores(const void* q, const void* t, int B, int L,
         return launch<16, 640>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
       case 161024:
         return launch<16, 1024>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
+      case 320640:
+        return launch<32, 640>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
+      case 321024:
+        return launch<32, 1024>(qp, tp, B, L, W, band, T, hp, cp, wp, s);
       default: return -1;
     }
   }

@@ -102,8 +102,8 @@ struct SetupArgs {
                                  // walk's lengths as given
   int* st;                       // (3B + 3): i, j, done a lane; then the
                                  // write pointer, nsat and the CTA ticket
-  unsigned* buf;                 // (B, n_rows) pairs of int16 entries
-  long long B, n_rows;
+  unsigned* buf;                 // (B, n_rows) pairs of eb-byte entries
+  long long B, n_rows, eb;       // eb: 2 (int16) or 4 (int32) entries
 };
 
 struct PackArgs {
@@ -397,6 +397,10 @@ locate_window_kernel(const LocateArgs a) {
 // stores in a grid-stride loop (buf is 16-aligned).  lrm_gact_setup gives
 // every lane and shared word its own thread: the same items in a
 // grid-stride loop cost the 50 kb setup 0.39 us more alone on an H100.
+// EB is the entry's bytes: a pair of int16 pads is one 32-bit word, a
+// pair of int32 pads two.  A gact step launches this kernel once, so a
+// trace counts the step's entry width by its instantiation.
+template <int EB>
 __global__ void __launch_bounds__(kLanesThreads)
 lanes_kernel(const SetupArgs a) {
   const long long t = blockIdx.x * static_cast<long long>(blockDim.x)
@@ -411,13 +415,15 @@ lanes_kernel(const SetupArgs a) {
   } else if (t < a.B + 3) {
     a.st[2 * a.B + t] = 0;                     // st[3B + t - B]
   }
-  const long long words = a.B * a.n_rows;      // a pair a word
+  // a pair a word (EB 2) or two (EB 4)
+  const long long words = a.B * a.n_rows * (EB / 2);
+  constexpr unsigned kFill = EB == 2 ? kPadPair : 3u;
   const long long vecs = words >> 2;
   uint4* b4 = reinterpret_cast<uint4*>(a.buf);
   for (long long k = t; k < vecs; k += nt) {
-    b4[k] = make_uint4(kPadPair, kPadPair, kPadPair, kPadPair);
+    b4[k] = make_uint4(kFill, kFill, kFill, kFill);
   }
-  for (long long k = 4 * vecs + t; k < words; k += nt) a.buf[k] = kPadPair;
+  for (long long k = 4 * vecs + t; k < words; k += nt) a.buf[k] = kFill;
 }
 
 // -------------------------------------------------------------- the pack
@@ -797,17 +803,24 @@ extern "C" int lrm_locate_window(const LocateArgs* args, void* stream) {
 extern "C" int lrm_gact_setup(const SetupArgs* args, void* stream) {
   const SetupArgs a = *args;
   if (a.B <= 0 || a.B > 0x7FFFFFFFLL || a.n_rows <= 0 || a.lanes.B != a.B
-      || a.lanes.L < 0 || !aligned16(a.buf)) {
+      || a.lanes.L < 0 || !aligned16(a.buf) || (a.eb != 2 && a.eb != 4)) {
     return -1;
   }
   // a thread for each lane and shared word; the fill's blocks capped at
   // 4096 (it strides past them)
   const long long lane_blocks = (a.B + 3 + kLanesThreads - 1) / kLanesThreads;
-  long long blocks = (a.B * a.n_rows / 4 + kLanesThreads - 1) / kLanesThreads;
+  long long blocks = (a.B * a.n_rows * (a.eb / 2) / 4 + kLanesThreads - 1)
+                     / kLanesThreads;
   blocks = blocks < 4096 ? blocks : 4096;
   blocks = blocks > lane_blocks ? blocks : lane_blocks;
-  lanes_kernel<<<static_cast<unsigned>(blocks), kLanesThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.eb == 2) {
+    lanes_kernel<2><<<static_cast<unsigned>(blocks), kLanesThreads, 0, st>>>(
+        a);
+  } else {
+    lanes_kernel<4><<<static_cast<unsigned>(blocks), kLanesThreads, 0, st>>>(
+        a);
+  }
   return cudaGetLastError();
 }
 

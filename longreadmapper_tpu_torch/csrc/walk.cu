@@ -21,7 +21,10 @@
 //   nm    (ceil(G/32), B, band) bit g&31 of word g>>5 set iff vdirs[g] at
 //                               (b, d) holds a non-M pair
 //   runs                        (count << 2) | op entries in reverse path
-//                               order, ops 0=M 1=I 2=D, pad 3
+//                               order, ops 0=M 1=I 2=D, pad 3; int16, or
+//                               int32 where a count can pass 8191 (the
+//                               resident walk's L past 8191, the gact
+//                               walk's band - W past it: reads past ~80 kb)
 //
 // One iteration of a lane, from cell (i, j) at band column d = j - i + W:
 // the current group's word with the pairs above row i masked off; if it
@@ -117,7 +120,6 @@ static_assert(kWalkRing >= 3 * kWalkAhead + 1
               "takes another column");
 constexpr int kCopyItems = 4;         // runs a thread of the last CTA copies
 constexpr int kSmemMax = 227 * 1024;  // shared memory a block, opted in
-constexpr uint32_t kPadPair = (kPad << 16) | kPad;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -137,6 +139,25 @@ template <typename E>
 __device__ __forceinline__ E entry(int count, int op) {
   return static_cast<E>(
       static_cast<uint32_t>((static_cast<uint32_t>(count) << 2) | op));
+}
+
+// The gact walk's staged pair of two entries of type E, e1 | e2 << (8 *
+// sizeof(E)), as one word of twice E's width (U: E's bits unsigned).
+template <typename E> struct PairOf;
+template <> struct PairOf<int16_t> {
+  using T = uint32_t;
+  using U = uint16_t;
+};
+template <> struct PairOf<int32_t> {
+  using T = unsigned long long;
+  using U = uint32_t;
+};
+
+// Two pad entries as a pair of E.
+template <typename E>
+__device__ __forceinline__ typename PairOf<E>::T pad_pair() {
+  using P = typename PairOf<E>::T;
+  return (static_cast<P>(kPad) << (8 * sizeof(E))) | static_cast<P>(kPad);
 }
 
 // ---------------------------------------------------------------------------
@@ -168,11 +189,12 @@ __device__ __forceinline__ void cp_wait() {
 // share no code because a step shared by both made gact_walk_kernel slower
 // (PERF.md).
 
-// The lane's next cell and its two entries (e1 | e2 << 16).
+// The lane's next cell and its two entries as a pair (PairOf<E>::T).
+template <typename P>
 struct Step {
   int i;
   int j;
-  uint32_t pair;
+  P pair;
 };
 
 // One iteration of the column walk at (i, j) in the tile of rows (lo, lo +
@@ -180,9 +202,12 @@ struct Step {
 // col[g], and col[G, G + nbm) its bitmap words; the caller has made them
 // visible to every thread that calls.  A lane that is not in the tile (i <=
 // lo, j > 0 in the last tile) reads nothing: it owes the all-D row.
-__device__ __forceinline__ Step column_step(const uint32_t* col, int G,
-                                            int nbm, int T, int lo,
-                                            bool last, int i, int j) {
+template <typename E>
+__device__ __forceinline__ Step<typename PairOf<E>::T> column_step(
+    const uint32_t* col, int G, int nbm, int T, int lo, bool last, int i,
+    int j) {
+  using P = typename PairOf<E>::T;
+  using U = typename PairOf<E>::U;
   const bool in_tile = i > lo;
   bool any_nm = false;
   int gstar = 0;
@@ -224,15 +249,13 @@ __device__ __forceinline__ Step column_step(const uint32_t* col, int G,
   const int op = static_cast<int>((wsel >> (2 * pstar)) & 3u);
   const bool take_e = any_nm && !(i2 == 0 && j2 == 0);
   const int drun = (!any_nm && i2 == 0) ? (j2 > 0 ? j2 : 0) : 0;
-  const uint32_t e1 =
-      mrun > 0 ? static_cast<uint16_t>(entry<int16_t>(mrun, 0)) : kPad;
-  const uint32_t e2 =
-      take_e     ? static_cast<uint16_t>(entry<int16_t>(1, op))
-      : drun > 0 ? static_cast<uint16_t>(entry<int16_t>(drun, 2))
-                 : kPad;
+  const P e1 = mrun > 0 ? static_cast<U>(entry<E>(mrun, 0)) : kPad;
+  const P e2 = take_e     ? static_cast<U>(entry<E>(1, op))
+               : drun > 0 ? static_cast<U>(entry<E>(drun, 2))
+                          : kPad;
   return {(take_e && op == 1) ? i2 - 1 : i2,
           drun > 0 ? 0 : ((take_e && op == 2) ? j2 - 1 : j2),
-          e1 | (e2 << 16)};
+          e1 | (e2 << (8 * sizeof(E)))};
 }
 
 // Issue column x of a tile (words v[g][b][x], bitmap words nm[w][b][x];
@@ -541,18 +564,24 @@ walk_c_kernel(const uint32_t* __restrict__ vdirs,
 // the lock-step loop left it: the pairs of the group's last block
 // iteration, pads for the lanes that were not alive in it.  st (3B + 3
 // int32: i, j, done a lane, then ptr, nsat and the ticket) carries the
-// walk between the group's launches.
+// walk between the group's launches.  E is the entry type: int16, or int32
+// where a count can pass 8191 (band - W past it: the 100 kb bucket's
+// full-band retry); the int16 instantiation is the kernel as it was
+// before E, its pairs 32-bit words, the int32 one's 64-bit.
 // Time: under a round trip for each of the longest lane's iterations (a
 // column's load overlaps the iteration before it) and a round trip at each
 // tile it enters, plus the last CTA's copy; no lane waits for another, and
 // nothing bounds B.
+template <typename E>
 __global__ void __launch_bounds__(kGactWarps * 32)
 gact_walk_kernel(const uint32_t* __restrict__ vg,
                  const uint32_t* __restrict__ nmg, int32_t* __restrict__ st,
                  int32_t* __restrict__ cnt, int32_t* __restrict__ off,
-                 uint32_t* __restrict__ stage, uint32_t* __restrict__ buf,
-                 int B, int T, int W, int band, int k_lo, int k_hi,
-                 int n_rows, int lanes) {
+                 typename PairOf<E>::T* __restrict__ stage,
+                 typename PairOf<E>::T* __restrict__ buf, int B, int T,
+                 int W, int band, int k_lo, int k_hi, int n_rows,
+                 int lanes) {
+  using P = typename PairOf<E>::T;
   extern __shared__ __align__(16) uint32_t s_ring[];
   __shared__ int s_last;
   __shared__ int s_total;
@@ -566,7 +595,7 @@ gact_walk_kernel(const uint32_t* __restrict__ vg,
   const long long plane = static_cast<long long>(B) * band;
   if (b < B) {
     uint32_t* ring = s_ring + warp * 2 * kRing * CW;
-    uint32_t* srow = stage + static_cast<long long>(b) * n_rows;
+    P* srow = stage + static_cast<long long>(b) * n_rows;
     const long long at = static_cast<long long>(b) * band;
     int i = st[b];
     int j = st[B + b];
@@ -601,8 +630,8 @@ gact_walk_kernel(const uint32_t* __restrict__ vg,
           cp_wait<kAhead>();      // one group an iteration, kAhead ahead
           __syncwarp();
         }
-        const Step s = column_step(rk + (d & (kRing - 1)) * CW, G, nbm, T,
-                                   lo, k == 0, i, j);
+        const Step<P> s = column_step<E>(rk + (d & (kRing - 1)) * CW, G,
+                                         nbm, T, lo, k == 0, i, j);
         if (lane == 0) srow[a < n_rows - 1 ? a : n_rows - 1] = s.pair;
         ++a;
         ++n;
@@ -667,8 +696,8 @@ gact_walk_kernel(const uint32_t* __restrict__ vg,
   // loads are in flight together
   const int clamp_row = n_rows - 1;
   for (int x0 = threadIdx.x; x0 < nt * B; x0 += kCopyItems * blockDim.x) {
-    const uint32_t* src[kCopyItems];
-    uint32_t* dst[kCopyItems];
+    const P* src[kCopyItems];
+    P* dst[kCopyItems];
     int m[kCopyItems];
     int mmax = 0;
 #pragma unroll
@@ -686,7 +715,7 @@ gact_walk_kernel(const uint32_t* __restrict__ vg,
       mmax = max(mmax, m[u]);
     }
     for (int it = 0; it < mmax; ++it) {
-      uint32_t v[kCopyItems];
+      P v[kCopyItems];
 #pragma unroll
       for (int u = 0; u < kCopyItems; ++u) {
         if (it < m[u]) v[u] = __ldcg(src[u] + it);
@@ -711,7 +740,7 @@ gact_walk_kernel(const uint32_t* __restrict__ vg,
       buf[static_cast<long long>(bb) * n_rows + clamp_row] =
           n == s_m[t] ? __ldcg(stage + static_cast<long long>(bb) * n_rows
                                + min(o, clamp_row))
-                      : kPadPair;
+                      : pad_pair<E>();
     }
   }
   if (threadIdx.x == 0) {
@@ -781,6 +810,45 @@ int walk_c(const void* vdirs, const void* nm, const LanesIn& ln, int G,
   return -1;
 }
 
+// lrm_gact_walk's arguments, checked.
+struct GactLaunch {
+  const uint32_t* vg;
+  const uint32_t* nmg;
+  int32_t* st;
+  int32_t* cnt;
+  int32_t* off;
+  void* stage;
+  void* buf;
+  int B, T, W, band, k_lo, k_hi, n_rows;
+  cudaStream_t stream;
+};
+
+template <typename E>
+int launch_gact(const GactLaunch& g) {
+  using P = typename PairOf<E>::T;
+  const int G = g.T / 16;
+  const int lanes = gact_lanes(G);
+  if (lanes <= 0) return -1;
+  const size_t ring = static_cast<size_t>(lanes) * 2 * kRing
+                      * (G + (G + 31) / 32) * sizeof(uint32_t);
+  const size_t tiles = static_cast<size_t>(2) * (g.k_hi - g.k_lo + 1)
+                       * sizeof(int);
+  const size_t smem = ring > tiles ? ring : tiles;
+  if (smem > static_cast<size_t>(kSmemMax)) return -1;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gact_walk_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int grid = (g.B + lanes - 1) / lanes;
+  gact_walk_kernel<E><<<grid, kGactWarps * 32, smem, g.stream>>>(
+      g.vg, g.nmg, g.st, g.cnt, g.off, static_cast<P*>(g.stage),
+      static_cast<P*>(g.buf), g.B, g.T, g.W, g.band, g.k_lo, g.k_hi,
+      g.n_rows, lanes);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface for ctypes.  Each returns 0 on success, a cudaError_t code
@@ -817,12 +885,14 @@ extern "C" int lrm_walk_c_lanes(const WalkCArgs* args, void* stream) {
 // k_lo + 1, T/16, B, band) and nmg (k_hi - k_lo + 1, ceil(T/16/32), B, band)
 // int32, st (3B + 3) int32 carried between the groups' launches (its last
 // word 0 before the first), cnt and off (k_hi + 1, B) int32 (cnt[k][b]:
-// lane b's iterations in tile k), stage and buf (B, n_rows) pairs of int16
-// entries, buf filled with pads by the caller before the first group.
+// lane b's iterations in tile k), stage and buf (B, n_rows) pairs of
+// entry_bytes = 2 (int16) or 4 (int32) entries, buf filled with pads by the
+// caller before the first group.
 extern "C" int lrm_gact_walk(const void* vg, const void* nmg, void* st,
                              void* cnt, void* off, void* stage, void* buf,
                              int B, int T, int W, int band, int k_lo,
-                             int k_hi, int n_rows, void* stream) {
+                             int k_hi, int n_rows, int entry_bytes,
+                             void* stream) {
   if (B <= 0 || T <= 0 || T % 16 != 0 || W < 0 || band <= 0 || k_lo < 0
       || k_hi < k_lo || n_rows <= 0) {
     return -1;
@@ -831,27 +901,12 @@ extern "C" int lrm_gact_walk(const void* vg, const void* nmg, void* st,
       || static_cast<long long>(k_hi + 1) * B > 0x7FFFFFFFLL) {
     return -1;
   }
-  const int G = T / 16;
-  const int lanes = gact_lanes(G);
-  if (lanes <= 0) return -1;
-  const size_t ring = static_cast<size_t>(lanes) * 2 * kRing
-                      * (G + (G + 31) / 32) * sizeof(uint32_t);
-  const size_t tiles = static_cast<size_t>(2) * (k_hi - k_lo + 1)
-                       * sizeof(int);
-  const size_t smem = ring > tiles ? ring : tiles;
-  if (smem > static_cast<size_t>(kSmemMax)) return -1;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gact_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const int grid = (B + lanes - 1) / lanes;
-  gact_walk_kernel<<<grid, kGactWarps * 32, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(vg), static_cast<const uint32_t*>(nmg),
-      static_cast<int32_t*>(st), static_cast<int32_t*>(cnt),
-      static_cast<int32_t*>(off), static_cast<uint32_t*>(stage),
-      static_cast<uint32_t*>(buf), B, T, W, band, k_lo, k_hi, n_rows, lanes);
-  return cudaGetLastError();
+  const GactLaunch g{static_cast<const uint32_t*>(vg),
+                     static_cast<const uint32_t*>(nmg),
+                     static_cast<int32_t*>(st), static_cast<int32_t*>(cnt),
+                     static_cast<int32_t*>(off), stage, buf, B, T, W, band,
+                     k_lo, k_hi, n_rows, static_cast<cudaStream_t>(stream)};
+  if (entry_bytes == 2) return launch_gact<int16_t>(g);
+  if (entry_bytes == 4) return launch_gact<int32_t>(g);
+  return -1;
 }

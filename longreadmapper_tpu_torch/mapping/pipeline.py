@@ -38,7 +38,9 @@ Align has two branches, chosen per length bucket by MapperConfig.use_gact:
   * tiled gact (longer buckets whose volume does not fit): a checkpointed
     forward pass, then the walk rematerializes the tiles' directions from
     their checkpoint rows, newest first, in groups of as many tiles as fit
-    in mid_dirs_budget, one kernel launch a group (ops/gact.py).
+    in mid_dirs_budget, one kernel launch a group (ops/gact.py); int32
+    run entries where a count can pass 8191 (the full-band retry of reads
+    past ~80 kb), where JAX raises.
 Long buckets run a narrow first pass (short_W_override / half_band) and
 flag reads whose ed reaches it (overflow bit 2) for the full-band retry.
 
@@ -217,13 +219,21 @@ class MapperConfig:
     @property
     def tb_entry_bytes(self) -> int:
         """Width of the column walk's run entries: the count field is
-        entry_bits - 2 wide.  Resident counts reach max(L, band - W), so
-        int16 until 8192, then int32; the gact walk's counts are bounded
-        by max(T, band - W) < 8192 (checked in ops/gact), so int16."""
+        entry_bits - 2 wide, so int16 holds counts to 8191, then int32.
+        Resident counts reach max(L, band - W); the gact walk's max(T,
+        band - W) (an M-run stops at its tile's floor): int16 for every
+        gact pass up to the 50 kb bucket's retry, int32 for the full-band
+        retry of reads past ~80 kb (JAX refuses those, ROADMAP.md C)."""
         if self.use_gact:
-            return 2
-        cmax = max(self.L, self.short_band - self.short_W)
+            cmax = max(self.gact_tile, self.gact_band - self.gact_W)
+        else:
+            cmax = max(self.L, self.short_band - self.short_W)
         return 2 if cmax < 8192 else 4
+
+    @property
+    def entry_dtype(self) -> torch.dtype:
+        """The run entries' dtype, tb_entry_bytes wide."""
+        return torch.int16 if self.tb_entry_bytes == 2 else torch.int32
 
     @property
     def meta_words(self) -> int:
@@ -323,13 +333,12 @@ def map_step(cfg: MapperConfig, idx: DeviceIndex, codes, codes_rc, lens,
             q, t, ckpt, ln, T, Wp, cfg.gact_band,
             scale=cfg.gact_runs_scale,
             group=gact_group_tiles(cfg.B, cfg.L, T, cfg.gact_band,
-                                   cfg.mid_dirs_budget))
+                                   cfg.mid_dirs_budget),
+            entry_dtype=cfg.entry_dtype)
         mark("gact_walk")
     else:
-        run_units = device_traceback_c(
-            vdirs, ln, cfg.L, Wp, nm,
-            entry_dtype=torch.int16 if cfg.tb_entry_bytes == 2
-            else torch.int32)
+        run_units = device_traceback_c(vdirs, ln, cfg.L, Wp, nm,
+                                       entry_dtype=cfg.entry_dtype)
         saturated = None
         mark("walk")
     # the meta words, then the run entries pad-sorted (path order kept)

@@ -97,8 +97,9 @@ class _Step:
 class _Part:
     """A chunk part through the stream, updated in place by each stage:
     dispatched (`first`; under a mesh `valid`, the collective count),
-    fetched (`meta`, `ops`, `need`; its overflow steps `retry`, issued at
-    stage `issued_at`), finished (the steps spliced into meta and ops)."""
+    fetched (`meta`, `ops` of `eb`-byte entries, `need`; its overflow
+    steps `retry`, issued at stage `issued_at`), finished (the steps
+    spliced into meta and ops, `eb` the widest of their entries)."""
     cfg: MapperConfig
     reads: Sequence[Tuple[str, str, Optional[str]]]
     chunk: Optional[int]
@@ -106,6 +107,7 @@ class _Part:
     valid: Optional[torch.Tensor] = None
     meta: Optional[np.ndarray] = None
     ops: Optional[np.ndarray] = None
+    eb: int = 0
     need: Optional[np.ndarray] = None
     retry: List[_Step] = field(default_factory=list)
     issued_at: int = 0
@@ -159,9 +161,12 @@ class _Cigars:
 
 def _widen_entries(ops: np.ndarray, src: int, dst: int) -> np.ndarray:
     """Run bytes of src-byte entries as bytes of dst-byte entries with the
-    same values.  Only int16 -> int32 occurs: a retry tier's entries are
-    never wider than its first pass's (the full band moves the 10 kb
-    bucket from resident int32 to gact int16, never the other way)."""
+    same values: int16 -> int32, or as they are.  A splice widens
+    whichever side is narrower, in either direction: the retry's rows
+    where the first pass's entries are wider (the 10 kb bucket: a resident
+    int32 first pass, a gact int16 retry), the first pass's rows where the
+    retry's are (past ~80 kb: a gact int16 first pass, an int32
+    full-band retry)."""
     if src == dst:
         return ops
     assert (src, dst) == (2, 4), (src, dst)
@@ -288,6 +293,11 @@ class TorchMapper:
         # device) or on the host (host codes: a mesh's)
         self.raw_chunks = 0
         self.host_chunks = 0
+        # of those, the steps that took the tiled gact path, and of them
+        # the steps whose run entries are int32 (MapperConfig.tb_entry_bytes:
+        # reads past ~80 kb)
+        self.gact_steps = 0
+        self.int32_gact_steps = 0
         # mapped reads of all ranks, from the mesh's collective counter
         self.valid_global = 0
         self.submitted_chunks = 0  # a chunk's ordinal in its spans
@@ -304,7 +314,9 @@ class TorchMapper:
         # tier's issue, mapper.retry.finish: its wait and splice);
         # retry_wait = the retry steps' read-backs, a part of retry
         # (mapper.retry.wait); wide_vote = the issue of the wide vote class
-        # steps, a part of retry (mapper.retry.wide); assemble = a
+        # steps, a part of retry (mapper.retry.wide); widen = the splice's
+        # int16 -> int32 widening of run entries, a part of retry
+        # (mapper.retry.widen); assemble = a
         # chunk's records (mapper.assemble); cigar = their CIGAR strings
         # (mapper.assemble.cigar).  Device time by CUDA events (0 on the
         # CPU), a _Step's start to end, read in _read_back after its wait:
@@ -313,7 +325,8 @@ class TorchMapper:
         # last kernel; wide_vote_device = the class steps' part of it.
         self.phase_s = {"prepare": 0.0, "dispatch": 0.0, "fetch": 0.0,
                         "retry": 0.0, "retry_pack": 0.0, "retry_wait": 0.0,
-                        "wide_vote": 0.0, "assemble": 0.0, "cigar": 0.0,
+                        "wide_vote": 0.0, "widen": 0.0, "assemble": 0.0,
+                        "cigar": 0.0,
                         "first_pass_device": 0.0,
                         "retry_device": 0.0, "wide_vote_device": 0.0}
 
@@ -575,7 +588,7 @@ class TorchMapper:
         cfg = self._step_for(L)
         parts = []
         for part, codes, codes_rc, lens, limits in prepped:
-            self._count(codes_rc)
+            self._count(cfg, codes_rc)
             start, valid = self._event(), None
             if self.mesh is None:
                 out = self._run_step(cfg, codes, codes_rc, lens, limits,
@@ -610,6 +623,7 @@ class TorchMapper:
         for p in parts:
             with Span("mapper.fetch", p.chunk, self.phase_s, "fetch"):
                 p.meta, p.ops = self._read_back(p.first, "first_pass_device")
+                p.eb = p.cfg.tb_entry_bytes
                 if p.valid is not None:
                     self.valid_global += int(p.valid)
             p.need, p.first = p.first.need.numpy(), None
@@ -625,20 +639,24 @@ class TorchMapper:
         self._stage_seq += 1
         return parts
 
-    def _count(self, codes_rc) -> None:
-        """Count a packed step in raw_chunks (`codes_rc` None: raw bytes)
-        or host_chunks."""
+    def _count(self, cfg: MapperConfig, codes_rc) -> None:
+        """Count a packed step of `cfg` in raw_chunks (`codes_rc` None: raw
+        bytes) or host_chunks, and a gact step in gact_steps and, with
+        int32 run entries, in int32_gact_steps."""
         if codes_rc is None:
             self.raw_chunks += 1
         else:
             self.host_chunks += 1
+        if cfg.use_gact:
+            self.gact_steps += 1
+            self.int32_gact_steps += int(cfg.tb_entry_bytes == 4)
 
     def _issue_step(self, cfg: MapperConfig, part, chunk=None) -> _Step:
         """Run `cfg`'s step on the reads of `part` and queue its copies:
         its _Step.  Nothing waits here."""
         with Span("mapper.retry.pack", chunk, self.phase_s, "retry_pack"):
             packed = self._pack(part, cfg.L, cfg.B)
-        self._count(packed[1])
+        self._count(cfg, packed[1])
         start = self._event()
         o = self._run_step(cfg, *packed, chunk=chunk)
         return self._start_d2h(cfg, o, start, self._event(), chunk)
@@ -666,6 +684,7 @@ class TorchMapper:
             sat = self._sat_step_for(cfg.L)
             p.meta, p.ops = self._finish_step(
                 self._issue_step(sat, p.reads, p.chunk), p.chunk)
+            p.eb = sat.tb_entry_bytes
         self.retried_sat_chunks += 1
 
     def _retry_overflow(self, p: _Part) -> None:
@@ -714,22 +733,33 @@ class TorchMapper:
         self.retry_steps += len(p.retry)
         p.issued_at = self._stage_seq
 
+    def _widen(self, ops: np.ndarray, src: int, dst: int, chunk=None):
+        """_widen_entries in a mapper.retry.widen span where it widens."""
+        if src == dst:
+            return ops
+        with Span("mapper.retry.widen", chunk, self.phase_s, "widen"):
+            return _widen_entries(ops, src, dst)
+
     def _finish_overflow(self, p: _Part) -> None:
-        """Wait for a part's overflow steps and splice their rows in, run
-        entries widened to the chunk's width; a read a wide vote class step
-        leaves with bit 0 counts in wide_vote_unresolved."""
+        """Wait for a part's overflow steps and splice their rows in, the
+        run entries of every row at the widest of the part's and the
+        steps' widths (the narrower side widened, either way); a read a
+        wide vote class step leaves with bit 0 counts in
+        wide_vote_unresolved."""
         if not p.retry:
             return
         with Span("mapper.retry.finish", p.chunk, self.phase_s, "retry"):
-            meta, ops = p.meta.copy(), p.ops.copy()
+            eb = max([p.eb] + [s.cfg.tb_entry_bytes for s in p.retry])
+            meta = p.meta.copy()
+            ops = (self._widen(p.ops, p.eb, eb, p.chunk) if eb != p.eb
+                   else p.ops.copy())
             for step in p.retry:
                 sel, c = step.sel, step.cfg
                 meta_r, ops_r = self._finish_step(step, p.chunk)
                 if step.wide:
                     self.wide_vote_unresolved += int(
                         (meta_r[:sel.size, c.meta_words - 1] & 1).sum())
-                ops_r = _widen_entries(ops_r, c.tb_entry_bytes,
-                                       p.cfg.tb_entry_bytes)
+                ops_r = self._widen(ops_r, c.tb_entry_bytes, eb, p.chunk)
                 if ops_r.shape[1] > ops.shape[1]:
                     ops = np.pad(ops, ((0, 0), (0, ops_r.shape[1]
                                                 - ops.shape[1])),
@@ -740,7 +770,7 @@ class TorchMapper:
         if self._stage_seq > p.issued_at:
             self.deferred_retry_steps += len(p.retry)
         # the steps' pinned buffers go now, as the need does
-        p.meta, p.ops, p.need, p.retry = meta, ops, None, []
+        p.meta, p.ops, p.eb, p.need, p.retry = meta, ops, eb, None, []
 
     # ----------------------------------------------------------- assembly
 
@@ -824,7 +854,7 @@ class TorchMapper:
             found, gi, strand, off, ed = m[:, 1] != 0, m[:, 2], \
                 m[:, 3] != 0, m[:, 4], m[:, 5]
         with Span("mapper.assemble.cigar", p.chunk, self.phase_s, "cigar"):
-            cigs = self._cigars(p.ops[:n], p.cfg.tb_entry_bytes)
+            cigs = self._cigars(p.ops[:n], p.eb)
         with Span("mapper.assemble.records", p.chunk):
             seqs = [s.encode().translate(_COMP)[::-1].decode() if r else s
                     for (_, s, _), r in zip(p.reads,

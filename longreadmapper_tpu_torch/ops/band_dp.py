@@ -17,7 +17,7 @@ a CUDA tensor it launches a kernel or raises:
   * the CTA-per-read kernel `band_dp_wide`, through its one entry
     `band_dp_tiles` (grid (B, tiles), counted in `band_dp_tiles.launches`),
     for a group of tiles and for a whole pass at every other band up to
-    16384, 512 included (one tile of L rows entered from row 0).
+    32768, 512 included (one tile of L rows entered from row 0).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from .wavefront import banded_nw_dirs_v, row0
 # is faster (scripts/torch_cluster_sweep.py; PERF.md), and _band_dp
 # takes 512 only to measure that
 BANDS = (128, 256, 384)
-WIDE_MAX_BAND = 16384              # the CTA-per-read kernel: band % 128 == 0
+WIDE_MAX_BAND = 32768              # the CTA-per-read kernel: band % 128 == 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FUNCS = {

@@ -33,6 +33,15 @@ tensors it runs the plain version
 `gact_traceback_c_plain`, eager PyTorch in lock step with one host sync
 per iteration (the JAX while_loop's `any(alive)`, counted in
 `gact_traceback_c.host_syncs`).
+
+Run entries are (count << 2) | op in the caller's `entry_dtype`: int16
+holds counts to 8191, int32 to 2^29 - 1.  A walk's counts reach max(T,
+band - W) (an M-run ends at its tile's floor; the row-0 D-run is shorter
+than band - W), so the step takes int32 where that passes 8191
+(mapping/pipeline.MapperConfig.tb_entry_bytes: the full-band retry of
+reads past ~80 kb).  JAX's walk keeps int16 entries and refuses those
+shapes (its ops/gact.py:310); here only a count that would overflow the
+entries asked for raises (ROADMAP.md section C).
 """
 
 from __future__ import annotations
@@ -43,7 +52,8 @@ from .. import native_build
 from . import step
 from .band_dp import banded_nw_dirs_tiles
 from .seed_vote import _stream
-from .traceback import OP_PAD, WALK_FUNCS, group_below, msb32
+from .traceback import (OP_PAD, WALK_FUNCS, check_run_counts, group_below,
+                        msb32)
 from .wavefront import dp_rows, row0
 
 _MASK32 = 0xFFFFFFFF
@@ -90,15 +100,6 @@ def gact_group_tiles(B: int, L: int, T: int, band: int, budget: int) -> int:
     return max(1, min(L // T, budget // tile_bytes))
 
 
-def _check_counts(T: int, W: int, band: int) -> None:
-    if T > 8191 or band - W > 8191:
-        # the reference's own bound (JAX ops/gact.py:310; ROADMAP.md C):
-        # (count << 2) of an int16 entry holds counts < 8192
-        raise ValueError(f"gact run counts overflow int16 entries: T={T}, "
-                         f"band - W = {band - W} (both must be <= 8191; "
-                         "reads past ~80 kb, ROADMAP.md C)")
-
-
 def _for_each_group(q, t, ckpt, T: int, W: int, band: int, group: int,
                     walk, mark):
     """Rematerialize the tiles newest first, `group` at a time, and call
@@ -123,34 +124,39 @@ def _for_each_group(q, t, ckpt, T: int, W: int, band: int, group: int,
 
 
 def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
-                     scale: int = 1, group: int = 1, mark=None, iters=None):
+                     scale: int = 1, group: int = 1, mark=None, iters=None,
+                     entry_dtype=torch.int16):
     """Column-consuming rematerialized walk.  lens (B,) with dead lanes
     (unmapped / over-limit) masked to 0 by the caller, or G3 as a
     step.Lanes (its lens_tb); `group` tiles are rematerialized at a time
     (gact_group_tiles); `mark` as _for_each_group's; `iters`, when given,
     an int32 (L/T, B) tensor on the input's device that receives each
-    lane's iterations in each tile.
+    lane's iterations in each tile; `entry_dtype` the run entries', int16
+    or int32 (raises ValueError where max(T, band - W) passes what its
+    count field holds, traceback.check_run_counts).
 
-    Returns (runs (B, gact_runs_cols_c(L, T, W, scale)) int16 entries
-    (count << 2 | op) in reverse path order with pad gaps between tiles,
-    saturated): all lanes share one write pointer that clamps at the last
-    buffer row; `saturated`, a 0-dim bool tensor on the input's device, is
-    True when that row took two or more writes (every lane's runs are then
-    suspect).  On CUDA tensors one launch of step.gact_setup, then one of
-    gact_walk_kernel a group (raises for what it does not take); on CPU
-    tensors the plain version."""
-    _check_counts(T, W, band)
+    Returns (runs (B, gact_runs_cols_c(L, T, W, scale)) entries (count <<
+    2 | op) in `entry_dtype`, in reverse path order with pad gaps between
+    tiles, saturated): all lanes share one write pointer that clamps at
+    the last buffer row; `saturated`, a 0-dim bool tensor on the input's
+    device, is True when that row took two or more writes (every lane's
+    runs are then suspect).  On CUDA tensors one launch of
+    step.gact_setup, then one of gact_walk_kernel a group (raises for what
+    it does not take); on CPU tensors the plain version."""
+    # an M-run ends at its tile's floor; the row-0 D-run < band - W
+    check_run_counts(max(T, band - W), entry_dtype, "max(T, band - W)")
     given = not isinstance(lens, step.Lanes)
     if q.device.type == "cpu":
         return gact_traceback_c_plain(q, t, ckpt, lens if given
                                       else lens.lens_tb, T, W, band, scale,
-                                      group, mark, iters)
+                                      group, mark, iters, entry_dtype)
     B, L = q.shape
     dev = q.device
     if given and (lens.device != dev or lens.shape != (B,)):
         raise ValueError(f"lens {tuple(lens.shape)} on {lens.device}: (B,) "
                          f"on {dev}")
-    st, buf = step.gact_setup(lens, gact_runs_cols_c(L, T, W, scale) // 2)
+    st, buf = step.gact_setup(lens, gact_runs_cols_c(L, T, W, scale) // 2,
+                              entry_dtype)
     return gact_traceback_c_state(q, t, ckpt, st, buf, T, W, band, group,
                                   mark, iters)
 
@@ -159,8 +165,9 @@ def gact_traceback_c_state(q, t, ckpt, st, buf, T: int, W: int, band: int,
                            group: int = 1, mark=None, iters=None):
     """gact_traceback_c on CUDA tensors from its prepared state
     (step.gact_setup): st (3B + 3) int32, each lane's (i, j, done) and the
-    shared (ptr, nsat, CTA ticket), and buf (B, 2 n_rows) int16 of pads,
-    which the walk fills.  Returns (buf, saturated)."""
+    shared (ptr, nsat, CTA ticket), and buf (B, 2 n_rows) of pads, int16
+    or int32 entries (the walk writes that width), which the walk fills.
+    Returns (buf, saturated)."""
     dev = q.device
     with step._on(dev):
         return _gact_walk_run(native_build.load("walk", WALK_FUNCS),
@@ -175,8 +182,9 @@ def _gact_walk_run(lib, stream, q, t, ckpt, st, buf, T: int, W: int,
     K = L // T
     dev = q.device
     n_rows = buf.shape[1] // 2
+    ed = buf.dtype
     for name, x, dtype, shape in (("st", st, torch.int32, (3 * B + 3,)),
-                                  ("buf", buf, torch.int16, (B, 2 * n_rows))):
+                                  ("buf", buf, ed, (B, 2 * n_rows))):
         if (x.dtype != dtype or x.device != dev or x.shape != shape
                 or not x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
@@ -189,7 +197,7 @@ def _gact_walk_run(lib, stream, q, t, ckpt, st, buf, T: int, W: int,
                          f"on {dev}")
     # each lane's pairs, staged until the group's last CTA places them, and
     # where each of its tiles' pairs start
-    stage = torch.empty((B, n_rows, 2), dtype=torch.int16, device=dev)
+    stage = torch.empty((B, n_rows, 2), dtype=ed, device=dev)
     starts = torch.empty((K, B), dtype=torch.int32, device=dev)
 
     def walk(k_lo, k_hi, vg, nmg):
@@ -205,7 +213,7 @@ def _gact_walk_run(lib, stream, q, t, ckpt, st, buf, T: int, W: int,
                                 st.data_ptr(), iters.data_ptr(),
                                 starts.data_ptr(), stage.data_ptr(),
                                 buf.data_ptr(), B, T, W, band, k_lo, k_hi,
-                                n_rows, stream)
+                                n_rows, ed.itemsize, stream)
         if err != 0:
             raise RuntimeError(f"gact_walk kernel launch failed: error {err}")
         gact_traceback_c.launches += 1
@@ -220,12 +228,13 @@ gact_traceback_c.host_syncs = 0       # the plain version's, on any device
 
 def gact_traceback_c_plain(q, t, ckpt, lens, T: int, W: int, band: int,
                            scale: int = 1, group: int = 1, mark=None,
-                           iters=None):
+                           iters=None, entry_dtype=torch.int16):
     """Plain version of gact_traceback_c: eager PyTorch, all lanes in lock
     step, one host sync per iteration of each tile's loop."""
     if q.device.type == "cuda":
         gact_traceback_c_plain.cuda_calls += 1
-    _check_counts(T, W, band)
+    # an M-run ends at its tile's floor; the row-0 D-run < band - W
+    check_run_counts(max(T, band - W), entry_dtype, "max(T, band - W)")
     B, L = q.shape
     G = T // 16
     dev = q.device
@@ -236,7 +245,7 @@ def gact_traceback_c_plain(q, t, ckpt, lens, T: int, W: int, band: int,
     i = lens.to(i64)
     j = i.clone()
     done = i <= 0
-    buf = torch.full((n_rows, B, 2), OP_PAD, dtype=torch.int16, device=dev)
+    buf = torch.full((n_rows, B, 2), OP_PAD, dtype=entry_dtype, device=dev)
     ptr = nsat = syncs = 0
     if iters is not None:
         iters.zero_()
@@ -301,8 +310,8 @@ def gact_traceback_c_plain(q, t, ckpt, lens, T: int, W: int, band: int,
                 e2 = torch.where(take_e, 4 | op,
                                  torch.where(drun > 0, (drun << 2) | 2,
                                              OP_PAD))
-                buf[ptr, :, 0] = e1.to(torch.int16)
-                buf[ptr, :, 1] = e2.to(torch.int16)
+                buf[ptr, :, 0] = e1.to(entry_dtype)
+                buf[ptr, :, 1] = e2.to(entry_dtype)
                 # writes that land on the clamped last row: the first is
                 # legitimate, every later one overwrites it for all lanes
                 nsat += ptr == n_rows - 1

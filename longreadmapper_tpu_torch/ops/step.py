@@ -16,8 +16,10 @@ into the jitted step; none is a pallas_call):
   pack(cfg, best, found, gi, strand, off, lanes, limit, run_units,
        saturated)
                                  -> dict(blob, ops_tail): the step's output
-  gact_setup(lens, n_rows)       -> (st, buf): the gact walk's state and
-                                    its run buffer of pads
+  gact_setup(lens, n_rows, entry_dtype)
+                                 -> (st, buf): the gact walk's state and
+                                    its run buffer of pads, int16 or int32
+                                    entries
 
 On a CUDA tensor each launches its hand-written kernel in csrc/step.cu
 (encode_kernel, locate_window_kernel, pack_kernel, lanes_kernel), counted
@@ -202,11 +204,11 @@ class Lanes:
                      self.lens_tb))
 
 
-def gact_setup_plain(lens, n_rows: int):
+def gact_setup_plain(lens, n_rows: int, entry_dtype=torch.int16):
     """Plain version of gact_setup: the walk state st (3B + 3) int32 (each
     lane's i, j from its walk length and done where that is <= 0, then the
     shared write pointer, saturated count and CTA ticket at 0) and the run
-    buffer (B, 2 n_rows) int16 of pads, built by eager ops."""
+    buffer (B, 2 n_rows) of pads in `entry_dtype`, built by eager ops."""
     if isinstance(lens, Lanes):
         lens = lens.lens_tb
     if lens.device.type == "cuda":
@@ -214,7 +216,7 @@ def gact_setup_plain(lens, n_rows: int):
     l32 = lens.to(I32)
     st = torch.cat([l32, l32, (l32 <= 0).to(I32),
                     torch.zeros(3, dtype=I32, device=lens.device)])
-    buf = torch.full((lens.shape[0], 2 * n_rows), 3, dtype=torch.int16,
+    buf = torch.full((lens.shape[0], 2 * n_rows), 3, dtype=entry_dtype,
                      device=lens.device)
     return st, buf
 
@@ -296,7 +298,7 @@ class SetupArgs(ctypes.Structure):
     """csrc/step.cu::SetupArgs: every field 8 bytes."""
     _fields_ = [("lanes", LanesIn), ("st", ctypes.c_void_p),
                 ("buf", ctypes.c_void_p), ("B", ctypes.c_int64),
-                ("n_rows", ctypes.c_int64)]
+                ("n_rows", ctypes.c_int64), ("eb", ctypes.c_int64)]
 
 
 class PackArgs(ctypes.Structure):
@@ -529,21 +531,25 @@ def _lanes_src(ln: Lanes, B: int, dev, who: str) -> LanesIn:
     return ln.src
 
 
-def gact_setup(lens, n_rows: int):
-    """(st (3B + 3) int32, buf (B, 2 n_rows) int16 of pads): the gact
-    walk's state and run buffer (ops/gact.py) from each lane's walk length,
-    a (B,) tensor (0 or less: no walk) or G3 as a Lanes, whose values for
-    the pack it writes.  One launch of lanes_kernel on CUDA tensors
-    (counted in lanes.launches given a Lanes), st and buf views of one
-    allocation; the plain version on CPU tensors."""
+def gact_setup(lens, n_rows: int, entry_dtype=torch.int16):
+    """(st (3B + 3) int32, buf (B, 2 n_rows) of pads in `entry_dtype`,
+    int16 or int32): the gact walk's state and run buffer (ops/gact.py)
+    from each lane's walk length, a (B,) tensor (0 or less: no walk) or G3
+    as a Lanes, whose values for the pack it writes.  One launch of
+    lanes_kernel on CUDA tensors (counted in lanes.launches given a
+    Lanes), st and buf views of one allocation; the plain version on CPU
+    tensors."""
+    if entry_dtype not in (torch.int16, I32):
+        raise TypeError(f"run entries are int16 or int32, not {entry_dtype}")
     dev = lens.ed_raw.device if isinstance(lens, Lanes) else lens.device
     if dev.type == "cpu":
-        return gact_setup_plain(lens, n_rows)
+        return gact_setup_plain(lens, n_rows, entry_dtype)
     with _on(dev):
-        return _gact_setup_run(_lib(), _stream(dev), lens, n_rows)
+        return _gact_setup_run(_lib(), _stream(dev), lens, n_rows,
+                               entry_dtype)
 
 
-def _gact_setup_run(lib, stream, lens, n_rows: int):
+def _gact_setup_run(lib, stream, lens, n_rows: int, entry_dtype=torch.int16):
     """gact_setup through `lib`'s lrm_gact_setup on `stream`."""
     given = not isinstance(lens, Lanes)
     if given:
@@ -555,16 +561,18 @@ def _gact_setup_run(lib, stream, lens, n_rows: int):
     else:
         B, dev = lens.ed_raw.shape[0], lens.ed_raw.device
         src = _lanes_src(lens, B, dev, "gact_setup")
+    eb = entry_dtype.itemsize
+    per = eb // 2                              # words a pair
     o = -(-(3 * B + 3) // 4) * 4               # the buffer 16-aligned
-    mem = torch.empty((o + B * n_rows,), dtype=I32, device=dev)
+    mem = torch.empty((o + B * n_rows * per,), dtype=I32, device=dev)
     st = mem.as_strided((3 * B + 3,), (1,))
-    words = mem.as_strided((B, n_rows), (n_rows, 1), o)   # a pair a word
+    words = mem.as_strided((B, n_rows * per), (n_rows * per, 1), o)
     _call(lib, "lrm_gact_setup", SetupArgs(
-        src, st.data_ptr(), words.data_ptr(), B, n_rows), stream)
+        src, st.data_ptr(), words.data_ptr(), B, n_rows, eb), stream)
     if not given:
         lanes.launches += 1
         lens.written = True
-    return st, words.view(torch.int16)
+    return st, words.view(entry_dtype)
 
 
 def pack(cfg, best, found, gi, strand, off, lanes, limit, run_units,

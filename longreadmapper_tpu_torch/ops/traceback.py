@@ -45,7 +45,7 @@ _MASK32 = 0xFFFFFFFF
 _P, _I = ctypes.c_void_p, ctypes.c_int
 WALK_FUNCS = {
     "lrm_walk_c_lanes": [_P, _P],
-    "lrm_gact_walk": [_P] * 7 + [_I] * 7 + [_P],
+    "lrm_gact_walk": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 
@@ -89,11 +89,17 @@ def group_below(nmf, bmidx, g_cur):
     return g2
 
 
-def _check_entry_bits(L: int, W: int, band: int, entry_dtype) -> None:
-    # count field = entry bits - 2: mrun <= L and the row-0 D-run < band - W
-    if max(L, band - W) >= (1 << (torch.iinfo(entry_dtype).bits - 3)):
-        raise ValueError(f"run counts up to max(L, band - W) = "
-                         f"{max(L, band - W)} overflow {entry_dtype} entries")
+def check_run_counts(cmax: int, entry_dtype, what: str) -> None:
+    """Raises ValueError where a walk's run counts, up to `cmax` (`what`
+    names it), overflow (count << 2) | op in `entry_dtype`: a signed
+    int16's count field holds counts to 8191, an int32's to 2^29 - 1;
+    TypeError for any other dtype.  Both walks check with it."""
+    if entry_dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"run entries are int16 or int32, not {entry_dtype}")
+    top = (1 << (torch.iinfo(entry_dtype).bits - 3)) - 1
+    if cmax > top:
+        raise ValueError(f"run counts up to {what} = {cmax} overflow "
+                         f"{entry_dtype} entries, whose counts stop at {top}")
 
 
 def device_traceback_c(vdirs, lens, L: int, W: int, nm,
@@ -121,9 +127,8 @@ def _walk_c_run(lib, stream, vdirs, lens, L: int, W: int, nm, entry_dtype):
     given = not isinstance(lens, step.Lanes)
     dev = vdirs.device
     G, B, band = vdirs.shape
-    _check_entry_bits(L, W, band, entry_dtype)
-    if entry_dtype not in (torch.int16, torch.int32):
-        raise TypeError(f"run entries are int16 or int32, not {entry_dtype}")
+    # mrun <= L and the row-0 D-run < band - W
+    check_run_counts(max(L, band - W), entry_dtype, "max(L, band - W)")
     if vdirs.dtype != torch.int32 or nm.dtype != torch.int32:
         raise TypeError(f"vdirs and nm must be int32, got {vdirs.dtype}, "
                         f"{nm.dtype}")
@@ -170,7 +175,7 @@ def device_traceback_c_plain(vdirs, lens, L: int, W: int, nm,
     if vdirs.device.type == "cuda":
         device_traceback_c_plain.cuda_calls += 1
     G, B, band = vdirs.shape
-    _check_entry_bits(L, W, band, entry_dtype)
+    check_run_counts(max(L, band - W), entry_dtype, "max(L, band - W)")
     dev = vdirs.device
     i64 = torch.int64
     Vf = vdirs.reshape(-1)

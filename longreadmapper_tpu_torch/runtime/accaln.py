@@ -5,8 +5,9 @@ Loads the persisted index to the device, streams read batches through
 TorchMapper and writes SAM; logs phase timings and the final sensitivity
 valid/total.  The verbose log's `phase_s` is TorchMapper.phase_s: the host
 seconds of prepare, dispatch, fetch, retry (both retry tiers, their wait
-included), retry_wait (the waits for the retry steps' copies), assemble
-and cigar (its CIGAR strings), and the card seconds of first_pass_device
+included), retry_wait (the waits for the retry steps' copies), widen (the
+splice's int16 -> int32 widening of run entries), assemble and cigar (its
+CIGAR strings), and the card seconds of first_pass_device
 and retry_device (CUDA events; 0 on the CPU).  A torch.profiler trace taken around
 `run_mapping` shows the mapper's `mapper.*` spans beside the card's kernels
 (longreadmapper_tpu_torch/utils/trace.py).
@@ -69,6 +70,8 @@ def run_mapping(genome_path: str, reads_path: str,
     log.vlog("phase_s %s", json.dumps(mapper.phase_s))
     log.vlog("packed steps: %d raw-encoded on the device, %d host-encoded",
              mapper.raw_chunks, mapper.host_chunks)
+    log.vlog("gact steps: %d, of them %d with int32 run entries",
+             mapper.gact_steps, mapper.int32_gact_steps)
     log.vlog("retried reads %d, overflow reads %d, wide vote reads %d "
              "(steps %d, unresolved %d), retried_sat_chunks %d, "
              "retry steps %d (deferred %d)", mapper.retried_reads,

@@ -253,7 +253,7 @@ def main(argv=None) -> int:
                           ln.src, L // 16, B, band, W, n_iter, 2)
     st_g, buf_g = S.gact_setup(lng, n_rows)
     sblock = S.SetupArgs(lng.src, st_g.data_ptr(), buf_g.data_ptr(), Bg,
-                         n_rows)
+                         n_rows, 2)
 
     parts = {
         "locate_window: the earlier checks (6 tensors, 3 checks each)":

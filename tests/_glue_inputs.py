@@ -182,20 +182,21 @@ def model_lane(wcol, lens, limit, found, ovf, Wp: int, narrow: bool, b):
 
 
 def model_gact_setup(walk_len, B: int, n_rows: int, threads: int = 256,
-                     max_blocks: int = 4096):
-    """csrc/step.cu::lanes_kernel as it is written, a grid of `threads`
-    thread blocks sized as lrm_gact_setup sizes it (the fill's blocks at
-    most `max_blocks`, a thread for each lane and shared word), over
-    buffers of garbage: thread t < B writes lane t's (i, j, done) from
-    walk_len(t), threads B .. B + 2 zero the shared words, and the grid
-    fills the run buffer, four pad pairs (int32 words) at a time, then the
-    words past the last four.  Returns (st (3B + 3) int32, buf (B,
-    2 n_rows) int16)."""
+                     max_blocks: int = 4096, eb: int = 2):
+    """csrc/step.cu::lanes_kernel<eb> as it is written, a grid of
+    `threads` thread blocks sized as lrm_gact_setup sizes it (the fill's
+    blocks at most `max_blocks`, a thread for each lane and shared word),
+    over buffers of garbage: thread t < B writes lane t's (i, j, done)
+    from walk_len(t), threads B .. B + 2 zero the shared words, and the
+    grid fills the run buffer, four int32 words at a time (a word a pad
+    pair of int16 entries, two a pair of int32), then the words past the
+    last four.  Returns (st (3B + 3) int32, buf (B, 2 n_rows) int16, or
+    int32 where eb is 4)."""
     st = np.full(3 * B + 3, -0x5A5A5A5B, np.int64)
-    words = np.full(B * n_rows, 0x5A5A5A5A, np.int64)
-    blocks = min(-(-(B * n_rows // 4) // threads), max_blocks)
+    words = np.full(B * n_rows * (eb // 2), 0x5A5A5A5A, np.int64)
+    blocks = min(-(-(len(words) // 4) // threads), max_blocks)
     nt = max(blocks, -(-(B + 3) // threads)) * threads
-    pad = (3 << 16) | 3
+    pad = (3 << 16) | 3 if eb == 2 else 3
     vecs = len(words) >> 2
     for t in range(nt):
         if t < B:
@@ -208,7 +209,8 @@ def model_gact_setup(walk_len, B: int, n_rows: int, threads: int = 256,
             words[4 * k:4 * k + 4] = pad
         for k in range(4 * vecs + t, len(words), nt):
             words[k] = pad
-    buf = words.astype(np.uint32).view(np.int16).reshape(B, 2 * n_rows)
+    buf = words.astype(np.uint32).view(np.int16 if eb == 2 else np.int32
+                                       ).reshape(B, 2 * n_rows)
     return st.astype(np.int32), buf
 
 

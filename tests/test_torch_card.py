@@ -7,9 +7,10 @@ as tests/test_torch_long.py forces it on the CPU); and, off the map path,
 the card-side suffix-array build and the affine scorer; map_stream
 against map_stream_sam; the stream's overflow retry running on the
 card under an earlier chunk's assembly; and 10 kb and 50 kb streams over
-high-copy repeat families, whose reads take the wide vote classes,
-judged read by read by the benchmark's plain reference
-(benchmark/reference.py).  Every SAM is byte-identical between the
+high-copy repeat families, whose reads take the wide vote classes, and a
+stream of 98-100 kb reads over a tandem array of 320 copies (int32 run
+entries in the full-band retry), judged read by read by the benchmark's
+plain reference (benchmark/reference.py).  Every SAM is byte-identical between the
 devices and every CIGAR is checked against the genome.
 
 Card-only: the tests skip where torch.cuda.is_available() is false, and
@@ -527,3 +528,55 @@ def test_stream_over_high_copy_repeats_matches_reference_on_card(
     print(f"[card] {hi}: peak {peak} B with the classes, {peak_exact} B "
           f"without, class scratch {scratch} B")
     assert peak <= peak_exact + scratch
+
+
+# a contig with a tandem array of 320 identical 500 bp copies (160 kb):
+# every seed inside it passes thres on each strand, as over DXZ1
+# (benchmark/configs/human_chrX.json), and a 100 kb read fits inside it
+ARRAY = {"contigs": [["c1", 700000]], "gc": 0.395,
+         "repeats": [{"family": "sat", "length": 500, "copies": 320,
+                      "placement": "tandem", "contig": "c1", "at": 250000}]}
+
+
+@pytest.mark.cuda
+def test_stream_of_100kb_reads_over_a_tandem_array_matches_reference_on_card(
+        tmp_path):
+    """16 reads of 98,305-100,352 bases (the 100,352 bucket, B 16), some
+    over or inside ARRAY, through map_stream_sam at chunk_b 2048 with no
+    option: every record equals the plain reference's and every mapped
+    CIGAR spells its ED against the genome; the reads past the first
+    pass's half band take the full-band retry, whose gact steps keep int32
+    run entries."""
+    _card()
+    from benchmark.judge import judge
+    from benchmark.reference import Reference
+    from benchmark.run import build_mapper
+    from benchmark.traffic import make_genome, make_pool, write_fasta
+    g = make_genome(ARRAY, 31)
+    pool = make_pool(g, dict(TRAFFIC, chunk_reads=16, pool_chunks=1,
+                             lengths=dict(mean=15000, stdev=13000,
+                                          min=98305, max=100352)), 31,
+                     "cuda")
+    fa = str(tmp_path / "array.fa")
+    write_fasta(fa, g)
+    tm = build_mapper(dict(mapper=dict(seed_len=20, thres=300, hlen=12,
+                                       chunk_b=2048)), fa, "cuda")
+    tm.warmup([100352])
+    chunk = [(f"r{i}", pool.seqs[i], pool.quals[i]) for i in pool.chunk(0)]
+    text = "".join(t for t, _, _ in tm.map_stream_sam(iter([chunk])))
+    rows = [line.split("\t") for line in text.splitlines()]
+    reads = [(n, s) for n, s, _ in chunk]
+    ref = Reference(g, 20, 300, "cuda")
+    counts = judge(rows, reads, ref.map_reads([s for _, s in reads]), ref)
+    assert counts["records_wrong"] == 0, counts["wrong"][:8]
+    genome = "".join("ACGT"[c] for c in g.codes)
+    _check_records(text, genome, 16, 8)
+    lo, hi = 250000, 250000 + 320 * 500
+    over = [i for i in pool.chunk(0)
+            if pool.origin[i] < hi and pool.origin[i] + pool.lengths[i] > lo]
+    print(f"[card] 100 kb: {len(over)} reads over the array, retried "
+          f"{tm.retried_reads}, gact steps {tm.gact_steps} "
+          f"({tm.int32_gact_steps} int32), overflow reads "
+          f"{tm.overflow_reads}")
+    assert over and tm.retried_reads > 0
+    assert tm.gact_steps > tm.int32_gact_steps > 0

@@ -279,9 +279,25 @@ def test_run_mapping_logs_phase_times_and_retries(cli_dirs):
     assert sorted(phase_s) == ["assemble", "cigar", "dispatch", "fetch",
                                "first_pass_device", "prepare", "retry",
                                "retry_device", "retry_pack", "retry_wait",
-                               "wide_vote", "wide_vote_device"]
+                               "wide_vote", "wide_vote_device", "widen"]
     assert all(v >= 0 for v in phase_s.values())
     assert sum("retried reads 0, overflow reads" in l for l in lines) == 1
+
+
+def test_run_mapping_logs_gact_steps(cli_dirs):
+    """The verbose log of `map` counts the gact steps and, of them, those
+    with int32 run entries (its 256-base reads take the resident path:
+    none); --quiet prints neither."""
+    from longreadmapper_tpu_torch import cli as tcli
+    args = ["map", cli_dirs["torch"], cli_dirs["fq"], "1000", "20", "300",
+            "--chunk-b", "16", "--rg-id", "0", "--device", "cpu"]
+    for extra, want in (([], 1), (["--quiet"], 0)):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            _run_cli(tcli.main, args + extra)
+        lines = err.getvalue().splitlines()
+        assert sum("gact steps: 0, of them 0 with int32 run entries" in l
+                   for l in lines) == want
 
 
 def test_stage_times_cover_every_stage(cli_dirs):

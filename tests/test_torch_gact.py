@@ -238,7 +238,8 @@ def test_walk_refuses_int16_count_overflow():
 @pytest.mark.parametrize("B,L,W,band,T,k0,tiles", [
     (8, 8192, 2508, 5120, 512, 3, 13),     # the 50 kb first pass
     (4, 4096, 5017, 10112, 256, 0, 16),    # its retry band, every tile
-    (16, 2048, 1024, 2176, 128, 5, 11)])
+    (16, 2048, 1024, 2176, 128, 5, 11),
+    (3, 2048, 10035, 20096, 512, 1, 3)])   # the 100 kb retry: K = 32
 def test_tiles_kernel_matches_plain_on_card(B, L, W, band, T, k0, tiles):
     """The multi-tile entry: one launch of grid (B, tiles), entered from
     the plain forward pass's checkpoint rows in place."""
@@ -267,7 +268,10 @@ def test_tiles_kernel_matches_plain_on_card(B, L, W, band, T, k0, tiles):
                                           (37, 4096, 409, 896, 0),
                                           (8, 4096, 2508, 5120, 512),
                                           (4, 1024, 5017, 10112, 256),
-                                          (2, 1024, 8000, 16384, 256)])
+                                          (2, 1024, 8000, 16384, 256),
+                                          # K = 32 at 640 and 1024 threads
+                                          (2, 1024, 10035, 20096, 256),
+                                          (1, 512, 11000, 22016, 0)])
 def test_wide_kernel_matches_plain_on_card(B, L, W, band, T):
     """Resident mode (T == 0, the whole pass through banded_nw_dirs) and
     one tile (entered from the plain forward pass's checkpoint row at T),

@@ -232,7 +232,9 @@ def test_cluster_ctas_picks_shapes_the_kernel_takes():
     (3, 1024, 600, 1280, 256, 3),       # uneven: the last rank half padding
     (3, 1024, 600, 1280, 0, 3),         # the full matrix in a cluster
     (2, 1024, 2508, 5120, 0, 2),
-    (4, 2048, 5017, 10112, 512, 3)])
+    (4, 2048, 5017, 10112, 512, 3),
+    (4, 1024, 10035, 20096, 256, 4),     # the 100 kb retry's checkpoints
+    (2, 512, 11000, 22016, 0, 3)])
 def test_cluster_kernel_matches_plain_on_card(B, L, W, band, T, ctas):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
@@ -260,7 +262,10 @@ def test_cluster_kernel_matches_plain_on_card(B, L, W, band, T, ctas):
                                           (16, 1024, 600, 1280, 0),
                                           (8, 2048, 2000, 4096, 512),
                                           (4, 512, 5017, 10112, 128),
-                                          (2, 512, 8000, 16384, 128)])
+                                          (2, 512, 8000, 16384, 128),
+                                          # K = 32 at 640 and 1024 threads
+                                          (2, 512, 10035, 20096, 128),
+                                          (1, 512, 11000, 22016, 0)])
 def test_kernel_matches_plain_on_card(B, L, W, band, T):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")

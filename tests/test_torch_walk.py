@@ -1083,6 +1083,62 @@ def test_gact_walk_kernel_matches_plain_on_card(B, L, T, W, band, scale,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,L,T,W,band,group,case", [
+    (40, 4096, 512, 409, 896, 3, "pair"),
+    (4, 2048, 128, 32, 128, 3, "weave"),        # saturates at scale 1
+    (2, 8704, 8704, 16, 128, 1, "match"),       # an M-run of 8704
+    (3, 100352, 512, 10035, 20096, 26, "pair")])  # the 100 kb retry
+def test_gact_walk_kernel_int32_matches_plain_on_card(B, L, T, W, band,
+                                                      group, case):
+    """gact_walk_kernel<int32_t> (the 100 kb bucket's retry): runs,
+    saturated, iterations and launches (one a group) equal the plain
+    walk's at int32, and the int16 kernel's widened where its counts fit
+    (int16 is refused where band - W passes 8191); a count past 8191 (one
+    tile of 8704 matching rows) only int32 holds."""
+    _card()
+    rng = np.random.default_rng(B + L + T)
+    if case == "weave":
+        from test_torch_gact import _weave
+        q, t, lens = _weave(B, L, T, 24)
+    elif case == "match":
+        q = rng.integers(0, 4, (B, L)).astype(np.int8)
+        t, lens = q.copy(), np.full(B, L, np.int32)
+    else:
+        from _torch_parity import mutate_rows
+        q = rng.integers(0, 4, (B, L)).astype(np.int8)
+        t = mutate_rows(rng, q, L // 40, pad=L // 16)
+        lens = np.full(B, L - L // 16, np.int32)
+        lens[::7] = 0
+    qd, td, ld = (torch.from_numpy(a).cuda() for a in (q, t, lens))
+    ckpt, _ = tg.gact_forward(qd, td, T, W, band)
+    K = L // T
+    iters = torch.full((K, B), -1, dtype=torch.int32, device="cuda")
+    iters_p = torch.zeros((K, B), dtype=torch.int32, device="cuda")
+    n0 = tg.gact_traceback_c.launches
+    got, sat = tg.gact_traceback_c(qd, td, ckpt, ld, T, W, band, 1, group,
+                                   iters=iters, entry_dtype=torch.int32)
+    assert tg.gact_traceback_c.launches == n0 + -(-K // group)
+    want, sat_p = tg.gact_traceback_c_plain(qd, td, ckpt, ld, T, W, band, 1,
+                                            group, iters=iters_p,
+                                            entry_dtype=torch.int32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert torch.equal(iters, iters_p)
+    assert bool(sat) == bool(sat_p) == (case == "weave")
+    if case == "match":
+        assert (got[:, 0] == L << 2).all()
+        with pytest.raises(ValueError, match="8191"):
+            tg.gact_traceback_c(qd, td, ckpt, ld, T, W, band, 1, group)
+    elif band - W > 8191:
+        with pytest.raises(ValueError, match="8191"):
+            tg.gact_traceback_c(qd, td, ckpt, ld, T, W, band, 1, group)
+    else:
+        g16, _ = tg.gact_traceback_c(qd, td, ckpt, ld, T, W, band, 1, group)
+        assert torch.equal(g16.to(torch.int32), got)
+
+
+@pytest.mark.cuda
 def test_gact_walk_kernel_keeps_lanes_past_shared_memory_on_card():
     """20,000 lanes, more than one CTA's shared memory would hold at 12
     bytes a lane (the bound of the one-CTA walk before the warp a lane):
